@@ -12,9 +12,10 @@ contract:
 Flags beyond the reference (all optional):
   --out DIR        output directory (default: the working directory)
   --bounces N      bounce depth (default 5)
-  --device DEV     cuda or cpu (default: cuda when available); on cuda the
-                   scene renders through the fused kernel, on cpu through
-                   the composable torch path
+  --device DEV     cuda or cpu (default: cuda; without a card the run
+                   fails unless --device cpu is given); on cuda the scene
+                   renders through the fused kernel, on cpu through the
+                   composable torch path
 """
 
 from __future__ import annotations
@@ -26,10 +27,35 @@ import time
 
 import torch
 
-from cutrace_tpu.cli import dump_scene
-from cutrace_tpu.io import images
-from cutrace_tpu.scene import schema as S
-from cutrace_tpu.scene.loader import load_file
+from cutrace_tpu_torch.io import images
+from cutrace_tpu_torch.scene import schema as S
+from cutrace_tpu_torch.scene import types as T
+from cutrace_tpu_torch.scene.loader import load_file
+from cutrace_tpu_torch.scene.soa import resolve_device
+
+
+def dump_scene(scene: T.Scene, file=sys.stdout) -> None:
+    """Scene summary in the reference's dump_scene_kernel format
+    (kernel.hpp:150-166): per element, its type index within its kind's
+    schema list (the gpu_variant type index in the reference)."""
+    obj_kind = {T.Triangle: 0, T.Mesh: 1, T.Plane: 2, T.Sphere: 3}
+    light_kind = {T.Sun: 0, T.PointLight: 1}
+
+    print(f" -> Have {len(scene.objects):<4} objects:", file=file)
+    for i, o in enumerate(scene.objects):
+        print(
+            f"  -> Object   #{i:<4} has type #{obj_kind[type(o)]:<2}",
+            file=file,
+        )
+    print(f" -> Have {len(scene.lights):<4} lights:", file=file)
+    for i, l in enumerate(scene.lights):
+        print(
+            f"  -> Light    #{i:<4} has type #{light_kind[type(l)]:<2}",
+            file=file,
+        )
+    print(f" -> Have {len(scene.materials):<4} materials:", file=file)
+    for i, _ in enumerate(scene.materials):
+        print(f"  -> Material #{i:<4} has type #0 ", file=file)
 
 
 def _timed_render(prepared, bounces, device):
@@ -58,7 +84,7 @@ def main(argv=None) -> int:
     parser.add_argument("scene", nargs="?", help="scene JSON file")
     parser.add_argument("--out", default=".", help="output directory")
     parser.add_argument("--bounces", type=int, default=5)
-    parser.add_argument("--device", choices=("cuda", "cpu"), default=None)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
 
     if args.scene is None:
@@ -73,8 +99,12 @@ def main(argv=None) -> int:
     scene = result.scene
     dump_scene(scene)
 
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError:
+        print("error: no CUDA device is available; pass --device cpu to "
+              "run on the CPU", file=sys.stderr)
+        return 1
     # geometry needs full float32 products on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

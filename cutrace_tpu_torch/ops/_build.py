@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-Each kernel source under `csrc/` has a plain C entry point. It is compiled
-with nvcc for Hopper (`sm_90a`) into a shared library under the repo's
-`build/kernels/`, named by a hash of its source and flags, at first use,
-and loaded with ctypes. Nothing is built or loaded at import.
+Each kernel source under `csrc/` has plain C entry points. It is compiled
+with nvcc for Hopper (`sm_90a`) into its own shared library under the
+repo's `build/kernels/`, named by a hash of its source and flags, at first
+use, and loaded with ctypes with every entry point's signature declared.
+Nothing is built or loaded at import. `build_all` starts one nvcc per
+source, all at once.
 
 nvcc is found through CUDA_HOME, else /usr/local/cuda/bin/nvcc; without it
 the build raises.
@@ -25,10 +27,39 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCE = _CSRC / "fused_forward.cu"
+SOURCES = {
+    "fused_forward": _CSRC / "fused_forward.cu",
+    "replay_vjp": _CSRC / "replay_vjp.cu",
+}
 DEFAULT_NVCC = pathlib.Path("/usr/local/cuda/bin/nvcc")
 
-_lib = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (entry point, argtypes) per library; every entry point returns a CUDA
+# error code (0 on success)
+SIGNATURES = {
+    "fused_forward": {
+        "cutrace_fused_forward": (
+            [_P] * 9  # rays tri aabb plane sphere mat lights ambient out
+            + [_I] * 11  # n_rays m c n_planes n_spheres n_lights n_mats
+                         # bounces shadow_steps any_refl any_transp
+            + [_F]  # fudge
+            + [_P, _I, _I, _P]  # codes t_cnt p_cnt tally
+            + [_P]  # stream
+        ),
+    },
+    "replay_vjp": {
+        "cutrace_replay_vjp": (
+            [_P] * 9  # rays codes cot table lights ambient d_rays d_tbl
+                      # d_misc
+            + [_I] * 11  # n_rays n_pad k_rows n_tab t_cnt p_cnt n_lights
+                         # bounces shadow_steps any_refl any_transp
+            + [_F]  # fudge
+            + [_P]  # stream
+        ),
+    },
+}
+
+_libs: dict = {}
 
 
 def nvcc_path() -> str:
@@ -43,7 +74,7 @@ def nvcc_path() -> str:
         "the CUDA kernels cannot be built")
 
 
-def library_path(source: pathlib.Path = SOURCE) -> pathlib.Path:
+def library_path(source: pathlib.Path) -> pathlib.Path:
     """Where the library built from `source` lives: keyed by a hash of the
     source and the flags, so an edit builds anew."""
     h = hashlib.sha256(source.read_bytes())
@@ -51,48 +82,68 @@ def library_path(source: pathlib.Path = SOURCE) -> pathlib.Path:
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(source: pathlib.Path = SOURCE, verbose: bool = False) -> pathlib.Path:
-    """Compile `source` unless its library exists; returns the library
-    path. Raises with nvcc's output when the build fails."""
+def _start(source: pathlib.Path, verbose: bool):
+    """Start nvcc on `source` unless its library exists: (target, tmp,
+    cmd, process) or None."""
     target = library_path(source)
     if target.exists():
-        return target
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return target, tmp, cmd, proc
+
+
+def _finish(job, verbose: bool):
+    target, tmp, cmd, proc = job
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS,
-               *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
         if verbose:
-            print(proc.stdout + proc.stderr)
+            print(out)
         shutil.move(tmp, target)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return target
 
 
-def load_library() -> ctypes.CDLL:
-    """The fused-forward library, built at first use, with its C entry
-    point's signature declared."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.cutrace_fused_forward
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 9  # rays tri aabb plane sphere mat lights
-                                   # ambient out
-            + [ctypes.c_int] * 11  # n_rays m c n_planes n_spheres n_lights
-                                   # n_mats bounces shadow_steps any_refl
-                                   # any_transp
-            + [ctypes.c_float, ctypes.c_void_p]  # fudge, stream
-        )
-        _lib = lib
-    return _lib
+def build_all(names=None, verbose: bool = False) -> dict:
+    """Compile the named kernel libraries (all by default) that do not
+    exist yet, one nvcc each, all started together; returns name -> library
+    path. Raises with nvcc's output when a build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    jobs = [(name, _start(SOURCES[name], verbose)) for name in names]
+    try:
+        for _, job in jobs:
+            if job is not None:
+                _finish(job, verbose)
+    finally:
+        for _, job in jobs:
+            if job is not None and job[3].poll() is None:
+                job[3].kill()
+                job[3].wait()
+    return {name: library_path(SOURCES[name]) for name in names}
+
+
+def build(name: str = "fused_forward", verbose: bool = False) -> pathlib.Path:
+    """Compile one kernel library unless it exists; returns its path."""
+    return build_all([name], verbose)[name]
+
+
+def load_library(name: str = "fused_forward") -> ctypes.CDLL:
+    """A kernel library, built at first use, with its C entry points'
+    signatures declared."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _libs[name] = lib
+    return _libs[name]

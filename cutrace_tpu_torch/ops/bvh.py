@@ -4,7 +4,7 @@ cutrace_tpu.ops.bvh).
 build (host): recursively median-split triangle centroids along the widest
 axis until at most `cluster_size` triangles remain; each leaf is one
 cluster, padded to the uniform size. The native median split
-(cutrace_tpu.native.build_clusters) is used when it is built, with the
+(cutrace_tpu_torch.native.build_clusters) is used when it is built, with the
 numpy recursion as the fallback; both give the same stable order.
 
 The `Accel` stores only the PARTITION (which original triangle sits in
@@ -47,7 +47,7 @@ class Accel:
 def build_partition(centroids: np.ndarray, cluster_size: int):
     """Median-split leaf lists over triangle centroids (host). Returns a
     list of int arrays (original indices per cluster)."""
-    from cutrace_tpu import native
+    from cutrace_tpu_torch import native
 
     nat = (
         native.build_clusters(centroids, cluster_size)

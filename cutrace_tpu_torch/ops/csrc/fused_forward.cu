@@ -1,9 +1,10 @@
 // Fused forward ray tracer for NVIDIA Hopper (sm_90a): primary cast,
 // per-light shadow queries, Phong shading and the reflection/transparency
-// bounce tree, one thread per ray, in one kernel launch.
+// bounce tree, one thread per ray, in one kernel launch; optionally the
+// topology codes the replay backward (csrc/replay_vjp.cu) consumes.
 //
 // Replaces cutrace_tpu/ops/fused.py:_make_kernel_lanes (the TPU kernel K1,
-// forward only). It keeps K1's contract, not its TPU layout:
+// forward and emit_topo rows). It keeps K1's contract, not its TPU layout:
 //   * nearest hit = the (t, key) lexicographic minimum: triangles by their
 //     original flat index, then planes and spheres by scene object index
 //     against the triangle winner's object index;
@@ -20,7 +21,15 @@
 //     w * (1 - f) * phong (a leaf w * phong); its reflection child gets
 //     w * (1 - f) * r, its transparency child w * f. It is walked depth
 //     first at run time with a small stack of parked transparency frames,
-//     and a node of weight 0 is skipped.
+//     and a node of weight 0 is skipped with its subtree;
+//   * with a code buffer (K rows x R rays, int32, ray-minor so neighbouring
+//     threads write neighbouring words), each visited node writes its
+//     winner code (original triangle index, T + plane, T + P + sphere, -1
+//     on a miss) at row id * (1 + L * per_light), id = the node's preorder
+//     id in cutrace_tpu/ops/replay.py:topo_layout, and per light either the
+//     occlusion flag (opaque scenes) or the occluder code of every march
+//     step that counted (transparent scenes). The wrapper pre-fills -1
+//     (flag rows 0); entries the replay never reads keep that fill.
 // Rays-on-lanes, scalar-prefetch cull words, the static unroll over
 // clusters and one-hot attribute sums were TPU devices and are gone: each
 // thread culls clusters itself with a per-ray slab test against its
@@ -31,8 +40,9 @@
 // thread walks its own clusters and tree nodes, and the scene tables are
 // read from global memory through L1/L2 (bunny: 16 clusters x 64 slots x
 // 24 floats = 96 KB of triangle rows). Staging the tables in shared
-// memory, warp-ballot culls over coherent rays, and emitting the topology
-// codes the backward replays are later work.
+// memory and warp-ballot culls over coherent rays are later work. An
+// optional tally counts the slab-admitted (ray, cluster) visits and the
+// casts, from which chip_smoke.py computes the kernel's operation bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,6 +97,20 @@ struct Hit {
   float t;   // +inf on a miss
   int kind;  // kMiss / kTri / kPlane / kSphere
   int idx;   // triangle slot (cluster * C + slot) or plane / sphere row
+};
+
+// Work counts of one thread: casts (nearest or any-hit queries) and the
+// (ray, cluster) visits their slab tests admitted.
+struct Tally {
+  unsigned long long casts = 0, visits = 0;
+};
+
+// Where a thread writes its topology codes: row r of its ray's column is
+// codes[r * stride]; null when the caller wants no codes.
+struct Topo {
+  int* codes;
+  int stride;
+  int t_cnt, p_cnt;  // padded triangle / plane leaf lengths
 };
 
 // Slab entry of a ray against one AABB (rows bmin xyz, bmax xyz). A NaN
@@ -163,7 +187,8 @@ __device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 nd,
 
 // Nearest hit over all kinds. Planes and spheres go first: their best t
 // bounds which clusters are worth visiting.
-__device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind) {
+__device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
+                            Tally& tl) {
   V3 nd;
   {
     float dl = norm3(d);
@@ -202,6 +227,7 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind) {
   V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
   float tt = INFINITY, kt = kBig;
   int it = -1;
+  tl.casts += 1;
   for (int mi = 0; mi < s.m; ++mi) {
     float entry;
     // a cluster entered beyond the best t so far cannot hold a
@@ -209,6 +235,7 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind) {
     if (!slab(s.aabb + mi * kAabbRows, o, inv, &entry) ||
         !(entry <= fminf(bound, tt)))
       continue;
+    tl.visits += 1;
     const float* slot = s.tri + (size_t)mi * s.c * kTriRows;
     for (int ci = 0; ci < s.c; ++ci, slot += kTriRows) {
       float t = tri_t(slot, o, d, w, mind);
@@ -236,7 +263,8 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind) {
 
 // Any hit closer than ldist (opaque shadow query).
 __device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
-                         float ldist) {
+                         float ldist, Tally& tl) {
+  tl.casts += 1;
   for (int i = 0; i < s.n_planes; ++i)
     if (plane_t(s.planes + i * kPsRows, o, d, mind) < ldist) return true;
   if (s.n_spheres > 0) {
@@ -252,11 +280,21 @@ __device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
     float entry;
     if (!slab(s.aabb + mi * kAabbRows, o, inv, &entry) || !(entry < ldist))
       continue;
+    tl.visits += 1;
     const float* slot = s.tri + (size_t)mi * s.c * kTriRows;
     for (int ci = 0; ci < s.c; ++ci, slot += kTriRows)
       if (tri_t(slot, o, d, w, mind) < ldist) return true;
   }
   return false;
+}
+
+// The winner's topology code (cutrace_tpu/ops/replay.py layout).
+__device__ __forceinline__ int hit_code(const Scene& s, const Topo& tp,
+                                        const Hit& h) {
+  if (h.kind == kTri) return (int)s.tri[(size_t)h.idx * kTriRows + T_ORDER];
+  if (h.kind == kPlane) return tp.t_cnt + h.idx;
+  if (h.kind == kSphere) return tp.t_cnt + tp.p_cnt + h.idx;
+  return -1;
 }
 
 __device__ __forceinline__ int hit_mat(const Scene& s, const Hit& h) {
@@ -278,9 +316,13 @@ struct Shaded {
   float transp, refl;  // winner material's factors
 };
 
+// `row` is the node's cast row in the code buffer (ignored without one).
 __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
-                             float ambient, int shadow_steps, bool opaque) {
-  Hit h = cast_nearest(s, o, d, mind);
+                             float ambient, int shadow_steps, bool opaque,
+                             const Topo& tp, int row, Tally& tl) {
+  Hit h = cast_nearest(s, o, d, mind, tl);
+  const int per_light = opaque ? 1 : shadow_steps;
+  if (tp.codes) tp.codes[(size_t)row * tp.stride] = hit_code(s, tp, h);
   Shaded r;
   r.hit = h.kind != kMiss;
   r.t_safe = r.hit ? h.t : 1.0f;
@@ -340,15 +382,19 @@ __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
     V3 sd = v3(ldir.x / ll, ldir.y / ll, ldir.z / ll);
 
     float shadow;
+    const int srow = row + 1 + li * per_light;  // this light's first row
     if (opaque) {
-      shadow = occluded(s, p, sd, 1e-3f, light_dist) ? 1.0f : 0.0f;
+      shadow = occluded(s, p, sd, 1e-3f, light_dist, tl) ? 1.0f : 0.0f;
+      if (tp.codes) tp.codes[(size_t)srow * tp.stride] = (int)shadow;
     } else {
       shadow = 0.0f;
       float last = 0.0f;
       for (int si = 0; si < shadow_steps; ++si) {
-        Hit sh = cast_nearest(s, p, sd, last + 1e-3f);
+        Hit sh = cast_nearest(s, p, sd, last + 1e-3f, tl);
         bool okm = isfinite(sh.t) && sh.t < light_dist;
         if (!okm) break;
+        if (tp.codes)
+          tp.codes[(size_t)(srow + si) * tp.stride] = hit_code(s, tp, sh);
         shadow += 1.0f - s.mats[hit_mat(s, sh) * kMatRows + M_TRANSP];
         last = sh.t;
         if (!(shadow < 1.0f)) break;
@@ -377,34 +423,47 @@ __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
 struct Frame {
   V3 o, d;
   float w;
-  int level;
+  int level, node;
 };
+
+// Nodes in the subtree of a node at `level` (topo_layout's recursion).
+__device__ __forceinline__ int subtree_nodes(int level, int bounces,
+                                             bool any_refl, bool any_transp) {
+  int depth = bounces - level + 1;
+  if (any_refl && any_transp) return (1 << depth) - 1;
+  return (any_refl || any_transp) ? depth : 1;
+}
 
 __global__ void __launch_bounds__(kBlock)
 fused_forward_kernel(const float* __restrict__ rays, Scene s,
                      const float* __restrict__ ambient_p,
                      float* __restrict__ out, int n_rays, int bounces,
                      int shadow_steps, bool any_refl, bool any_transp,
-                     float fudge) {
+                     float fudge, Topo tp,
+                     unsigned long long* __restrict__ tally) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const float* ray = rays + (size_t)i * 8;
   const float ambient = *ambient_p;
   const bool opaque = !any_transp;
   const bool branches = any_refl || any_transp;
+  const int node_rows = 1 + s.n_lights * (opaque ? 1 : shadow_steps);
+  if (tp.codes) tp.codes += i;
 
   V3 o = load3(ray), d = load3(ray + 3);
   float w = 1.0f, mind = ray[6];
-  int level = 0;
+  int level = 0, node = 0;
   bool root = true;
   V3 color = v3(0.0f, 0.0f, 0.0f);
   Frame parked[kMaxParked];
   int n_parked = 0;
+  Tally tl;
 
   while (true) {
     bool descend = false;
     if (root || w != 0.0f) {
-      Shaded r = shade_node(s, o, d, mind, ambient, shadow_steps, opaque);
+      Shaded r = shade_node(s, o, d, mind, ambient, shadow_steps, opaque,
+                            tp, node * node_rows, tl);
       if (root) {
         float* q = out + (size_t)i * 7;
         q[3] = r.hit ? r.t_safe : INFINITY;
@@ -425,7 +484,10 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
         V3 ch = v3(o.x + r.t_safe * d.x, o.y + r.t_safe * d.y,
                    o.z + r.t_safe * d.z);
         if (any_refl) {
-          if (any_transp) parked[n_parked++] = Frame{ch, d, w * f, level + 1};
+          if (any_transp)
+            parked[n_parked++] = Frame{
+                ch, d, w * f, level + 1,
+                node + 1 + subtree_nodes(level + 1, bounces, true, true)};
           float rr = (r.hit && r.refl >= kEps) ? r.refl : 0.0f;
           float dl = norm3(d);
           V3 nd = v3(d.x / dl, d.y / dl, d.z / dl);
@@ -438,6 +500,7 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
         }
         o = ch;
         level += 1;
+        node += 1;  // the first child follows its parent in preorder
         mind = fudge;
         descend = true;
       }
@@ -450,6 +513,7 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
       d = fr.d;
       w = fr.w;
       level = fr.level;
+      node = fr.node;
       mind = fudge;
     }
   }
@@ -457,28 +521,38 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
   q[0] = color.x;
   q[1] = color.y;
   q[2] = color.z;
+  if (tally) {
+    atomicAdd(tally, tl.casts);
+    atomicAdd(tally + 1, tl.visits);
+  }
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` over n_rays rays; returns the CUDA error
 // code of the launch (0 on success). Refuses (cudaErrorInvalidValue) a
-// two-branch tree deeper than the parked-frame stack.
+// two-branch tree deeper than the parked-frame stack. `codes` (K x n_rays
+// int32, pre-filled by the caller) receives the topology codes, with t_cnt
+// and p_cnt the padded triangle and plane leaf lengths; `tally` (2 x u64,
+// zeroed by the caller) receives the casts and admitted cluster visits.
+// Either may be null.
 extern "C" int cutrace_fused_forward(
     const float* rays, const float* tri, const float* aabb,
     const float* planes, const float* spheres, const float* mats,
     const float* lights, const float* ambient, float* out, int n_rays, int m,
     int c, int n_planes, int n_spheres, int n_lights, int n_mats,
     int bounces, int shadow_steps, int any_refl, int any_transp, float fudge,
+    int* codes, int t_cnt, int p_cnt, unsigned long long* tally,
     void* stream) {
   if (any_refl && any_transp && bounces >= kMaxParked)
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   Scene s{tri, aabb, planes, spheres, mats, lights,
           m, c, n_planes, n_spheres, n_lights, n_mats};
+  Topo tp{codes, n_rays, t_cnt, p_cnt};
   int grid = (n_rays + kBlock - 1) / kBlock;
   fused_forward_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       rays, s, ambient, out, n_rays, bounces, shadow_steps, any_refl != 0,
-      any_transp != 0, fudge);
+      any_transp != 0, fudge, tp, tally);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,813 @@
+// Replay backward for NVIDIA Hopper (sm_90a): the fixed-topology gradient
+// of a fused render from its topology codes, one thread per ray.
+//
+// Replaces cutrace_tpu/ops/replay_vjp.py:_make_replay_vjp_kernel (the TPU
+// kernel K2). It computes what that kernel computes, the vector-Jacobian
+// product of cutrace_tpu_torch/ops/replay.py:replay_render_rays for given
+// codes and output cotangents, but not its TPU tiling:
+//   * forward sweep: the bounce tree is walked in preorder from the codes
+//     (reflection child first, parked transparency frames, a node of
+//     weight 0 skipped with its subtree, as the forward kernel walks it),
+//     storing each live node's (o, d, w) in per-thread arrays;
+//   * reverse sweep: nodes in reverse preorder, so children come before
+//     parents, with the hand-derived adjoints of hit_from_code and
+//     _phong_lights. Every guard of the replay is matched (where(x == 0,
+//     1, x) divisors, the guarded normalizations, fmaxf NaN -> 0 gates, the
+//     backface gate on pow). Only the winner's kind is differentiated: on
+//     the TPU every kind-branch ran on the same row, and its masked-off
+//     branches contribute zero. The phong-exponent adjoint is
+//     fs * log(base) under the backface gate; transparent scenes add the
+//     weff = w (1 - f) spawn adjoints and the march adjoint through each
+//     counted occluder's transparency;
+//   * a missed node, or a node the codes leave dead, contributes nothing:
+//     every cotangent of a miss is gated by hit in the replay, and a dead
+//     node's only nonzero cotangent (its weight's) is multiplied by zero
+//     in its parent unless the parent's transparency is exactly 1;
+//   * gathers are plain loads of the winner's packed row, so the TPU's
+//     one-hot contraction and its row caps do not exist here.
+// Outputs: d_o and d_d per ray; the packed-table cotangent (N, 17), and
+// per light [0, d_vec, d_color, 0] plus d_ambient, summed over rays.
+//
+// Per-node storage: a per-thread array of 7 floats per node, sized by a
+// template for bunny-like chains (8 nodes) and two-branch trees (64). The
+// arrays spill to local memory (L1-cached, allocated only for resident
+// threads: at most 64 x 14 floats = 3.5 KB a thread), which was chosen
+// over a global scratch of nodes x rays (4.2 GB for sphere_plane 1080p b5)
+// because only the live nodes of a ray are ever touched.
+//
+// What bounds it on this card: arithmetic and divergence per ray (about
+// 300 float operations per live node plus 180 per light, with branches
+// on kind, light and march), and the parameter cotangent sums. Blocks run in no order,
+// so the sums are atomics: each block accumulates the (N, 17) table
+// cotangent in shared memory when it fits (bunny: 1006 rows = 68 KB) and
+// flushes its nonzero entries once, after a grid-stride loop over ray
+// tiles; a warp whose rays share one winner (a wall plane) reduces with
+// shuffles before a single shared-memory atomic. Summation order varies
+// run to run, so results are allclose, not bitwise. IEEE division, sqrt,
+// powf and logf throughout (no fast math).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 128;
+constexpr int kCols = 17;        // packed-table columns (replay._PK_*)
+constexpr int kLightRows = 8;    // floats per light row
+constexpr int kMaxLights = 8;
+constexpr int kMaxParked = 6;    // parked transparency frames (bounces <= 5)
+constexpr float kEps = 1e-6f;    // material activity threshold
+constexpr int kSmemTableFloats = 40 * 1024;  // 160 KB of table cotangent
+// packed-table columns
+constexpr int PK_A = 0, PK_B = 3, PK_C = 6, PK_COL = 10, PK_SPEC = 13;
+constexpr int PK_REFL = 14, PK_PHONG = 15, PK_TRANSP = 16;
+// kinds
+constexpr int kMiss = -1, kTri = 0, kPlane = 1, kSphere = 2;
+
+struct V3 {
+  float x, y, z;
+};
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ V3 mul(V3 a, V3 b) {
+  return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
+
+// Adjoint of v -> v / where(z, 1, |v|) given the unit result and
+// inv = 1 / guarded |v|: (g - u (u.g)) * inv, or g where the map is the
+// identity (z).
+__device__ __forceinline__ V3 norm_vjp(V3 u, float inv, bool z, V3 g) {
+  if (z) return g;
+  return (g - u * dot(u, g)) * inv;
+}
+
+struct Args {
+  const float* rays;    // (n_pad, 8): o - o0, d, 0, 0
+  const int* codes;     // (k_rows, n_pad)
+  const float* cot;     // (n_pad, 8): color, depth, normal, 0
+  const float* table;   // (n_tab, 17) packed rows, positions recentered
+  const float* lights;  // (L, 8): kind, vec (point lights recentered), color
+  const float* ambient;
+  float* d_rays;        // (n_pad, 8): d_o, d_d, 0, 0
+  float* d_tbl;         // (n_tab, 17), zeroed by the caller
+  float* d_misc;        // (L * 8 + 8), zeroed by the caller
+  int n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights, bounces;
+  int shadow_steps, n_nodes, node_rows;
+  bool any_refl, any_transp, smem_table;
+  float fudge;
+};
+
+__device__ __forceinline__ int kind_of(const Args& a, int code) {
+  if (code < 0) return kMiss;
+  if (code < a.t_cnt) return kTri;
+  return code < a.t_cnt + a.p_cnt ? kPlane : kSphere;
+}
+
+__device__ __forceinline__ bool is_leaf(const Args& a, int level) {
+  return level == a.bounces || !(a.any_refl || a.any_transp);
+}
+
+__device__ __forceinline__ int subtree_nodes(const Args& a, int level) {
+  int depth = a.bounces - level + 1;
+  if (a.any_refl && a.any_transp) return (1 << depth) - 1;
+  return (a.any_refl || a.any_transp) ? depth : 1;
+}
+
+// The hit t of a fixed winner (replay hit_from_code), or +inf on a miss.
+// Spheres take t in the normalized direction nd; sel0 / sel1 say which
+// root was taken (neither: t = 1).
+struct SphereRoot {
+  float dec, sq, t;
+  bool missed, sel0, sel1;
+};
+
+__device__ __forceinline__ SphereRoot sphere_root(const float* row, V3 o,
+                                                  V3 nd, float mind) {
+  V3 c = ld3(row + PK_A);
+  float rad = row[PK_B];
+  SphereRoot s;
+  s.dec = dot(nd, c) - dot(nd, o);
+  float ec2 = dot(o, o) - 2.0f * dot(o, c) + dot(c, c);
+  float sub = s.dec * s.dec - (ec2 - rad * rad);
+  s.missed = sub <= 0.0f;
+  s.sq = sqrtf(s.missed ? 1.0f : sub);
+  float t0 = s.dec - s.sq, t1 = s.dec + s.sq;
+  bool v0 = !s.missed && isfinite(t0) && t0 > mind;
+  bool v1 = !s.missed && isfinite(t1) && t1 > mind;
+  // t0 <= t1 (sq >= 0), so the both-valid minimum is t0
+  s.sel0 = v0;
+  s.sel1 = !v0 && v1;
+  s.t = v0 ? t0 : (v1 ? t1 : 1.0f);
+  return s;
+}
+
+__device__ __forceinline__ float tri_t(const float* row, V3 o, V3 d) {
+  V3 p1 = ld3(row + PK_A), p2 = ld3(row + PK_B), p3 = ld3(row + PK_C);
+  V3 n = cross(p2 - p1, p2 - p3);
+  float alpha = dot(d, n);
+  float inv = 1.0f / (alpha == 0.0f ? 1.0f : alpha);
+  return (dot(p2, n) - dot(o, n)) * inv;
+}
+
+__device__ __forceinline__ float plane_t(const float* row, V3 o, V3 d) {
+  V3 p = ld3(row + PK_A), pn = ld3(row + PK_B);
+  float denom = dot(d, pn);
+  return (dot(p, pn) - dot(o, pn)) / (denom == 0.0f ? 1.0f : denom);
+}
+
+__device__ float code_t(const Args& a, int code, V3 o, V3 d, V3 nd,
+                        float mind) {
+  int kind = kind_of(a, code);
+  if (kind == kMiss) return INFINITY;
+  const float* row = a.table + (size_t)code * kCols;
+  if (kind == kTri) return tri_t(row, o, d);
+  if (kind == kPlane) return plane_t(row, o, d);
+  return sphere_root(row, o, nd, mind).t;
+}
+
+// What a live node's winner gives both sweeps.
+struct Node {
+  int kind;
+  const float* row;
+  V3 nd;
+  float inv_dlen, t_safe;
+  V3 point, normal, nn;
+  float inv_nn;
+  bool nn_z;
+};
+
+__device__ Node node_geom(const Args& a, int code, V3 o, V3 d, float mind) {
+  Node g;
+  g.kind = kind_of(a, code);
+  g.row = a.table + (size_t)(code < 0 ? 0 : code) * kCols;
+  float dl = sqrtf(dot(d, d));
+  g.inv_dlen = 1.0f / dl;
+  g.nd = v3(d.x / dl, d.y / dl, d.z / dl);
+  float t = 1.0f;
+  V3 normal = v3(0.0f, 0.0f, 0.0f);
+  if (g.kind == kTri) {
+    V3 p1 = ld3(g.row + PK_A), p2 = ld3(g.row + PK_B), p3 = ld3(g.row + PK_C);
+    t = tri_t(g.row, o, d);
+    V3 ncr = -cross(p2 - p3, p1 - p3);
+    float nl2 = dot(ncr, ncr);
+    float nl = sqrtf(nl2 == 0.0f ? 1.0f : nl2);
+    float den = nl2 == 0.0f ? 1.0f : nl;
+    normal = v3(ncr.x / den, ncr.y / den, ncr.z / den);
+  } else if (g.kind == kPlane) {
+    t = plane_t(g.row, o, d);
+    normal = ld3(g.row + PK_B);
+  } else if (g.kind == kSphere) {
+    SphereRoot s = sphere_root(g.row, o, g.nd, mind);
+    t = s.t;
+    V3 nsp = o + g.nd * s.t - ld3(g.row + PK_A);
+    float nil2 = dot(nsp, nsp);
+    float nil = sqrtf(nil2 == 0.0f ? 1.0f : nil2);
+    float den = nil2 == 0.0f ? 1.0f : nil;
+    normal = v3(nsp.x / den, nsp.y / den, nsp.z / den);
+  }
+  bool hit = g.kind != kMiss;
+  g.t_safe = hit ? t : 1.0f;
+  g.point = o + sel(g.kind == kSphere, g.nd, d) * g.t_safe;
+  g.normal = normal;
+  V3 nrm = hit ? normal : v3(0.0f, 0.0f, 1.0f);
+  float l2 = dot(nrm, nrm);
+  g.nn_z = l2 == 0.0f;
+  float l = sqrtf(g.nn_z ? 1.0f : l2);
+  g.inv_nn = 1.0f / (g.nn_z ? 1.0f : l);
+  float den = g.nn_z ? 1.0f : l;
+  g.nn = v3(nrm.x / den, nrm.y / den, nrm.z / den);
+  return g;
+}
+
+// Cotangents of a node's inputs (o, d, w).
+struct NodeCot {
+  V3 o, d;
+  float w;
+};
+
+// Per-thread light cotangent accumulators: per light d_vec (3), d_color
+// (3); then d_ambient.
+struct LightAcc {
+  float v[kMaxLights * 6 + 1];
+};
+
+// The reverse sweep of one live, hit node. Child cotangents come in
+// (zero when the child is dead or missed); the node's packed-row
+// cotangent goes to g_row, march transparency cotangents straight to
+// `acc`, light and ambient cotangents to `la`.
+__device__ NodeCot node_backward(const Args& a, int k, int level, V3 o, V3 d,
+                                 float w, const NodeCot& cr, bool has_r,
+                                 const NodeCot& ct, bool has_t, V3 cot_c,
+                                 float cot_dep, V3 cot_n, float* g_row,
+                                 float* acc, LightAcc& la, int i) {
+  const int cast_row = k * a.node_rows;
+  const int code = a.codes[(size_t)cast_row * a.n_pad + i];
+  const float mind = a.fudge;
+  Node g = node_geom(a, code, o, d, mind);
+  const float* row = g.row;
+  const bool leaf = is_leaf(a, level);
+  const bool root = k == 0;
+  const V3 nd = g.nd, nn = g.nn;
+  const float t_safe = g.t_safe;
+  const V3 dif = ld3(row + PK_COL);
+  const float spec = row[PK_SPEC], refl = row[PK_REFL];
+  const float phong_e = row[PK_PHONG], transp = row[PK_TRANSP];
+  const float ambient = *a.ambient;
+
+  V3 a_o = v3(0.f, 0.f, 0.f), a_d = a_o, a_nd = a_o, a_nn = a_o, a_pt = a_o;
+  float a_ts = 0.0f, a_t = 0.0f, a_w = 0.0f;
+  for (int j = 0; j < kCols; ++j) g_row[j] = 0.0f;
+
+  const bool f_on = a.any_transp && !leaf && transp >= kEps;
+  const float f = f_on ? transp : 0.0f;
+  const float weff = w * (1.0f - f);
+
+  // --- child transitions ---
+  float g_weff = 0.0f;
+  if (!leaf) {
+    V3 g_o_c = v3(0.f, 0.f, 0.f);
+    if (a.any_refl && has_r) {
+      g_o_c = g_o_c + cr.o;
+      // rd = nd - 2 (nd.nn) nn
+      float dot_dn = dot(nd, nn);
+      float gd_nn = dot(cr.d, nn);
+      a_nd = a_nd + (cr.d - nn * (2.0f * gd_nn));
+      a_nn = a_nn - (nd * (2.0f * gd_nn) + cr.d * (2.0f * dot_dn));
+      // w_refl = weff * r
+      const bool r_on = refl >= kEps;
+      g_weff += cr.w * (r_on ? refl : 0.0f);
+      if (r_on) g_row[PK_REFL] += cr.w * weff;
+    }
+    if (a.any_transp && has_t) {
+      g_o_c = g_o_c + ct.o;
+      a_d = a_d + ct.d;  // the transparency child keeps d
+    }
+    // child_o = o + t_safe * d (both children)
+    a_o = a_o + g_o_c;
+    a_ts += dot(g_o_c, d);
+    a_d = a_d + g_o_c * t_safe;
+  }
+
+  // --- color: leaf adds w * ph, others weff * ph ---
+  const V3 g_final = cot_c * (leaf ? w : weff);
+  const V3 md = -nd;
+  V3 a_md = v3(0.f, 0.f, 0.f);
+  V3 final = dif * ambient;
+  la.v[kMaxLights * 6] += dot(dif, g_final);
+  V3 a_dif = g_final * ambient;
+  float a_spec = 0.0f, a_phong = 0.0f;
+  const int per_light = a.any_transp ? a.shadow_steps : 1;
+  const V3 point = g.point;
+
+  for (int li = 0; li < a.n_lights; ++li) {
+    const float* L = a.lights + li * kLightRows;
+    const bool is_sun = L[0] == 0.0f;
+    const V3 vec = ld3(L + 1), lc = ld3(L + 4);
+    const V3 diff = vec - point;
+    const float dist = sqrtf(dot(diff, diff));
+    const bool dist_z = dist == 0.0f;
+    const float dsafe = dist_z ? 1.0f : dist;
+    const float inv_ds = 1.0f / dsafe;
+    const V3 dir_pt = v3(diff.x / dsafe, diff.y / dsafe, diff.z / dsafe);
+    const V3 direction = is_sun ? -vec : dir_pt;
+    const float dl = sqrtf(dot(direction, direction));
+    const bool dl_z = dl == 0.0f;
+    const float light_dist = (is_sun ? INFINITY : dist) * dl;
+    const float dls = dl_z ? 1.0f : dl;
+    const float inv_dl = 1.0f / dls;
+    const V3 sdir = v3(direction.x / dls, direction.y / dls, direction.z / dls);
+    const int sbase = cast_row + 1 + li * per_light;
+
+    float sh, sh_raw = 0.0f;
+    int n_steps = 0;  // counted march steps
+    if (!a.any_transp) {
+      sh = (float)a.codes[(size_t)sbase * a.n_pad + i];
+    } else {
+      // march replay: sh accumulates (1 - occluder transparency)
+      float last = 0.0f;
+      sh = 0.0f;
+      const float sl = sqrtf(dot(sdir, sdir));
+      const V3 snd = v3(sdir.x / sl, sdir.y / sl, sdir.z / sl);
+      for (int si = 0; si < per_light; ++si) {
+        int cc = a.codes[(size_t)(sbase + si) * a.n_pad + i];
+        float st = code_t(a, cc, point, sdir, snd, last + 1e-3f);
+        bool okm = cc >= 0 && isfinite(st) && st < light_dist;
+        if (!okm) break;
+        sh += 1.0f - a.table[(size_t)cc * kCols + PK_TRANSP];
+        last = st;
+        n_steps = si + 1;
+        if (!(sh < 1.0f)) break;
+      }
+      sh_raw = sh;
+      sh = sh >= 1.0f ? 1.0f : sh;
+    }
+    const bool lit = sh < 1.0f;
+
+    const float fdd = dot(nn, sdir);
+    const bool fd_pos = fdd > 0.0f;
+    const float fd = fd_pos ? fdd : 0.0f;
+    const V3 hv = md + sdir;
+    const float hl = sqrtf(dot(hv, hv));
+    const bool hl_z = hl == 0.0f;
+    const float hlg = hl_z ? 1.0f : hl;
+    const float inv_hl = 1.0f / hlg;
+    const float bddv = dot(nn, hv);
+    const float bdd = bddv / hlg;
+    const bool bdd_pos = bdd > 0.0f;
+    const float base = bdd_pos ? bdd : 0.0f;
+    const bool backf = base <= 0.0f;
+    const float base_g = backf ? 1.0f : base;
+    const float fs = backf ? 0.0f : powf(base_g, phong_e);
+    const float wgt = lit ? 1.0f - sh : 0.0f;
+    const V3 contrib = dif * (fd + fs * spec);
+    final = final + mul(contrib, lc) * wgt;
+
+    // adjoints of final += wgt * contrib * lc
+    const V3 g_lcol = mul(contrib, g_final) * wgt;
+    const V3 g_contrib = mul(lc, g_final) * wgt;
+    if (a.any_transp && n_steps > 0 && sh_raw < 1.0f) {
+      // wgt = 1 - sh_raw: each counted occluder's transparency gets +g_wgt
+      const float g_wgt = dot(mul(contrib, lc), g_final);
+      for (int si = 0; si < n_steps; ++si) {
+        int cc = a.codes[(size_t)(sbase + si) * a.n_pad + i];
+        if (g_wgt != 0.0f) atomicAdd(acc + (size_t)cc * kCols + PK_TRANSP, g_wgt);
+      }
+    }
+    const float dg = dot(dif, g_contrib);
+    const float g_fs = spec * dg;
+    a_spec += fs * dg;
+    a_dif = a_dif + g_contrib * (fd + fs * spec);
+    float g_base = 0.0f;
+    if (!backf) {
+      a_phong += fs * logf(base_g) * g_fs;
+      g_base = fs * phong_e / base_g * g_fs;
+    }
+    const float g_bdd = bdd_pos ? g_base : 0.0f;
+    // bdd = (nn.hv) / guarded |hv|
+    a_nn = a_nn + hv * (g_bdd * inv_hl);
+    const float ddhl = hl_z ? 0.0f : bddv * inv_hl * inv_hl * inv_hl;
+    const V3 g_hv = (nn * inv_hl - hv * ddhl) * g_bdd;
+    a_md = a_md + g_hv;
+    V3 g_sdir = g_hv;
+    const float g_fdd = fd_pos ? dg : 0.0f;
+    a_nn = a_nn + sdir * g_fdd;
+    g_sdir = g_sdir + nn * g_fdd;
+    // sdir = direction / guarded |direction|
+    const V3 g_dir = norm_vjp(sdir, inv_dl, dl_z, g_sdir);
+    V3 g_vec;
+    if (is_sun) {
+      g_vec = -g_dir;
+    } else {
+      g_vec = norm_vjp(dir_pt, inv_ds, dist_z, g_dir);
+      a_pt = a_pt - g_vec;
+    }
+    float* lv = la.v + li * 6;
+    lv[0] += g_vec.x;
+    lv[1] += g_vec.y;
+    lv[2] += g_vec.z;
+    lv[3] += g_lcol.x;
+    lv[4] += g_lcol.y;
+    lv[5] += g_lcol.z;
+  }
+
+  // color term and spawn weights
+  const float ph_c = dot(final, cot_c);
+  if (leaf) {
+    a_w += ph_c;
+  } else {
+    g_weff += ph_c;
+    const float g_w_t = (a.any_transp && has_t) ? ct.w : 0.0f;
+    a_w += (1.0f - f) * g_weff + f * g_w_t;
+    if (f_on) g_row[PK_TRANSP] += -w * g_weff + w * g_w_t;
+  }
+  g_row[PK_COL] += a_dif.x;
+  g_row[PK_COL + 1] += a_dif.y;
+  g_row[PK_COL + 2] += a_dif.z;
+  g_row[PK_SPEC] += a_spec;
+  g_row[PK_PHONG] += a_phong;
+  a_nd = a_nd - a_md;  // md = -nd
+
+  // root outputs: depth = t, normal = the raw hit normal
+  V3 a_normal = v3(0.f, 0.f, 0.f);
+  if (root) {
+    a_t += cot_dep;
+    a_normal = cot_n;
+  }
+  // point = o + t_safe * (sphere ? nd : d)
+  const bool is_sp = g.kind == kSphere;
+  a_o = a_o + a_pt;
+  a_ts += dot(a_pt, is_sp ? nd : d);
+  if (is_sp) a_nd = a_nd + a_pt * t_safe;
+  else a_d = a_d + a_pt * t_safe;
+  // nn = nrm / guarded |nrm|
+  a_normal = a_normal + norm_vjp(nn, g.inv_nn, g.nn_z, a_nn);
+  a_t += a_ts;  // t_safe = t on a hit
+
+  // --- the winner kind's t and normal adjoints ---
+  if (g.kind == kTri) {
+    const V3 p1 = ld3(row + PK_A), p2 = ld3(row + PK_B), p3 = ld3(row + PK_C);
+    const V3 ea = p2 - p1, eb = p2 - p3, q = p1 - p3;
+    const V3 n = cross(ea, eb);
+    const float alpha = dot(d, n);
+    const bool alpha_z = alpha == 0.0f;
+    const float inv_a = 1.0f / (alpha_z ? 1.0f : alpha);
+    const float s_num = dot(p2, n) - dot(o, n);
+    // t = s_num * inv_a
+    const float g_snum = a_t * inv_a;
+    const float g_inv = a_t * s_num;
+    const float g_alpha = alpha_z ? 0.0f : -g_inv * inv_a * inv_a;
+    V3 g_p2 = n * g_snum;
+    a_o = a_o - n * g_snum;
+    V3 g_n = (p2 - o) * g_snum + d * g_alpha;
+    a_d = a_d + n * g_alpha;
+    // n = ea x eb
+    V3 g_ea = cross(eb, g_n);
+    V3 g_eb = cross(g_n, ea);
+    // shading normal = ncr / guarded |ncr|, ncr = -(eb x q)
+    const V3 ncr = -cross(eb, q);
+    const float nl2 = dot(ncr, ncr);
+    const bool nl2_z = nl2 == 0.0f;
+    const float nl = sqrtf(nl2_z ? 1.0f : nl2);
+    const float inv_nl = 1.0f / (nl2_z ? 1.0f : nl);
+    const V3 g_ncr = -norm_vjp(ncr * inv_nl, inv_nl, nl2_z, a_normal);
+    g_eb = g_eb + cross(q, g_ncr);
+    const V3 g_q = cross(g_ncr, eb);
+    g_p2 = g_p2 + g_ea + g_eb;
+    const V3 g_p1 = g_q - g_ea;
+    const V3 g_p3 = -(g_eb + g_q);
+    g_row[PK_A] += g_p1.x;
+    g_row[PK_A + 1] += g_p1.y;
+    g_row[PK_A + 2] += g_p1.z;
+    g_row[PK_B] += g_p2.x;
+    g_row[PK_B + 1] += g_p2.y;
+    g_row[PK_B + 2] += g_p2.z;
+    g_row[PK_C] += g_p3.x;
+    g_row[PK_C + 1] += g_p3.y;
+    g_row[PK_C + 2] += g_p3.z;
+  } else if (g.kind == kPlane) {
+    const V3 pa = ld3(row + PK_A), pn = ld3(row + PK_B);
+    const float denom = dot(d, pn);
+    const bool den_z = denom == 0.0f;
+    const float den = den_z ? 1.0f : denom;
+    const float num = dot(pa, pn) - dot(o, pn);
+    // t = num / den
+    const float g_num = a_t / den;
+    const float g_den = den_z ? 0.0f : -a_t * num / (den * den);
+    const V3 g_pa = pn * g_num;
+    a_o = a_o - pn * g_num;
+    const V3 g_pn = (pa - o) * g_num + d * g_den + a_normal;
+    a_d = a_d + pn * g_den;
+    g_row[PK_A] += g_pa.x;
+    g_row[PK_A + 1] += g_pa.y;
+    g_row[PK_A + 2] += g_pa.z;
+    g_row[PK_B] += g_pn.x;
+    g_row[PK_B + 1] += g_pn.y;
+    g_row[PK_B + 2] += g_pn.z;
+  } else {  // sphere
+    const V3 c = ld3(row + PK_A);
+    const float rad = row[PK_B];
+    const SphereRoot s = sphere_root(row, o, nd, mind);
+    // normal = nsp / guarded |nsp|, nsp = o + t nd - c
+    const V3 nsp = o + nd * s.t - c;
+    const float nil2 = dot(nsp, nsp);
+    const bool nil2_z = nil2 == 0.0f;
+    const float nil = sqrtf(nil2_z ? 1.0f : nil2);
+    const float inv_nil = 1.0f / (nil2_z ? 1.0f : nil);
+    const V3 g_nsp = norm_vjp(nsp * inv_nil, inv_nil, nil2_z, a_normal);
+    V3 g_c = -g_nsp;
+    a_o = a_o + g_nsp;
+    float g_t = a_t + dot(g_nsp, nd);
+    V3 a_nd_sp = g_nsp * s.t;
+    // t = sel0 ? dec - sq : (sel1 ? dec + sq : 1)
+    float g_dec = (s.sel0 || s.sel1) ? g_t : 0.0f;
+    const float g_sq = (s.sel1 ? g_t : 0.0f) - (s.sel0 ? g_t : 0.0f);
+    // sq = sqrt(guarded sub), sub = dec^2 - ec2 + r^2
+    const float g_sub = s.missed ? 0.0f : 0.5f / s.sq * g_sq;
+    g_dec += 2.0f * s.dec * g_sub;
+    const float g_ec2 = -g_sub;
+    const float g_rad = 2.0f * rad * g_sub;
+    // dec = nd.c - nd.o
+    a_nd_sp = a_nd_sp + (c - o) * g_dec;
+    g_c = g_c + nd * g_dec;
+    a_o = a_o - nd * g_dec;
+    // ec2 = o.o - 2 o.c + c.c
+    a_o = a_o + (o - c) * (2.0f * g_ec2);
+    g_c = g_c + (c - o) * (2.0f * g_ec2);
+    a_nd = a_nd + a_nd_sp;
+    g_row[PK_A] += g_c.x;
+    g_row[PK_A + 1] += g_c.y;
+    g_row[PK_A + 2] += g_c.z;
+    g_row[PK_B] += g_rad;
+  }
+
+  // nd = d / |d| (unguarded, as the replay's _normalize)
+  a_d = a_d + (a_nd - nd * dot(nd, a_nd)) * g.inv_dlen;
+  return NodeCot{a_o, a_d, a_w};
+}
+
+// Adds one packed-row cotangent per thread to acc[code]. Every lane of the
+// warp calls it (code < 0: nothing to add). A warp whose lanes share one
+// code reduces with shuffles first: rays of one wall would otherwise
+// serialize on the same addresses.
+__device__ __forceinline__ void scatter_row(float* acc, int code,
+                                            const float* g) {
+  const unsigned full = 0xffffffffu;
+  const int c0 = __shfl_sync(full, code, 0);
+  if (__all_sync(full, code == c0)) {
+    if (c0 < 0) return;
+    const bool lane0 = (threadIdx.x & 31) == 0;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float v = g[j];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
+      if (lane0 && v != 0.0f) atomicAdd(acc + (size_t)c0 * kCols + j, v);
+    }
+  } else if (code >= 0) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (g[j] != 0.0f) atomicAdd(acc + (size_t)code * kCols + j, g[j]);
+  }
+}
+
+struct Frame {
+  V3 o, d;
+  float w;
+  int level, node;
+};
+
+template <int kMaxNodes>
+__global__ void __launch_bounds__(kBlock)
+replay_vjp_kernel(Args a) {
+  extern __shared__ float smem[];
+  const int n_misc = a.n_lights * 6 + 1;
+  float* s_misc = smem;
+  float* s_tbl = smem + n_misc;
+  const int n_tbl = a.smem_table ? a.n_tab * kCols : 0;
+  for (int j = threadIdx.x; j < n_misc + n_tbl; j += blockDim.x) smem[j] = 0.0f;
+  __syncthreads();
+  float* acc = a.smem_table ? s_tbl : a.d_tbl;
+
+  LightAcc la;
+  for (int j = 0; j < kMaxLights * 6 + 1; ++j) la.v[j] = 0.0f;
+
+  float so[kMaxNodes][3], sdir[kMaxNodes][3], sw[kMaxNodes];
+  unsigned char slevel[kMaxNodes];
+  float co[kMaxNodes][7];
+
+  const int n_tiles = a.n_pad / kBlock;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int i = tile * kBlock + threadIdx.x;
+    const bool active = i < a.n_rays;
+    uint64_t alive = 0, done = 0;
+
+    // ---- forward sweep: the live nodes' (o, d, w) ----
+    if (active) {
+      const float* ray = a.rays + (size_t)i * 8;
+      V3 o = ld3(ray), d = ld3(ray + 3);
+      float w = 1.0f;
+      int level = 0, node = 0;
+      Frame parked[kMaxParked];
+      int n_parked = 0;
+      while (true) {
+        bool descend = false;
+        if (node == 0 || w != 0.0f) {
+          alive |= 1ull << node;
+          so[node][0] = o.x; so[node][1] = o.y; so[node][2] = o.z;
+          sdir[node][0] = d.x; sdir[node][1] = d.y; sdir[node][2] = d.z;
+          sw[node] = w;
+          slevel[node] = (unsigned char)level;
+          if (!is_leaf(a, level)) {
+            const int code =
+                a.codes[(size_t)(node * a.node_rows) * a.n_pad + i];
+            Node g = node_geom(a, code, o, d, a.fudge);
+            const bool hit = g.kind != kMiss;
+            const float tr = g.row[PK_TRANSP], rf = g.row[PK_REFL];
+            const float f =
+                (a.any_transp && hit && tr >= kEps) ? tr : 0.0f;
+            const float weff = w * (1.0f - f);
+            const V3 ch = o + d * g.t_safe;
+            if (a.any_refl) {
+              if (a.any_transp)
+                parked[n_parked++] = Frame{
+                    ch, d, w * f, level + 1,
+                    node + 1 + subtree_nodes(a, level + 1)};
+              const float rr = (hit && rf >= kEps) ? rf : 0.0f;
+              d = g.nd - g.nn * (2.0f * dot(g.nd, g.nn));
+              w = weff * rr;
+            } else {
+              w = w * f;
+            }
+            o = ch;
+            level += 1;
+            node += 1;
+            descend = true;
+          }
+        }
+        if (!descend) {
+          if (n_parked == 0) break;
+          const Frame fr = parked[--n_parked];
+          o = fr.o;
+          d = fr.d;
+          w = fr.w;
+          level = fr.level;
+          node = fr.node;
+        }
+      }
+    }
+
+    // ---- reverse sweep, children before parents ----
+    const float* cp = a.cot + (size_t)(active ? i : 0) * 8;
+    const V3 cot_c = ld3(cp), cot_n = ld3(cp + 4);
+    const float cot_dep = cp[3];
+    for (int k = a.n_nodes - 1; k >= 0; --k) {
+      float g_row[kCols];
+      int code = -1;
+      if (active && ((alive >> k) & 1ull)) {
+        const int c = a.codes[(size_t)(k * a.node_rows) * a.n_pad + i];
+        if (c >= 0) {
+          const int level = slevel[k];
+          const bool leaf = is_leaf(a, level);
+          const int kr = k + 1;
+          const int kt = k + 1 + (a.any_refl ? subtree_nodes(a, level + 1) : 0);
+          const bool has_r = !leaf && a.any_refl && ((done >> kr) & 1ull);
+          const bool has_t = !leaf && a.any_transp && ((done >> kt) & 1ull);
+          NodeCot cr{}, ct{};
+          if (has_r)
+            cr = NodeCot{v3(co[kr][0], co[kr][1], co[kr][2]),
+                         v3(co[kr][3], co[kr][4], co[kr][5]), co[kr][6]};
+          if (has_t)
+            ct = NodeCot{v3(co[kt][0], co[kt][1], co[kt][2]),
+                         v3(co[kt][3], co[kt][4], co[kt][5]), co[kt][6]};
+          const NodeCot r = node_backward(
+              a, k, level, v3(so[k][0], so[k][1], so[k][2]),
+              v3(sdir[k][0], sdir[k][1], sdir[k][2]), sw[k], cr, has_r, ct,
+              has_t, cot_c, cot_dep, cot_n, g_row, acc, la, i);
+          co[k][0] = r.o.x; co[k][1] = r.o.y; co[k][2] = r.o.z;
+          co[k][3] = r.d.x; co[k][4] = r.d.y; co[k][5] = r.d.z;
+          co[k][6] = r.w;
+          done |= 1ull << k;
+          code = c;
+        }
+      }
+      if (code < 0)
+        for (int j = 0; j < kCols; ++j) g_row[j] = 0.0f;
+      __syncwarp();
+      scatter_row(acc, code, g_row);
+    }
+    if (active) {
+      float* q = a.d_rays + (size_t)i * 8;
+      const bool root = done & 1ull;
+      for (int j = 0; j < 6; ++j) q[j] = root ? co[0][j] : 0.0f;
+      q[6] = 0.0f;
+      q[7] = 0.0f;
+    }
+  }
+
+  // ---- light and ambient sums: warp shuffles, then the block's misc ----
+  const unsigned full = 0xffffffffu;
+  for (int li = 0; li < a.n_lights; ++li) {
+    for (int j = 0; j < 6; ++j) {
+      float v = la.v[li * 6 + j];
+      for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
+      if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(s_misc + li * 6 + j, v);
+    }
+  }
+  {
+    float v = la.v[kMaxLights * 6];
+    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
+    if ((threadIdx.x & 31) == 0 && v != 0.0f)
+      atomicAdd(s_misc + a.n_lights * 6, v);
+  }
+  __syncthreads();
+  // flush: misc rows mirror the light-table columns [kind, vec, color, 0]
+  for (int j = threadIdx.x; j < n_misc; j += blockDim.x) {
+    const float v = s_misc[j];
+    if (v == 0.0f) continue;
+    int dst = j < a.n_lights * 6 ? (j / 6) * kLightRows + 1 + j % 6
+                                 : a.n_lights * kLightRows;
+    atomicAdd(a.d_misc + dst, v);
+  }
+  for (int j = threadIdx.x; j < n_tbl; j += blockDim.x) {
+    const float v = s_tbl[j];
+    if (v != 0.0f) atomicAdd(a.d_tbl + j, v);
+  }
+}
+
+template <int kMaxNodes>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)a.n_lights * 6 + 1 +
+                       (a.smem_table ? (size_t)a.n_tab * kCols : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_vjp_kernel<kMaxNodes>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, replay_vjp_kernel<kMaxNodes>, kBlock, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = a.n_pad / kBlock;
+  const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  replay_vjp_kernel<kMaxNodes><<<grid, kBlock, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the replay backward on `stream`; returns a CUDA error code (0
+// on success). n_pad (a multiple of 128, >= n_rays) is the row count of
+// rays, cot and d_rays and the ray stride of codes; rays past n_rays are
+// ignored. d_tbl and d_misc must be zeroed by the caller. Refuses
+// (cudaErrorInvalidValue) more than 8 lights, more than 63 tree nodes, a
+// two-branch tree deeper than the parked-frame stack, or a ragged n_pad.
+extern "C" int cutrace_replay_vjp(
+    const float* rays, const int* codes, const float* cot,
+    const float* table, const float* lights, const float* ambient,
+    float* d_rays, float* d_tbl, float* d_misc, int n_rays, int n_pad,
+    int k_rows, int n_tab, int t_cnt, int p_cnt, int n_lights, int bounces,
+    int shadow_steps, int any_refl, int any_transp, float fudge,
+    void* stream) {
+  const bool refl = any_refl != 0, transp = any_transp != 0;
+  int n_nodes = 1;
+  if (refl && transp) n_nodes = (1 << (bounces + 1)) - 1;
+  else if (refl || transp) n_nodes = bounces + 1;
+  if (n_lights < 0 || n_lights > kMaxLights || n_nodes > 63 ||
+      (refl && transp && bounces >= kMaxParked) || n_pad % kBlock != 0 ||
+      n_rays > n_pad)
+    return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  const int node_rows = 1 + n_lights * (transp ? shadow_steps : 1);
+  if (n_nodes * node_rows != k_rows) return (int)cudaErrorInvalidValue;
+  Args a{rays, codes, cot, table, lights, ambient, d_rays, d_tbl, d_misc,
+         n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights, bounces,
+         shadow_steps, n_nodes, node_rows, refl, transp,
+         (size_t)n_tab * kCols <= (size_t)kSmemTableFloats, fudge};
+  cudaStream_t s = (cudaStream_t)stream;
+  return n_nodes <= 8 ? launch<8>(a, s) : launch<64>(a, s);
+}

@@ -1,5 +1,5 @@
 """The whole pixel pipeline in one kernel (counterpart of
-cutrace_tpu.ops.fused, forward only).
+cutrace_tpu.ops.fused).
 
 `fused_render_rays` runs primary cast -> per bounce-tree node: nearest hit,
 Phong with per-light shadow queries, reflection/transparency children ->
@@ -9,6 +9,13 @@ CPU tensor it runs `fused_render_rays_plain`, the composable torch pipeline
 (ops.intersect.ray_cast + render.shading.ray_color) over the same cluster
 partition. The plain version is also what the kernel is checked against on
 the card.
+
+With `emit_topo` the forward also returns the topology codes of
+ops.replay (the kernel writes them itself; `emit_topo_plain` is their
+plain version). When a gradient is asked for, `fused_render_rays` is a
+torch.autograd.Function: its forward emits the codes and its backward is
+the replay backward (ops.replay_vjp: the kernel in `csrc/replay_vjp.cu` on
+CUDA tensors, torch autograd of the replay on CPU tensors).
 
 The kernel reads the tables `kernel_tables` builds: the rows of the JAX
 package's `_tables` and `_light_table` that the kernel needs (per-slot
@@ -27,6 +34,10 @@ import math
 import torch
 
 from cutrace_tpu_torch.ops import bvh
+from cutrace_tpu_torch.ops import intersect as I
+from cutrace_tpu_torch.ops import replay as rp
+from cutrace_tpu_torch.ops import replay_vjp as rv
+from cutrace_tpu_torch.render import shading as sh
 from cutrace_tpu_torch.render.renderer import default_chunk, render_rays
 
 # Partitions of at most this many clusters are in the kernel's scope (the
@@ -35,9 +46,10 @@ LANES_MAX_M = 32
 # Bounce-tree nodes in the kernel's scope (a two-branch tree at bounce
 # depth 5); deeper trees are ROADMAP item A.10.
 MAX_NODES = 63
-# Kernel launches of `fused_render_rays` on CUDA tensors since import, or
-# since a caller last reset it.
+# Kernel launches on CUDA tensors since import, or since a caller last
+# reset them: without topology codes, and with them.
 LAUNCHES = 0
+TOPO_LAUNCHES = 0
 
 # Row layouts of the kernel's tables. csrc/fused_forward.cu reads the same
 # offsets (its T_* and P_* constants).
@@ -210,6 +222,104 @@ def fused_render_rays_plain(soa, accel, o, d, fudge, bounces: int):
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+@torch.no_grad()
+def emit_topo_plain(soa, accel, o, d, fudge, bounces: int):
+    """The plain version of the kernel's topology codes: (R, K) int32 in
+    ops.replay.topo_layout order, from the composable casts over `accel`'s
+    clusters, walked depth first node by node for all rays. Entries the
+    replay never reads hold -1 (opaque flag rows 0): nodes of weight 0 and
+    their subtrees, the shadow rows of missed nodes, and march steps from
+    the first one that does not count."""
+    _, nodes = rp.topo_layout(bounces, soa.any_reflective,
+                              soa.any_transparent, soa.n_lights,
+                              soa.shadow_steps)
+    # one node's casts at a time: a chunk's (rays x slots) products stay
+    # near 2^26 elements
+    slots = (accel.order.numel() + soa.pl_point.shape[0]
+             + soa.sp_center.shape[0])
+    chunk = max(default_chunk(soa, bounces), (1 << 26) // slots)
+    return torch.cat([
+        _emit_chunk(soa, accel, o[s:s + chunk], d[s:s + chunk], fudge,
+                    bounces, nodes)
+        for s in range(0, o.shape[0], chunk)])
+
+
+def _emit_chunk(soa, accel, o, d, fudge, bounces, nodes):
+    r = o.shape[0]
+    tc = bvh.candidates_fn(accel)
+    opaque = not soa.any_transparent
+    codes = _code_fill(soa, bounces, o.device).expand(r, -1).clone()
+    it = iter(nodes)
+    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
+                          device=o.device)
+
+    def node(level, o3, d3, w, alive):
+        _, cast_row, shadow_base = next(it)
+        hit = I.ray_cast(soa, o3, d3, fudge, tc, need_uv=False)
+        live = alive & hit.hit
+        codes[:, cast_row] = torch.where(alive, hit.prim, -1).to(torch.int32)
+        for li in range(soa.n_lights):
+            direction, distance = sh.light_direction_to(soa, li, hit.point)
+            sdir = sh._normalize(direction)
+            light_dist = distance * sh._norm(direction)
+            if opaque:
+                occ = I.ray_cast(soa, hit.point, sdir, 1e-3, tc,
+                                 need_attrs=False)
+                flag = occ.hit & (occ.t < light_dist)
+                codes[:, shadow_base + li] = (live & flag).to(torch.int32)
+                continue
+            shadow = torch.zeros_like(light_dist)
+            last = torch.zeros_like(light_dist)
+            act = live
+            for si in range(soa.shadow_steps):
+                step = I.ray_cast(soa, hit.point, sdir, last + 1e-3, tc,
+                                  need_attrs=False)
+                okm = act & step.hit & (step.t < light_dist)
+                col = shadow_base + li * soa.shadow_steps + si
+                codes[:, col] = torch.where(okm, step.prim, -1).to(
+                    torch.int32)
+                shadow = shadow + torch.where(
+                    okm, 1.0 - soa.mat_transparency[step.mat], 0.0)
+                last = torch.where(okm, step.t, last)
+                act = okm & (shadow < 1.0)
+        if level == bounces or not (soa.any_reflective
+                                    or soa.any_transparent):
+            return
+        tr = soa.mat_transparency[hit.mat]
+        f = (torch.where(hit.hit & (tr >= sh._EPS), tr, 0.0)
+             if soa.any_transparent else torch.zeros_like(w))
+        weff = w * (1.0 - f)
+        child_o = o3 + torch.where(hit.hit, hit.t, 1.0)[:, None] * d3
+        if soa.any_reflective:
+            nrm = torch.where(hit.hit[:, None], hit.normal, unit_z)
+            rd = sh._reflect(sh._normalize(d3), sh._normalize(nrm))
+            refl = soa.mat_reflect[hit.mat]
+            w_r = weff * torch.where(hit.hit & (refl >= sh._EPS), refl, 0.0)
+            node(level + 1, child_o, rd, w_r, alive & (w_r != 0.0))
+        if soa.any_transparent:
+            node(level + 1, child_o, d3, w * f, alive & (w * f != 0.0))
+
+    node(0, o, d, torch.ones((r,), dtype=torch.float32, device=o.device),
+         torch.ones((r,), dtype=torch.bool, device=o.device))
+    return codes
+
+
+def replay_supported(soa, accel, bounces: int, n_rays: int = 0) -> bool:
+    """Can the backward replay topology codes for this call: a fused
+    partition inside the kernel's scope, at most REPLAY_MAX_ROWS topo rows,
+    and a code buffer of at most REPLAY_MAX_CODE_BYTES for `n_rays`?"""
+    if accel is None:
+        return False
+    try:
+        check_scope(soa, accel, bounces)
+    except NotImplementedError:
+        return False
+    rows = rp.replay_rows(soa, bounces)
+    if rows > rp.REPLAY_MAX_ROWS:
+        return False
+    return rows * max(n_rays, 1) * 4 <= rp.REPLAY_MAX_CODE_BYTES
+
+
 # --------------------------------------------------------------------------
 # the kernel's wrapper
 # --------------------------------------------------------------------------
@@ -234,11 +344,28 @@ def _check_rays(o, d, device):
                              f"{t.device}")
 
 
+def _code_fill(soa, bounces, device):
+    """(K,) int32 pre-fill of the code buffer's rows: -1, and 0 in opaque
+    scenes' occlusion-flag rows."""
+    rows, nodes = rp.topo_layout(bounces, soa.any_reflective,
+                                 soa.any_transparent, soa.n_lights,
+                                 soa.shadow_steps)
+    fill = torch.full((rows,), -1, dtype=torch.int32)
+    if not soa.any_transparent:
+        for _, cast_row, shadow_base in nodes:
+            fill[shadow_base:cast_row + 1 + soa.n_lights] = 0
+    return fill.to(device)
+
+
 @torch.no_grad()
-def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces):
+def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
+                        emit_topo=False, tally=None):
+    """Launch the kernel. With `emit_topo` it also returns the codes as an
+    (R, K) view of its (K, R_pad) buffer; `tally`, a zeroed (2,) int64
+    CUDA tensor, receives the casts and admitted cluster visits."""
     from cutrace_tpu_torch.ops import _build
 
-    global LAUNCHES
+    global LAUNCHES, TOPO_LAUNCHES
     dev = tables.tri.device
     _check_rays(o, d, dev)
     r = o.shape[0]
@@ -253,8 +380,16 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces):
     rays[r:, 3:6] = 1.0
     rays[r:, 6] = math.inf
     out = torch.empty((r_pad, 7), dtype=torch.float32, device=dev)
+    codes = None
+    if emit_topo:
+        codes = _code_fill(soa, bounces, dev)[:, None].expand(
+            -1, r_pad).contiguous()
+    if tally is not None and (tally.dtype != torch.int64
+                              or tuple(tally.shape) != (2,)
+                              or tally.device != dev):
+        raise ValueError("tally: expected a (2,) int64 tensor on the card")
 
-    lib = _build.load_library()
+    lib = _build.load_library("fused_forward")
     rc = lib.cutrace_fused_forward(
         _ptr(rays), _ptr(tables.tri), _ptr(tables.aabb), _ptr(tables.plane),
         _ptr(tables.sphere), _ptr(tables.mat), _ptr(tables.lights),
@@ -262,29 +397,85 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces):
         r_pad, m, c, soa.n_planes, soa.n_spheres, soa.n_lights,
         tables.mat.shape[0], bounces, soa.shadow_steps,
         int(soa.any_reflective), int(soa.any_transparent), float(fudge),
+        None if codes is None else _ptr(codes), soa.tri_p1.shape[0],
+        soa.pl_point.shape[0], None if tally is None else _ptr(tally),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"fused forward kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
-    return out[:r, 0:3], out[:r, 3], out[:r, 4:7]
+    if codes is None:
+        LAUNCHES += 1
+        return out[:r, 0:3], out[:r, 3], out[:r, 4:7]
+    TOPO_LAUNCHES += 1
+    return out[:r, 0:3], out[:r, 3], out[:r, 4:7], codes[:, :r].T
+
+
+@torch.no_grad()
+def _forward_topo(soa, accel, o, d, fudge, bounces, tables):
+    """(color, depth, normal, codes (R, K)): the kernel on CUDA tensors,
+    the plain version and the plain emitter on CPU tensors."""
+    if not replay_supported(soa, accel, bounces, n_rays=o.shape[0]):
+        raise NotImplementedError(
+            f"topology codes for {o.shape[0]} rays at bounce depth "
+            f"{bounces}: {rp.replay_rows(soa, bounces)} rows exceed the "
+            f"replay's row or code-buffer budget; ROADMAP item A.8")
+    if o.is_cuda:
+        if tables is None:
+            tables = kernel_tables(soa, accel)
+        return _fused_forward_cuda(soa, tables, o, d, fudge, bounces,
+                                   emit_topo=True)
+    if o.device.type != "cpu":
+        raise ValueError(f"unsupported device {o.device}")
+    return (*fused_render_rays_plain(soa, accel, o, d, fudge, bounces),
+            emit_topo_plain(soa, accel, o, d, fudge, bounces))
+
+
+class _FusedRender(torch.autograd.Function):
+    """The fused render with the replay backward. Differentiable inputs:
+    the recentered packed table (N, 17), the light table (L, 8), ambient
+    (1,), o and d: what the backward consumes. The forward emits the
+    topology codes and saves them; the backward turns output cotangents
+    into cotangents of those inputs (ops.replay_vjp.vjp_tables)."""
+
+    @staticmethod
+    def forward(ctx, table, lights, ambient, o, d, soa, accel, tables,
+                fudge, bounces):
+        *outs, codes = _forward_topo(soa, accel, o.detach(), d.detach(),
+                                     fudge, bounces, tables)
+        ctx.save_for_backward(table, lights, ambient, o, d, codes)
+        ctx.soa, ctx.fudge, ctx.bounces = soa, fudge, bounces
+        # the kernel's outputs are column views of one buffer: hand out
+        # tensors of their own
+        return tuple(x.contiguous() for x in outs)
+
+    @staticmethod
+    def backward(ctx, g_c, g_dep, g_n):
+        table, lights, ambient, o, d, codes = ctx.saved_tensors
+        grads = rv.vjp_tables(ctx.soa, table, lights, ambient, o, d, codes,
+                              (g_c, g_dep, g_n), ctx.fudge, ctx.bounces)
+        return (*grads, None, None, None, None, None)
 
 
 def fused_render_rays(soa, accel, o, d, fudge, bounces: int,
                       emit_topo: bool = False, tables=None):
     """Fused render of explicit rays: (color (R,3), depth (R,),
-    normal (R,3)).
+    normal (R,3)), plus the (R, K) int32 topology codes with `emit_topo`.
 
     CUDA tensors launch the kernel (raising if it cannot) on `tables`, the
     scene's KernelTables (built here when None); CPU tensors run the plain
-    version. Topology codes for the backward (`emit_topo`) are ROADMAP
-    item A.7 and raise here."""
-    if emit_topo:
-        raise NotImplementedError(
-            "topology codes (emit_topo) are ROADMAP item A.7 (replay "
-            "backward)")
+    version. When autograd asks for a gradient of the scene leaves or the
+    rays, the call runs as _FusedRender: the forward emits the codes and
+    the backward replays them. Its kernel tables are built here from the
+    live leaves on every call, so pass no `tables` while training."""
     check_scope(soa, accel, bounces)
+    if emit_topo:
+        return _forward_topo(soa, accel, o, d, fudge, bounces, tables)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad
+            for t in (o, d, *(getattr(soa, f) for f in rv.TABLE_FIELDS))):
+        return _FusedRender.apply(*rv.backward_tables(soa), o, d, soa, accel,
+                                  tables, float(fudge), bounces)
     if o.is_cuda:
         if tables is None:
             tables = kernel_tables(soa, accel)

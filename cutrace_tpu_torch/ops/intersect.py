@@ -40,6 +40,10 @@ class HitRecord:
     t: torch.Tensor  # (R,) f32, +inf on miss
     obj: torch.Tensor  # (R,) i64 scene object index (n_objects on miss)
     mat: torch.Tensor  # (R,) i64 material index (0 on miss)
+    # (R,) i64 winner primitive as a topology code (ops.replay): original
+    # flat triangle index, T + plane index, T + P + sphere index (T, P the
+    # padded leaf lengths), -1 on a miss
+    prim: torch.Tensor
     point: torch.Tensor  # (R,3) f32
     normal: torch.Tensor  # (R,3) f32, zeros on miss
     uv: torch.Tensor  # (R,2) f32
@@ -306,11 +310,15 @@ def ray_cast(soa, o, d, min_dist, tri_candidates=None, need_attrs=True,
     obj = _take(objs, kind)
     obj = torch.where(hit, obj, soa.n_objects)
     mat = torch.where(hit, mat, 0)
+    t_cnt, p_cnt = soa.tri_p1.shape[0], soa.pl_point.shape[0]
+    prim = pick(tri.order.to(torch.int64), t_cnt + i_pl, t_cnt + p_cnt + i_sp)
+    prim = torch.where(hit, prim, -1)
 
     if not need_attrs:
         zero3 = torch.zeros_like(o)
-        return HitRecord(hit=hit, t=t, obj=obj, mat=mat, point=zero3,
-                         normal=zero3, uv=torch.zeros_like(o[:, :2]))
+        return HitRecord(hit=hit, t=t, obj=obj, mat=mat, prim=prim,
+                         point=zero3, normal=zero3,
+                         uv=torch.zeros_like(o[:, :2]))
 
     t_safe = torch.where(hit, t, 1.0)
     p_tri, n_tri, uv_tri = triangle_attrs_from_verts(
@@ -328,6 +336,7 @@ def ray_cast(soa, o, d, min_dist, tri_candidates=None, need_attrs=True,
         t=t,
         obj=obj,
         mat=mat,
+        prim=prim,
         point=torch.where(hit3, point, 0.0),
         normal=torch.where(hit3, normal, 0.0),
         uv=torch.where(hit3, uv, 0.0),

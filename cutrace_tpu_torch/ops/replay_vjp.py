@@ -1,0 +1,246 @@
+"""The replay backward: fixed-topology gradients from topology codes
+(counterpart of cutrace_tpu.ops.replay_vjp).
+
+The vector-Jacobian product of ops.replay.replay_render_rays for given
+codes and output cotangents. On CUDA tensors it launches the hand-written
+Hopper kernel in `csrc/replay_vjp.cu`; on CPU tensors it runs the plain
+version, torch autograd of the replay. Both consume the small tensors the
+backward differentiates: the packed table recentered by the scene center
+(`_recentered_table`, (N, 17)), the light table (`_light_table_diff`,
+(L, 8)) and the ambient term. Their cotangents reach the scene leaves by
+torch autograd through those constructors, as `park` does in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from cutrace_tpu_torch.ops import replay as rp
+
+# Kernel launches of the replay backward on CUDA tensors since import, or
+# since a caller last reset it.
+LAUNCHES = 0
+# The kernel's scope: lights and bounce-tree nodes.
+MAX_LIGHTS = 8
+MAX_NODES = 63
+_BLOCK = 128  # the kernel's block; rays are padded to a multiple of it
+
+# The scene leaves the backward's tables are built from: every
+# differentiable field but the camera's, which reach the rays instead.
+TABLE_FIELDS = (
+    "tri_p1", "tri_p2", "tri_p3", "pl_point", "pl_normal", "sp_center",
+    "sp_radius", "mat_color", "mat_specular", "mat_reflect", "mat_phong",
+    "mat_transparency", "light_vec", "light_color", "ambient",
+)
+
+
+def replay_vjp_supported(soa, bounces: int) -> bool:
+    """Is this configuration inside the kernel's scope: at most MAX_LIGHTS
+    lights, MAX_NODES tree nodes and REPLAY_MAX_ROWS topo rows? There is no
+    primitive cap: gathers are plain loads."""
+    rows, nodes = rp.topo_layout(bounces, soa.any_reflective,
+                                 soa.any_transparent, soa.n_lights,
+                                 soa.shadow_steps)
+    return (soa.n_lights <= MAX_LIGHTS and len(nodes) <= MAX_NODES
+            and rows <= rp.REPLAY_MAX_ROWS)
+
+
+def _recentered_table(soa, o0):
+    """The replay's packed table with positions recentered by o0, as
+    hit_from_code subtracts them per kind: triangles columns 0:9, planes
+    and spheres columns 0:3. Differentiable in the scene leaves (o0 is
+    detached by the caller)."""
+    tbl = rp._packed_table(soa)
+    return tbl - _position_offset(soa, o0)
+
+
+def _position_offset(soa, o0):
+    """(N, 17) rows holding o0 where the packed table holds positions."""
+    t = soa.tri_p1.shape[0]
+    adj = torch.zeros((t + soa.pl_point.shape[0] + soa.sp_center.shape[0],
+                       17), dtype=torch.float32, device=o0.device)
+    adj[:t, 0:9] = o0.repeat(3)
+    adj[t:, 0:3] = o0
+    return adj
+
+
+def _light_table_diff(soa, o0):
+    """(L, 8) light rows [kind, vx, vy, vz, cr, cg, cb, 0], point-light
+    positions recentered by o0, differentiable in light_vec and
+    light_color (the padded (1, 8) row of a scene without lights too)."""
+    kind = soa.light_kind.to(torch.float32)[:, None]
+    is_sun = (soa.light_kind == 0)[:, None]
+    vec = torch.where(is_sun, soa.light_vec, soa.light_vec - o0)
+    pad = torch.zeros_like(kind)
+    return torch.cat([kind, vec, soa.light_color, pad], dim=1)
+
+
+def backward_tables(soa):
+    """(table, lights, ambient): the differentiable inputs of the backward,
+    built from the scene leaves by differentiable torch ops."""
+    o0 = soa.scene_center.detach()
+    return (_recentered_table(soa, o0), _light_table_diff(soa, o0),
+            soa.ambient.reshape(1))
+
+
+def _replay_scene(soa, table, lights, ambient):
+    """The replay's inputs rebuilt from the backward's tables: a scene
+    whose lights and ambient are views of `lights` and `ambient`, and the
+    packed table in world coordinates."""
+    o0 = soa.scene_center.detach()
+    is_sun = (soa.light_kind == 0)[:, None]
+    vec = lights[:, 1:4]
+    view = dataclasses.replace(
+        soa, light_vec=torch.where(is_sun, vec, vec + o0),
+        light_color=lights[:, 4:7], ambient=ambient.reshape(()))
+    return view, table + _position_offset(soa, o0)
+
+
+def _zeros_for_none(cot, o):
+    g_c, g_dep, g_n = cot
+    r = o.shape[0]
+    z = dict(dtype=torch.float32, device=o.device)
+    return (torch.zeros((r, 3), **z) if g_c is None else g_c,
+            torch.zeros((r,), **z) if g_dep is None else g_dep,
+            torch.zeros((r, 3), **z) if g_n is None else g_n)
+
+
+def replay_vjp_plain(soa, table, lights, ambient, o, d, codes, cot, fudge,
+                     bounces: int):
+    """The plain version of the kernel: torch autograd of the replay.
+    Returns the cotangents of (table, lights, ambient, o, d)."""
+    cot = _zeros_for_none(cot, o)
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_()
+               for x in (table, lights, ambient, o, d)]
+        view, world = _replay_scene(soa, *ins[:3])
+        outs = rp.replay_render_rays(view, ins[3], ins[4], codes, fudge,
+                                     bounces, table=world)
+        grads = torch.autograd.grad(outs, ins, cot, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(ins, grads))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _codes_by_row(codes):
+    """(buffer, n_pad): the codes as a (K, n_pad) int32 buffer, rays
+    contiguous, n_pad a multiple of the kernel's block. It is the fused
+    forward's own buffer when `codes` is its (R, K) view, else a copy."""
+    r, k = codes.shape
+    n_pad = codes.stride(1)
+    if (codes.dtype == torch.int32 and codes.stride(0) == 1
+            and n_pad % _BLOCK == 0 and n_pad >= r
+            and codes.storage_offset() == 0
+            and codes.untyped_storage().nbytes() >= k * n_pad * 4):
+        return torch.as_strided(codes, (k, n_pad), (n_pad, 1)), n_pad
+    n_pad = -(-r // _BLOCK) * _BLOCK
+    out = torch.full((k, n_pad), -1, dtype=torch.int32, device=codes.device)
+    out[:, :r] = codes.T
+    return out, n_pad
+
+
+@torch.no_grad()
+def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
+                     bounces: int):
+    from cutrace_tpu_torch.ops import _build
+
+    global LAUNCHES
+    if not replay_vjp_supported(soa, bounces):
+        raise NotImplementedError(
+            f"replay backward of {soa.n_lights} lights at bounce depth "
+            f"{bounces}: the kernel covers at most {MAX_LIGHTS} lights and "
+            f"{MAX_NODES} tree nodes; ROADMAP item A.8")
+    dev = table.device
+    r = o.shape[0]
+    rows = rp.replay_rows(soa, bounces)
+    n_tab = (soa.tri_p1.shape[0] + soa.pl_point.shape[0]
+             + soa.sp_center.shape[0])
+    n_lights = soa.n_lights
+    checks = (("table", table, torch.float32, (n_tab, 17)),
+              ("lights", lights, torch.float32, (max(n_lights, 1), 8)),
+              ("ambient", ambient, torch.float32, (1,)),
+              ("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
+              ("codes", codes, torch.int32, (r, rows)))
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name}: expected {dtype} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    table, lights, ambient = (x.contiguous() for x in (table, lights, ambient))
+    g_c, g_dep, g_n = _zeros_for_none(cot, o)
+    codes_kn, n_pad = _codes_by_row(codes)
+    rays = torch.zeros((n_pad, 8), dtype=torch.float32, device=dev)
+    rays[:r, 0:3] = o - soa.scene_center
+    rays[:r, 3:6] = d
+    rays[r:, 3:6] = 1.0
+    cot8 = torch.zeros((n_pad, 8), dtype=torch.float32, device=dev)
+    cot8[:r, 0:3] = g_c
+    cot8[:r, 3] = g_dep
+    cot8[:r, 4:7] = g_n
+    d_rays = torch.empty((n_pad, 8), dtype=torch.float32, device=dev)
+    d_tbl = torch.zeros((n_tab, 17), dtype=torch.float32, device=dev)
+    d_misc = torch.zeros((n_lights * 8 + 8,), dtype=torch.float32,
+                         device=dev)
+
+    lib = _build.load_library("replay_vjp")
+    rc = lib.cutrace_replay_vjp(
+        _ptr(rays), _ptr(codes_kn), _ptr(cot8), _ptr(table), _ptr(lights),
+        _ptr(ambient), _ptr(d_rays), _ptr(d_tbl), _ptr(d_misc),
+        r, n_pad, rows, n_tab, soa.tri_p1.shape[0], soa.pl_point.shape[0],
+        n_lights, bounces, soa.shadow_steps, int(soa.any_reflective),
+        int(soa.any_transparent), float(fudge),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if rc != 0:
+        raise RuntimeError(f"replay backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES += 1
+    d_lights = torch.zeros_like(lights)
+    if n_lights:
+        d_lights[:n_lights, 1:7] = d_misc[:n_lights * 8].reshape(
+            n_lights, 8)[:, 1:7]
+    d_ambient = d_misc[n_lights * 8].reshape(1)
+    return d_tbl, d_lights, d_ambient, d_rays[:r, 0:3], d_rays[:r, 3:6]
+
+
+def vjp_tables(soa, table, lights, ambient, o, d, codes, cot, fudge,
+               bounces: int):
+    """Cotangents of (table, lights, ambient, o, d) from the output
+    cotangents `cot` = (color, depth, normal; None for zero): the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if o.is_cuda:
+        return _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes,
+                                cot, fudge, bounces)
+    if o.device.type != "cpu":
+        raise ValueError(f"unsupported device {o.device}")
+    return replay_vjp_plain(soa, table, lights, ambient, o, d, codes, cot,
+                            fudge, bounces)
+
+
+def replay_vjp(soa, o, d, codes, cot, fudge, bounces: int,
+               tables_vjp=None):
+    """The fixed-topology backward of a fused render: (g_soa, g_o, g_d)
+    from topology codes (R, K) and output cotangents (color (R,3), depth
+    (R,), normal (R,3)). g_soa maps each name in TABLE_FIELDS to its
+    gradient. Semantics match torch autograd of replay_render_rays.
+    `tables_vjp` (default vjp_tables: the kernel on CUDA tensors) computes
+    the table-level cotangents; passing replay_vjp_plain routes the plain
+    version's instead, e.g. to hold the kernel against it on the card."""
+    leaves = {name: getattr(soa, name).detach().requires_grad_()
+              for name in TABLE_FIELDS}
+    with torch.enable_grad():
+        ins = backward_tables(dataclasses.replace(soa, **leaves))
+    d_tbl, d_lights, d_amb, g_o, g_d = (tables_vjp or vjp_tables)(
+        soa, *(x.detach() for x in ins), o.detach(), d.detach(), codes, cot,
+        fudge, bounces)
+    grads = torch.autograd.grad(ins, list(leaves.values()),
+                                (d_tbl, d_lights, d_amb), allow_unused=True)
+    g_soa = {name: torch.zeros_like(leaf) if g is None else g
+             for (name, leaf), g in zip(leaves.items(), grads)}
+    return g_soa, g_o, g_d

@@ -20,7 +20,7 @@ from cutrace_tpu_torch.ops import bvh
 from cutrace_tpu_torch.ops import intersect as I
 from cutrace_tpu_torch.render import shading as sh
 from cutrace_tpu_torch.scene.soa import (SceneArrays, host_triangle_soup,
-                                         scene_to_soa)
+                                         resolve_device, scene_to_soa)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,14 +34,15 @@ class PreparedScene:
     tables: Optional[object] = None
 
 
-def prepare(scene_or_soa, accel: str = "auto", device=None,
+def prepare(scene_or_soa, accel: str = "auto", device="cuda",
             bounces: Optional[int] = None) -> PreparedScene:
     """Build the device scene and its acceleration structure.
 
     accel: "none" (composable brute force), "fused" (the fused kernel on
     CUDA tensors, its plain version on CPU tensors) or "auto" ("fused" on a
-    CUDA device, "none" on the CPU). `device` places a Scene's tensors
-    (default CPU); a SceneArrays stays where it is. With "fused", a
+    CUDA device, "none" on the CPU). `device` places a Scene's tensors:
+    the card unless the caller passes "cpu" (without a card the call
+    raises); a SceneArrays stays where it is. With "fused", a
     partition of more than LANES_MAX_M clusters, or (given `bounces`) a
     bounce tree of more than MAX_NODES nodes, raises NotImplementedError:
     those scenes are ROADMAP item A.10. On a CUDA device the kernel's
@@ -53,8 +54,7 @@ def prepare(scene_or_soa, accel: str = "auto", device=None,
         soa = scene_or_soa
     else:
         host_tris = host_triangle_soup(scene_or_soa)
-        soa = scene_to_soa(scene_or_soa,
-                           device=device if device is not None else "cpu")
+        soa = scene_to_soa(scene_or_soa, device=resolve_device(device))
     if accel == "auto":
         accel = "fused" if soa.device.type == "cuda" else "none"
     if accel == "none":
@@ -179,11 +179,12 @@ def _render_fused(prepared: PreparedScene, bounces: int, fudge: float):
 
 @torch.no_grad()
 def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
-           chunk: Optional[int] = None, device=None):
+           chunk: Optional[int] = None, device="cuda"):
     """Render the full image: (color (H,W,3), depth (H,W), normal (H,W,3))
     float32 tensors on the scene's device.
 
-    Accepts a Scene (placed on `device`), a SceneArrays (brute-force
+    Accepts a Scene (placed on `device`: the card unless the caller
+    passes "cpu"; without a card the call raises), a SceneArrays (brute-force
     composable path) or a PreparedScene from prepare() (its partition:
     "fused" runs ops.fused.fused_render_rays). `chunk` bounds the rays per
     composable batch."""
@@ -194,8 +195,7 @@ def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
     soa = (
         scene_or_soa
         if isinstance(scene_or_soa, SceneArrays)
-        else scene_to_soa(scene_or_soa,
-                          device=device if device is not None else "cpu")
+        else scene_to_soa(scene_or_soa, device=resolve_device(device))
     )
 
     n = soa.width * soa.height

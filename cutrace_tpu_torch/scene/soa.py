@@ -19,7 +19,7 @@ import warnings
 import numpy as np
 import torch
 
-from cutrace_tpu.scene import types as T
+from cutrace_tpu_torch.scene import types as T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,18 +308,48 @@ def numpy_leaves(scene: T.Scene, shadow_steps: int = 16):
     return leaves, meta
 
 
-def soa_from_numpy(leaves, meta, device="cpu") -> SceneArrays:
+def resolve_device(device="cuda") -> torch.device:
+    """The device a port entry point runs on: the card unless the caller
+    asks for the CPU. Asking for the card where there is none raises;
+    nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def soa_from_numpy(leaves, meta, device="cuda") -> SceneArrays:
     """SceneArrays on `device` from numpy leaves (e.g. the JAX package's
     SceneArrays leaves read back with np.asarray) and static metadata."""
+    dev = resolve_device(device)
     tensors = {
-        name: torch.from_numpy(np.array(leaves[name], copy=True)).to(device)
+        name: torch.from_numpy(np.array(leaves[name], copy=True)).to(dev)
         for name in LEAF_NAMES
     }
     return SceneArrays(**tensors, **{name: meta[name] for name in META_NAMES})
 
 
+def params_from_numpy(params, device="cuda"):
+    """The port's parameter dict (diff.grad.extract_params) on `device`
+    from numpy arrays, e.g. the JAX package's extract_params output read
+    back with np.asarray: float32 tensors under the same keys."""
+    dev = resolve_device(device)
+    return {
+        name: torch.from_numpy(np.array(value, np.float32, copy=True)).to(dev)
+        for name, value in params.items()
+    }
+
+
+def soa_to(soa: SceneArrays, device) -> SceneArrays:
+    """The same scene with every tensor leaf on `device`."""
+    dev = resolve_device(device)
+    return dataclasses.replace(
+        soa, **{name: getattr(soa, name).to(dev) for name in LEAF_NAMES})
+
+
 def scene_to_soa(scene: T.Scene, shadow_steps: int = 16,
-                 device="cpu") -> SceneArrays:
+                 device="cuda") -> SceneArrays:
     """Flatten a CPU scene into SceneArrays on `device`."""
     leaves, meta = numpy_leaves(scene, shadow_steps)
     return soa_from_numpy(leaves, meta, device)

@@ -33,6 +33,16 @@ def test_bad_scene_dumps_schema(capsys, tmp_path):
     assert "type 'sphere'" in out
 
 
+def test_cli_needs_the_card_or_cpu(tmp_path, monkeypatch, capsys):
+    """Without a card and without --device cpu the CLI fails; it never
+    carries on on the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([str(REPO / "scenes" / "triangle.json"), "--out",
+                     str(tmp_path)]) == 1
+    assert "--device cpu" in capsys.readouterr().err
+    assert not (tmp_path / "frame.jpg").exists()
+
+
 def test_render_outputs(tmp_path):
     """The happy path through the real process surface: scene dump,
     timing line and three 20x20 JPEGs."""
@@ -51,23 +61,31 @@ def test_render_outputs(tmp_path):
 
 
 def test_port_never_loads_jax():
-    """Importing the port and rendering with it never loads jax."""
+    """Importing the port, rendering with it and taking one fit step on
+    the CPU never loads jax or the JAX package (cutrace_tpu)."""
     code = (
         "import sys\n"
         "import cutrace_tpu_torch, cutrace_tpu_torch.perf_probe\n"
+        "import cutrace_tpu_torch.cli, cutrace_tpu_torch.diff.checkpoint\n"
         "from cutrace_tpu_torch.render.renderer import prepare, render\n"
+        "from cutrace_tpu_torch.parallel.train import fit\n"
         "sc = cutrace_tpu_torch.load_scene('scenes/triangle.json')\n"
-        "c, d, n = render(prepare(sc, accel='fused', device='cpu'), "
-        "bounces=2)\n"
-        "assert tuple(c.shape) == (20, 20, 3)\n"
-        "loaded = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
-        "print('JAX MODULES', loaded)\n"
-        "assert 'jax' not in sys.modules, loaded\n"
+        "sc.camera.width = sc.camera.height = 8\n"
+        "p = prepare(sc, accel='fused', device='cpu')\n"
+        "c, d, n = render(p, bounces=2)\n"
+        "assert tuple(c.shape) == (8, 8, 3)\n"
+        "params, losses = fit(p.soa, c, steps=1, bounces=1, "
+        "param_filter=('mat_color',), accel='fused', device='cpu')\n"
+        "assert len(losses) == 1\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'cutrace_tpu'))\n"
+        "print('LOADED', loaded)\n"
+        "assert not loaded, loaded\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "JAX MODULES []" in proc.stdout
+    assert "LOADED []" in proc.stdout
 
 
 def test_perf_probe_needs_cuda(monkeypatch):

@@ -23,10 +23,15 @@ from cutrace_tpu_torch.ops import _build
 from cutrace_tpu_torch.ops import bvh as tbvh
 from cutrace_tpu_torch.ops import fused as tfused
 from cutrace_tpu_torch.render import renderer as TR
-from cutrace_tpu_torch.scene.soa import scene_to_soa as torch_soa
+from cutrace_tpu_torch.scene.soa import scene_to_soa
 from test_fused import _compare
+from test_torch_host import port_scene
 
 torch.set_num_threads(2)
+
+
+def torch_soa(sc):
+    return scene_to_soa(port_scene(sc), device="cpu")
 
 
 def _scene(scenes_dir, name, w, h):
@@ -140,7 +145,7 @@ def test_scope_is_enforced(scenes_dir):
         if type(ob).__name__ == "Mesh":
             ob.vertices = subdivide(ob.vertices, 2)  # 16k triangles
     with pytest.raises(NotImplementedError, match="A.10"):
-        TR.prepare(sc, accel="fused")
+        TR.prepare(port_scene(sc), accel="fused", device="cpu")
 
     soa = torch_soa(_scene(scenes_dir, "sphere_plane.json", 4, 4))
     with pytest.raises(NotImplementedError, match="127-node"):
@@ -149,9 +154,11 @@ def test_scope_is_enforced(scenes_dir):
     o, d, _ = TR.block_rays(soa)
     with pytest.raises(NotImplementedError, match="A.10"):
         tfused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 6)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tfused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 2,
-                                 emit_topo=True)
+    # topology codes are in scope now (ROADMAP A.7 done): on CPU tensors
+    # the plain emitter answers, shaped as the replay's layout
+    *_, codes = tfused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 2,
+                                         emit_topo=True)
+    assert tuple(codes.shape) == (16, 49) and codes.dtype == torch.int32
     wide = tbvh.accel_from_numpy(np.zeros((33, 64), np.int32),
                                  np.zeros((33, 64), bool))
     with pytest.raises(NotImplementedError, match="33 clusters"):
@@ -161,7 +168,7 @@ def test_scope_is_enforced(scenes_dir):
 def test_kernel_row_layout_matches_source():
     """The (M, C, 24) triangle rows the wrapper packs are the rows the
     CUDA source reads (its T_* constants)."""
-    src = _build.SOURCE.read_text()
+    src = _build.SOURCES["fused_forward"].read_text()
     consts = dict(
         (k, int(v)) for k, v in re.findall(r"\b(T_[A-Z]+) = (\d+)", src))
     names = tfused._TRI_NAMES
@@ -220,7 +227,8 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
             return self.rc
 
     lib = FakeLib()
-    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name="fused_forward": lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
     soa = torch_soa(_scene(scenes_dir, "bunny.json", 10, 7))
@@ -235,6 +243,19 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     # n_rays (padded to the block), M, C, planes, spheres, lights, mats,
     # bounces, shadow steps, any_refl, any_transp
     assert ints == (128, 16, 64, 5, 0, 4, 6, 5, 1, 1, 0)
+    # no code buffer or tally; T and P, the padded triangle and plane
+    # leaf lengths
+    assert calls[0][21] is None and calls[0][22:24] == (1000, 5)
+    assert calls[0][24] is None
+    topo_before = tfused.TOPO_LAUNCHES
+    *_, codes = tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5,
+                                           emit_topo=True)
+    assert tfused.TOPO_LAUNCHES == topo_before + 1
+    assert tuple(codes.shape) == (70, 30) and codes.dtype == torch.int32
+    # the pre-fill: -1 in cast rows, 0 in the opaque flag rows
+    assert (codes[:, 0::5] == -1).all() and (codes[:, 1:5] == 0).all()
+    assert calls[1][21] is not None
+    calls.pop()
     lib.rc = 700
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5)

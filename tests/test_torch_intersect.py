@@ -16,9 +16,14 @@ from cutrace_tpu.ops import intersect as JI
 from cutrace_tpu.scene.loader import load_scene
 from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
 from cutrace_tpu_torch.ops import intersect as TI
-from cutrace_tpu_torch.scene.soa import scene_to_soa as torch_soa
+from cutrace_tpu_torch.scene.soa import scene_to_soa
+from test_torch_host import port_scene
 
 torch.set_num_threads(2)
+
+
+def torch_soa(sc):
+    return scene_to_soa(port_scene(sc), device="cpu")
 
 N_RAYS = 4096
 GAP = 1e-5

@@ -16,11 +16,16 @@ from cutrace_tpu.scene.loader import load_scene
 from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
 from cutrace_tpu_torch.render import renderer as TR
 from cutrace_tpu_torch.render import shading as TS
-from cutrace_tpu_torch.scene.soa import scene_to_soa as torch_soa
+from cutrace_tpu_torch.scene.soa import scene_to_soa
 from test_device_renderer import assert_image_close
 from test_fused import _compare
+from test_torch_host import port_scene
 
 torch.set_num_threads(2)
+
+
+def torch_soa(sc):
+    return scene_to_soa(port_scene(sc), device="cpu")
 
 
 def _scene(scenes_dir, name, w, h):
@@ -50,7 +55,8 @@ def test_render_matches_jax(scenes_dir, scene, w, h, bounces):
 def test_render_matches_cpuref(scenes_dir):
     sc = _scene(scenes_dir, "bunny.json", 32, 18)
     c_ref, d_ref, n_ref = cpuref.render_cpu(sc, bounces=2)
-    c, d, n = (x.numpy() for x in TR.render(sc, bounces=2))
+    c, d, n = (x.numpy() for x in TR.render(port_scene(sc), bounces=2,
+                                               device="cpu"))
     assert_image_close(c, c_ref, "color")
     assert_image_close(d, d_ref, "depth")
     assert_image_close(n, n_ref, "normal")

@@ -11,6 +11,7 @@ from cutrace_tpu.scene import soa as jsoa
 from cutrace_tpu.scene.loader import load_scene
 from cutrace_tpu_torch.ops import bvh as tbvh
 from cutrace_tpu_torch.scene import soa as tsoa
+from test_torch_host import port_scene
 
 torch.set_num_threads(2)
 
@@ -37,7 +38,7 @@ def _assert_same(port, leaves, meta):
 def test_scene_to_soa_bit_identical(scenes_dir, scene):
     sc = load_scene(scenes_dir / scene)
     ref = jsoa.scene_to_soa(sc)
-    port = tsoa.scene_to_soa(sc)
+    port = tsoa.scene_to_soa(port_scene(sc), device="cpu")
     meta = {name: getattr(ref, name) for name in tsoa.META_NAMES}
     _assert_same(port, _jax_leaves(ref), meta)
 
@@ -57,7 +58,7 @@ def test_soa_from_numpy_of_jax_leaves(scenes_dir, scene):
 @pytest.mark.parametrize("scene", SCENES)
 def test_host_triangle_soup(scenes_dir, scene):
     sc = load_scene(scenes_dir / scene)
-    for got, want in zip(tsoa.host_triangle_soup(sc),
+    for got, want in zip(tsoa.host_triangle_soup(port_scene(sc)),
                          jsoa.host_triangle_soup(sc)):
         assert got.dtype == want.dtype
         assert np.array_equal(got, want)
@@ -69,7 +70,8 @@ def test_build_accel_partition(scenes_dir, scene, cluster_size):
     sc = load_scene(scenes_dir / scene)
     ref = jbvh.build_accel(jsoa.scene_to_soa(sc), cluster_size,
                            kind="fused", interpret=True)
-    port = tbvh.build_accel(tsoa.scene_to_soa(sc), cluster_size)
+    port = tbvh.build_accel(
+        tsoa.scene_to_soa(port_scene(sc), device="cpu"), cluster_size)
     assert np.array_equal(port.order.numpy(), np.asarray(ref.order))
     assert np.array_equal(port.valid.numpy(), np.asarray(ref.valid))
     again = tbvh.accel_from_numpy(np.asarray(ref.order),
@@ -81,10 +83,10 @@ def test_build_accel_partition(scenes_dir, scene, cluster_size):
 def test_numpy_partition_fallback_matches_native(scenes_dir, monkeypatch):
     """The numpy median split (used when the native library is missing)
     gives the native median split's leaves."""
-    from cutrace_tpu import native
+    from cutrace_tpu_torch import native
 
-    p1, p2, p3, _ = tsoa.host_triangle_soup(load_scene(scenes_dir /
-                                                       "bunny.json"))
+    p1, p2, p3, _ = tsoa.host_triangle_soup(
+        port_scene(load_scene(scenes_dir / "bunny.json")))
     centroids = (p1 + p2 + p3) / 3.0
     nat = tbvh.build_partition(centroids, 64)
     monkeypatch.setattr(native, "available", lambda: False)
@@ -100,7 +102,7 @@ def test_clusters_from_accel(scenes_dir, scene):
     jsa = jsoa.scene_to_soa(sc)
     ref = jbvh.clusters_from_accel(jsa, jbvh.build_accel(
         jsa, 64, kind="fused", interpret=True))
-    tsa = tsoa.scene_to_soa(sc)
+    tsa = tsoa.scene_to_soa(port_scene(sc), device="cpu")
     port = tbvh.clusters_from_accel(tsa, tbvh.build_accel(tsa, 64))
     for name in ("p1", "p2", "p3", "mat", "obj", "order", "is_mesh",
                  "valid", "bmin", "bmax"):
