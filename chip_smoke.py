@@ -44,10 +44,41 @@ line) if any phase fails:
   9. train   fit on bunny 1920x1080 b5, mat_color perturbed by seeded
              noise, lr 5e-2, 5 steps: finite falling losses, a checkpoint
              saved, and a resumed fit continuing from it
- 10. result  a JSON line of per-kernel numbers, then the contract line
+ 10. big-parity  K3 (the big-scene instance of the forward kernel) against
+             the plain version: the subdivided bunny at 16k triangles
+             480x270 b5 and 256k 160x90 b5, forward gate with the 10 %
+             edge budget of subdivided meshes (tests/test_fused.py:173-188)
+ 11. big-topo / big-vjp  the topo and vjp phases on those two scenes: K3
+             with codes (bits, replay, emitter gates), K2 at 256k (every
+             table cotangent a global atomic)
+ 12. big-frame  the 256k bunny through K3 against the 1k bunny through K1
+             at 960x540 b5 (the surface is the same): zero mismatches off
+             the discontinuities and the rays whose topology codes differ
+             between the two (triangles mapped to their 1k parents; at
+             most 0.1 % of rays), at most 10 % of edge pixels; then a
+             cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and 1M with
+             K3's time, bound and launches
+ 13. big-grad  one gradient step over all 19 groups at 256k 960x540 b5:
+             finite, K3 with codes and K2 launched; s/step and its parts
+ 14. cast    K4 against its plain version on bunny 480x270 primary rays
+             and 65,536 seeded rays, on the bunny (M=16) and 256k
+             (M=1024) partitions: orders equal but for knife edges (at
+             most 0.1 % of rays), t within isclose(rtol 1e-5, atol
+             1e-5 |o - o0|); K4's time and bound on the 1080p primary rays
+ 15. pallas  the CLI with --accel pallas at bunny 1920x1080 b5: three
+             JPEGs, K4 launched, K1/K3 not; the pallas render at 480x270
+             b5 against the dense cast under the forward gate
+ 16. fallback  a transparent bunny (mesh transparency 0.5): at 160x90 b6
+             (127 nodes) render takes the composable culling cast and
+             matches brute force; at b5 (567 code rows, past the replay's
+             512) a gradient step runs K1 forward and the composable
+             backward through K4, within rtol 2e-3 of autograd of brute
+             force
+ 17. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
 
-Each main path (the CLI render, the gradient step, fit) runs with every
+Each main path (the CLI render, the gradient step, fit, the 256k
+bigscene run, the 256k step, the --accel pallas CLI) runs with every
 kernel's launch count set to 0 just before it and read just after; the
 counts of the result line come from those runs. `--skip` leaves phases out
 while developing; the result line is printed only when nothing was
@@ -64,6 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -80,7 +112,21 @@ PARITY = (
     ("sphere_plane.json", 480, 270, 5),
 )
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
-PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train")
+PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
+          "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
+          "cast", "pallas", "fallback")
+# K3's parity cases: (subdivision levels, width, height), bounce depth 5
+BIG_PARITY = ((2, 480, 270), (4, 160, 90))
+# bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
+BIG_ROWS = (2, 3, 4, 5)
+# a subdivided mesh against its own K1/plain render, or across subdivision:
+# tests/test_fused.py:173-188's edge budget
+EDGE_BUDGET_SUBDIVIDED = 0.10
+# share of rays that may take another path through the subdivided scene
+KNIFE_RAY_BUDGET = 1e-3
+CAST_RANDOM_RAYS = 65536
+CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
+FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
 PLAIN_CHUNK = 262144  # rays per plain-replay chunk on the card
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # float32 FLOP/s outside the tensor cores.
@@ -142,15 +188,18 @@ def code_edges(codes_img, dilate=1):
     return g
 
 
-def gate(base, out):
+def gate(base, out, extra_edges=None):
     """Per-buffer (off-edge mismatches, edge mismatches, edge pixels,
     off-edge max |error|) under the _compare gate; `base` is the plain
-    version's (color, depth, normal) images."""
+    version's (color, depth, normal) images; `extra_edges` joins the
+    discontinuity mask."""
     stats = {}
     for name, a, b in zip(("color", "depth", "normal"), base, out):
         ok = np.isclose(a, b, atol=ATOL) | (np.isinf(a) & np.isinf(b))
         bad = ~ok.reshape(a.shape[0], a.shape[1], -1).all(-1)
         edges = discontinuity_mask(a)
+        if extra_edges is not None:
+            edges = edges | extra_edges
         off = ~edges
         both = np.isfinite(a) & np.isfinite(b)
         with np.errstate(invalid="ignore"):
@@ -161,7 +210,8 @@ def gate(base, out):
     return stats
 
 
-def check_parity(label, soa, inverse, kern, plain, to_image):
+def check_parity(label, soa, inverse, kern, plain, to_image,
+                 edge_budget=EDGE_BUDGET):
     """Hold the kernel's (color, depth, normal) rays against the plain
     version's under the gate; print one line and return the largest
     off-edge |error| over color and normal."""
@@ -176,7 +226,7 @@ def check_parity(label, soa, inverse, kern, plain, to_image):
         if off:
             raise AssertionError(f"{label} {k}: {off} mismatches off "
                                  f"discontinuities")
-        if on > EDGE_BUDGET * max(n_edges, 1):
+        if on > edge_budget * max(n_edges, 1):
             raise AssertionError(f"{label} {k}: {on}/{n_edges} edge pixels "
                                  f"mismatch")
     return max(stats["color"][3], stats["normal"][3])
@@ -194,32 +244,55 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def reset_launches(fused, rv):
+def reset_launches(fused, rv, pc):
     fused.LAUNCHES = fused.TOPO_LAUNCHES = rv.LAUNCHES = 0
+    fused.BIG_LAUNCHES = fused.BIG_TOPO_LAUNCHES = pc.LAUNCHES = 0
 
 
-def read_launches(fused, rv):
+def read_launches(fused, rv, pc):
     return {"fused_forward": fused.LAUNCHES,
             "fused_forward_topo": fused.TOPO_LAUNCHES,
-            "replay_vjp": rv.LAUNCHES}
+            "fused_forward_big": fused.BIG_LAUNCHES,
+            "fused_forward_big_topo": fused.BIG_TOPO_LAUNCHES,
+            "replay_vjp": rv.LAUNCHES,
+            "cluster_cast": pc.LAUNCHES}
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
     """(bound ms, what bounds it) of one forward launch: the bytes it must
     move (rays, tables, outputs, codes) at the card's memory rate against
-    the float operations of this run's casts and slab-admitted cluster
-    visits (`tally`) at its float32 rate."""
+    the float operations of this run's casts, slab tests (group and
+    member boxes) and slab-admitted cluster visits (`tally`) at its
+    float32 rate."""
     m, c = accel.order.shape
-    table_bytes = sum(getattr(tables, f).numel() * 4 for f in (
-        "tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"))
+    names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
+    if m > 32:  # K3 reads the group boxes too
+        names.append("groups")
+    table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
-    casts, visits = (int(x) for x in tally.tolist())
-    ops = (visits * c * OPS_TRI_SLOT
-           + casts * (m * OPS_SLAB + soa.n_planes * OPS_PLANE
-                      + soa.n_spheres * OPS_SPHERE + OPS_CAST))
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    casts, visits, slabs = (int(x) for x in tally.tolist())
+    ops = (visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
+           + casts * (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
+                      + OPS_CAST))
+    return _bound(nbytes, ops)
+
+
+def cast_bound(tables, n_rays, tally):
+    """(bound ms, what bounds it) of one culling-cast launch: rays in, t
+    and order out and the 18 cast rows of the slot table plus the boxes,
+    against the float operations of its slab tests and admitted visits."""
+    m, c = tables.tri.shape[:2]
+    nbytes = (n_rays * (8 + 2) * 4 + m * c * 18 * 4
+              + (tables.aabb.numel() + tables.groups.numel()) * 4)
+    casts, visits, slabs = (int(x) for x in tally.tolist())
+    return _bound(nbytes, visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
+                  + casts * OPS_CAST)
 
 
 def vjp_bound(soa, codes, bounces):
@@ -352,7 +425,7 @@ def run_topo(label, prepared, bounces, fused, rp, rec):
             rec["plain_ms"] = cuda_ms(lambda: fused.fused_render_rays_plain(
                 soa, accel, o, d, 1e-3, bounces), 1)
         rec["topo_plain_ms"] = rec["plain_ms"] + emit_s * 1e3
-        tally = torch.zeros(2, dtype=torch.int64, device=o.device)
+        tally = torch.zeros(3, dtype=torch.int64, device=o.device)
         fused._fused_forward_cuda(soa, tables, o, d, 1e-3, bounces,
                                   emit_topo=True, tally=tally)
         rec["topo_bound"] = forward_bound(soa, accel, tables, o.shape[0],
@@ -360,7 +433,8 @@ def run_topo(label, prepared, bounces, fused, rp, rec):
         phase("topo", f"{label}: kernel with codes {rec['topo_ms']:.3f} ms, "
               f"without {rec['notopo_ms']:.3f} ms, plain forward + emitter "
               f"{rec['topo_plain_ms']:.0f} ms; casts {int(tally[0])} "
-              f"cluster visits {int(tally[1])}; bound "
+              f"cluster visits {int(tally[1])} slab tests {int(tally[2])}; "
+              f"bound "
               f"{rec['topo_bound'][0]:.3f} ms ({rec['topo_bound'][1]})")
     return codes, o, d, max(errs["color"][0], errs["normal"][0])
 
@@ -469,6 +543,432 @@ def grad_parts(prepared, bounces, fused, rv, tgrad):
     return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
 
 
+def big_prepared(m, levels, w, h):
+    """The bunny with its mesh subdivided `levels` times, at w x h,
+    prepared with accel="fused" on the card; returns (prepared, label)."""
+    sc, n_tris = m.bigscene.subdivided_bunny(levels, w, h)
+    prepared = m.prepare(sc, accel="fused", device="cuda", bounces=5)
+    mm, c = prepared.accel.order.shape
+    return prepared, f"bunny/{n_tris // 1000}k {w}x{h} b5 M={mm} C={c}"
+
+
+def tally_of(fn):
+    """Run fn(tally) on a zeroed (3,) int64 tally; return it."""
+    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    fn(tally)
+    torch.cuda.synchronize()
+    return tally
+
+
+def phase_big_parity(m, rec):
+    """K3 against the plain version on the same rays, under the forward
+    gate (subdivided meshes: the 10 % edge budget of
+    tests/test_fused.py:173-188); returns {label: prepared}."""
+    out = {}
+    for levels, w, h in BIG_PARITY:
+        t0 = time.perf_counter()
+        prepared, label = big_prepared(m, levels, w, h)
+        soa, accel = prepared.soa, prepared.accel
+        o, d, inverse = m.block_rays(soa)
+        before = m.fused.BIG_LAUNCHES
+        kern = m.fused.fused_render_rays(soa, accel, o, d, 1e-3, 5,
+                                         tables=prepared.tables)
+        torch.cuda.synchronize()
+        if m.fused.BIG_LAUNCHES != before + 1:
+            raise AssertionError(f"{label}: K3 was not launched")
+        t1 = time.perf_counter()
+        plain = m.fused.fused_render_rays_plain(soa, accel, o, d, 1e-3, 5)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        err = check_parity(label, soa, inverse, kern, plain, m.to_image,
+                           edge_budget=EDGE_BUDGET_SUBDIVIDED)
+        rec["big_err"] = max(rec.get("big_err", 0.0), err)
+        if levels == BIG_PARITY[-1][0]:
+            fn = lambda: m.fused.fused_render_rays(  # noqa: E731
+                soa, accel, o, d, 1e-3, 5, tables=prepared.tables)
+            rec["big_ms"] = cuda_ms(fn, 10)
+            rec["big_plain_ms"] = plain_s * 1e3
+            tally = tally_of(lambda t: m.fused._fused_forward_cuda(
+                soa, prepared.tables, o, d, 1e-3, 5, tally=t))
+            rec["big_bound"] = forward_bound(soa, accel, prepared.tables,
+                                             o.shape[0], tally, 0)
+            rec["big_shape"] = label
+            phase("big-parity", f"{label}: K3 {rec['big_ms']:.3f} ms, plain "
+                  f"{plain_s * 1e3:.0f} ms; tally {tally.tolist()}; bound "
+                  f"{rec['big_bound'][0]:.3f} ms ({rec['big_bound'][1]})")
+        out[label] = prepared
+        phase("big-parity", f"{label} done in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del kern, plain
+    return out
+
+
+def phase_big_topo_vjp(m, prepared_by_label, skip, rec):
+    """K3 with codes: bits, plain replay and plain emitter gates
+    (run_topo), then K2 against autograd of the plain replay (run_vjp),
+    on each big-parity scene; the last one's times go to `rec`."""
+    labels = list(prepared_by_label)
+    for seed, label in enumerate(labels):
+        t0 = time.perf_counter()
+        prepared = prepared_by_label[label]
+        r = None
+        if label == labels[-1]:
+            r = {"plain_ms": rec["big_plain_ms"]}
+        before = m.fused.BIG_TOPO_LAUNCHES
+        codes, o, d, err = run_topo(label, prepared, 5, m.fused, m.rp, r)
+        if m.fused.BIG_TOPO_LAUNCHES <= before:
+            raise AssertionError(f"{label}: K3 with codes was not launched")
+        rec["big_topo_err"] = max(rec.get("big_topo_err", 0.0), err)
+        if "big-vjp" not in skip:
+            err = run_vjp(label, prepared.soa, o, d, codes, 5, m.rp, m.rv,
+                          100 + seed, r)
+            rec["big_vjp_err"] = max(rec.get("big_vjp_err", 0.0), err)
+        if r is not None:
+            rec["big_topo"] = r
+        phase("big-topo", f"{label} done in {time.perf_counter() - t0:.1f} s")
+        del codes, o, d
+
+
+def subdivided_knife_edges(m, soa_1k, prepared, codes_1k, inverse):
+    """(H, W) pixels whose ray takes another path through the subdivided
+    scene than through the 1k one: a topology code differs once each
+    triangle code is mapped to its 1k parent (mesh_io.subdivide keeps
+    child i of the 1k mesh's triangle i % 1000 at index i) and plane and
+    sphere codes to the 1k numbering. Such a ray met a face edge or a
+    shadow edge of the 1k mesh within rounding: a knife edge."""
+    soa = prepared.soa
+    o, d, _ = m.block_rays(soa)
+    *_, codes = m.fused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 5,
+                                          emit_topo=True,
+                                          tables=prepared.tables)
+    t1, t2 = soa_1k.tri_p1.shape[0], soa.tri_p1.shape[0]
+    _, nodes = m.rp.topo_layout(5, soa.any_reflective, soa.any_transparent,
+                                soa.n_lights, soa.shadow_steps)
+    rows = [cr for _, cr, _ in nodes]
+    cast = codes[:, rows]
+    codes[:, rows] = torch.where(cast >= t2, cast - t2 + t1,
+                                 torch.where(cast >= 0, cast % t1, cast))
+    differ = (codes != codes_1k).any(dim=1)
+    return rays_to_pixels(soa, inverse, differ)
+
+
+def phase_big_frame(m, smi, rec, launches):
+    """The 256k bunny through K3 against the 1000-triangle bunny through
+    K1 at 960x540 b5 (the surface is the same), then bigscene rows with
+    K3's kernel time, bound and launches per level."""
+    t0 = time.perf_counter()
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 960, 540
+    small = m.prepare(sc, accel="fused", device="cuda", bounces=5)
+    base = m.render(small, bounces=5)
+    # the 1k frame's topology codes, to find the rays that took another
+    # path through the subdivided scene
+    o, d, inverse = m.block_rays(small.soa)
+    *_, codes_1k = m.fused.fused_render_rays(
+        small.soa, small.accel, o, d, 1e-3, 5, emit_topo=True,
+        tables=small.tables)
+    del o, d
+    rows = []
+    for levels in BIG_ROWS:
+        m.reset(m)
+        row, prepared, frame = m.bigscene.run(levels, 960, 540, 5, 3,
+                                              "cuda")
+        counts = m.read(m)
+        if counts["fused_forward_big"] < 4:
+            raise AssertionError(f"bigscene level {levels} missed K3: "
+                                 f"{counts}")
+        soa, accel = prepared.soa, prepared.accel
+        label = (f"bunny/{row['triangles'] // 1000}k 960x540 b5 "
+                 f"M={row['clusters']} C={row['cluster_size']}")
+        if levels == 4:
+            launches["big_frame"] = counts
+            knife = subdivided_knife_edges(m, small.soa, prepared, codes_1k,
+                                           inverse)
+            base_np = [x.cpu().numpy() for x in base]
+            frame_np = [x.cpu().numpy() for x in frame]
+            plain_mask = gate(base_np, frame_np)
+            stats = gate(base_np, frame_np, knife)
+            phase("big-frame", f"{label} (K3) vs bunny/1k (K1): "
+                  f"{int(knife.sum())} rays take another path (codes "
+                  f"differ from the 1k frame's, triangles mapped to their "
+                  f"1k parents); " + " ".join(
+                      f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]} (color mask "
+                      f"alone: off-edge {plain_mask[k][0]})"
+                      for k, v in stats.items()))
+            if knife.sum() > KNIFE_RAY_BUDGET * knife.size:
+                raise AssertionError(f"big-frame: {int(knife.sum())} rays "
+                                     f"take another path")
+            for k, (off, on, n_edges, _) in stats.items():
+                if off or on > EDGE_BUDGET_SUBDIVIDED * max(n_edges, 1):
+                    raise AssertionError(f"big-frame {k}: the 256k frame "
+                                         f"departs from the 1k frame")
+        o, d, _ = m.block_rays(soa)
+        fn = lambda: m.fused.fused_render_rays(  # noqa: E731
+            soa, accel, o, d, 1e-3, 5, tables=prepared.tables)
+        fn()
+        row["kernel_ms"] = cuda_ms(fn, 10)
+        tally = tally_of(lambda t: m.fused._fused_forward_cuda(
+            soa, prepared.tables, o, d, 1e-3, 5, tally=t))
+        row["tally"] = tally.tolist()
+        row["bound_ms"], row["bound_by"] = forward_bound(
+            soa, accel, prepared.tables, o.shape[0], tally, 0)
+        row["launches"] = counts["fused_forward_big"]
+        if levels == 4:
+            rec["big_frame_ms"] = row["kernel_ms"]
+        rows.append(row)
+        print("bigscene " + json.dumps(row), flush=True)
+        del prepared, frame, o, d
+        torch.cuda.empty_cache()
+    rec["bigscene"] = rows
+    phase("big-frame", f"done in {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def phase_big_grad(m, prepared, smi, rec, launches):
+    """One gradient step over all 19 groups at 256k 960x540 b5: K3 with
+    codes and K2; s/step and its parts."""
+    t0 = time.perf_counter()
+    step, params = grad_step_fn(prepared, 5, m.tgrad)
+    m.reset(m)
+    loss = step().detach()
+    torch.cuda.synchronize()
+    launches["big_grad"] = m.read(m)
+    if len(params) != 19:
+        raise AssertionError(f"{len(params)} parameter groups, not 19")
+    for k, p in params.items():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"big grad[{k}] missing or not finite")
+    if (launches["big_grad"]["fused_forward_big_topo"] < 1
+            or launches["big_grad"]["replay_vjp"] < 1):
+        raise AssertionError(f"the 256k step missed a kernel: "
+                             f"{launches['big_grad']}")
+    rec["big_step_ms"] = cuda_ms(step, 3)
+    first = grad_parts(prepared, 5, m.fused, m.rv, m.tgrad)
+    rec["big_parts"] = grad_parts(prepared, 5, m.fused, m.rv, m.tgrad)
+    phase("big-grad", "parts ms of a first call: " + json.dumps(
+        {k: round(v, 3) for k, v in first.items()}))
+    phase("big-grad", f"256k 960x540 b5: loss {loss.item():.6f}, 19 groups "
+          f"finite, launches {launches['big_grad']}; "
+          f"{rec['big_step_ms'] / 1e3:.4f} s/step (mean of 3 after a "
+          f"warm-up); parts ms " + json.dumps(
+              {k: round(v, 3) for k, v in rec["big_parts"].items()})
+          + f"; {time.perf_counter() - t0:.1f} s ({smi})")
+    del step, params
+
+
+def cast_case(m, label, tables, o, d):
+    """K4 against cast_clusters_plain on the same rays: orders equal
+    except knife edges (kernel t within 1e-5 t of the plain winner's, at
+    most 0.1 % of rays), t within isclose(rtol=1e-5, atol=1e-5 |o - o0|)
+    where orders agree: t = (k - o.n) / (d.n) cancels terms of the size
+    of the recentered origin, so a ray starting near a surface has a
+    small t with an error of that size. Returns the largest |t|
+    difference where they agree."""
+    o = o.contiguous()
+    md = torch.full((o.shape[0],), 1e-3, dtype=torch.float32, device="cuda")
+    t_k, ord_k = m.pc.cast_clusters(tables, o, d, md)
+    torch.cuda.synchronize()
+    t_p, ord_p = m.pc.cast_clusters_plain(tables, o, d, md)
+    same = ord_k == ord_p
+    both = torch.isfinite(t_k) & torch.isfinite(t_p)
+    knife = ~same & both & ((t_k - t_p).abs() <= 1e-5 * t_p.abs())
+    if not bool((same | knife).all()):
+        bad = int((~(same | knife)).sum())
+        raise AssertionError(f"cast {label}: {bad} rays pick another "
+                             f"triangle off the knife edges")
+    if int(knife.sum()) > CAST_KNIFE_BUDGET * o.shape[0]:
+        raise AssertionError(f"cast {label}: {int(knife.sum())} knife-edge "
+                             f"rays")
+    hit = same & torch.isfinite(t_p)
+    diff = (t_k - t_p).abs()
+    if not bool(torch.equal(torch.isinf(t_k[same]), torch.isinf(t_p[same]))):
+        raise AssertionError(f"cast {label}: misses differ")
+    rel = hit & (diff > 1e-5 * t_p.abs())
+    over = rel & (diff > 1e-5 * (t_p.abs() + o.norm(dim=1)))
+    phase("cast", f"{label}: {o.shape[0]} rays, {int(hit.sum())} hits, "
+          f"knife edges {int(knife.sum())}, t past rtol 1e-5 "
+          f"{int(rel.sum())}, past the gate {int(over.sum())}, max |dt| "
+          f"{float(diff[hit].max()):.3e}")
+    if bool(over.any()):
+        raise AssertionError(f"cast {label}: t differs past the gate")
+    return float(diff[hit].max())
+
+
+def phase_cast(m, big_prepared_256k, smi, rec):
+    """K4 on seeded rays over the bunny partition (M=16) and the 256k
+    partition, then its time and bound on the 1080p primary rays."""
+    t0 = time.perf_counter()
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 480, 270
+    bunny = m.prepare(sc, accel="pallas", device="cuda")
+    rng = np.random.default_rng(11)
+    n = CAST_RANDOM_RAYS
+    ro = torch.from_numpy(rng.normal(0.0, 0.6, (n, 3)).astype(np.float32))
+    rd = rng.normal(size=(n, 3))
+    rd = torch.from_numpy((rd / np.linalg.norm(rd, axis=1,
+                                               keepdims=True)).astype(
+        np.float32))
+    err = 0.0
+    for label, prepared in (("bunny M=16", bunny),
+                            ("bunny/256k M=1024", big_prepared_256k)):
+        soa = prepared.soa
+        o, d, _ = m.block_rays(bunny.soa)
+        o = o - soa.scene_center
+        err = max(err, cast_case(m, label + " primary 480x270",
+                                 prepared.tables, o, d))
+        err = max(err, cast_case(m, label + f" {n} seeded",
+                                 prepared.tables, ro.cuda(), rd.cuda()))
+    rec["cast_err"] = err
+    sc = m.load_scene(m.scenes / "bunny.json")
+    main = m.prepare(sc, accel="pallas", device="cuda")
+    o, d, _ = m.block_rays(main.soa)
+    o = (o - main.soa.scene_center).contiguous()
+    md = torch.full((o.shape[0],), 1e-3, dtype=torch.float32, device="cuda")
+    fn = lambda: m.pc.cast_clusters(main.tables, o, d, md)  # noqa: E731
+    fn()
+    rec["cast_ms"] = cuda_ms(fn, 10)
+    t1 = time.perf_counter()
+    m.pc.cast_clusters_plain(main.tables, o, d, md)
+    torch.cuda.synchronize()
+    rec["cast_plain_ms"] = (time.perf_counter() - t1) * 1e3
+    tally = tally_of(lambda t: m.pc.cast_clusters(main.tables, o, d, md,
+                                                  tally=t))
+    rec["cast_bound"] = cast_bound(main.tables, o.shape[0], tally)
+    phase("cast", f"bunny 1920x1080 primary rays M=16: K4 "
+          f"{rec['cast_ms']:.3f} ms, plain {rec['cast_plain_ms']:.0f} ms; "
+          f"tally {tally.tolist()}; bound {rec['cast_bound'][0]:.4f} ms "
+          f"({rec['cast_bound'][1]}); {time.perf_counter() - t0:.1f} s "
+          f"({smi})")
+
+
+def phase_pallas(m, smi, rec, launches):
+    """The CLI with --accel pallas on bunny 1920x1080 b5, then the pallas
+    render at 480x270 b5 against the plain dense cast."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        m.reset(m)
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rc = m.cli.main([str(m.scenes / "bunny.json"), "--accel",
+                             "pallas", "--out", tmp])
+        launches["pallas"] = m.read(m)
+        text = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"cli.main --accel pallas returned {rc}")
+        for jpg in ("frame.jpg", "depth_map.jpg", "normal_map.jpg"):
+            if os.path.getsize(os.path.join(tmp, jpg)) == 0:
+                raise AssertionError(f"{jpg} is empty")
+    counts = launches["pallas"]
+    fused_runs = sum(counts[k] for k in ("fused_forward", "fused_forward_topo",
+                                         "fused_forward_big",
+                                         "fused_forward_big_topo"))
+    if counts["cluster_cast"] < 1 or fused_runs:
+        raise AssertionError(f"--accel pallas launches {counts}")
+    render_line = next(ln for ln in text.splitlines()
+                       if ln.startswith("Render time was"))
+    rec["pallas_render_ms"] = float(render_line.split()[3])
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 480, 270
+    kern = m.render(m.prepare(sc, accel="pallas", device="cuda"), bounces=5)
+    plain = m.render(m.prepare(sc, accel="clusters", device="cuda"),
+                     bounces=5)
+    stats = gate([x.cpu().numpy() for x in plain],
+                 [x.cpu().numpy() for x in kern])
+    phase("pallas", f"cli bunny.json --accel pallas 1920x1080 b5: "
+          f"{render_line!r}; launches {counts}; 480x270 b5 vs the dense "
+          f"cast: " + " ".join(f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]}"
+                               for k, v in stats.items())
+          + f"; {time.perf_counter() - t0:.1f} s ({smi})")
+    for k, (off, on, n_edges, _) in stats.items():
+        if off or on > EDGE_BUDGET * max(n_edges, 1):
+            raise AssertionError(f"pallas {k}: the culling cast's render "
+                                 f"departs from the dense cast's")
+
+
+def transparent_bunny(m, w, h):
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = w, h
+    mesh = next(ob for ob in sc.objects if type(ob).__name__ == "Mesh")
+    sc.materials[mesh.mat_idx].transparency = 0.5
+    return sc
+
+
+def phase_fallback(m, smi, rec):
+    """Past the kernels' 63 nodes render takes the composable culling cast
+    (K4); past the replay's rows the gradient's backward does (K1 forward,
+    K4 casts). Both against the plain composable path."""
+    t0 = time.perf_counter()
+    sc = transparent_bunny(m, 160, 90)
+    prepared = m.prepare(sc, accel="fused", device="cuda", bounces=6)
+    soa = prepared.soa
+    m.reset(m)
+    kern = m.render(prepared, bounces=6)
+    counts = m.read(m)
+    if counts["cluster_cast"] < 1 or counts["fused_forward"]:
+        raise AssertionError(f"b6 fallback launches {counts}")
+    plain = m.render(soa, bounces=6)
+    stats = gate([x.cpu().numpy() for x in plain],
+                 [x.cpu().numpy() for x in kern])
+    phase("fallback", f"transparent bunny 160x90 b6 (127 nodes, "
+          f"{soa.shadow_steps} march steps): launches {counts}; vs brute "
+          f"force: " + " ".join(f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]}"
+                                for k, v in stats.items()))
+    for k, (off, on, n_edges, _) in stats.items():
+        if off or on > EDGE_BUDGET * max(n_edges, 1):
+            raise AssertionError(f"fallback {k}: departs from brute force")
+
+    rows = m.rp.replay_rows(soa, 5)
+    if m.fused.replay_supported(soa, prepared.accel, 5) or rows <= 512:
+        raise AssertionError(f"{rows} rows: not past the replay's budget")
+    with torch.no_grad():
+        c0, _, _ = m.tgrad.render_image_flat(soa, 5, 1e-3, prepared.accel)
+    target = 0.9 * c0
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in m.tgrad.extract_params(soa).items()}
+    m.reset(m)
+    loss = m.tgrad.render_loss(params, soa, target, 5, 1e-3, prepared.accel)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = m.read(m)
+    if (counts["fused_forward"] < 1 or counts["cluster_cast"] < 1
+            or counts["fused_forward_topo"] or counts["replay_vjp"]):
+        raise AssertionError(f"composable backward launches {counts}")
+    want = {k: torch.zeros_like(v) for k, v in params.items()}
+    n = soa.width * soa.height
+    idx = torch.arange(n, device="cuda")
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    for s in range(0, n, FALLBACK_PLAIN_CHUNK):
+        s2 = m.tgrad.with_params(soa, leaves)
+        sl = idx[s:s + FALLBACK_PLAIN_CHUNK]
+        o, d = m.camera_rays(s2, sl % soa.width, sl // soa.width)
+        c, _, _ = m.render_rays(s2, o, d, 5, 1e-3)
+        part = ((c - target[s:s + FALLBACK_PLAIN_CHUNK]) ** 2).sum() / (3 * n)
+        grads = torch.autograd.grad(part, list(leaves.values()),
+                                    allow_unused=True)
+        for k, g in zip(leaves, grads):
+            if g is not None:
+                want[k] += g
+    worst = 0.0
+    for k, p in params.items():
+        a = p.grad.double().cpu().numpy()
+        b = want[k].double().cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"fallback grad[{k}] not finite")
+        scale = max(np.abs(a).max(), np.abs(b).max(), 1e-12)
+        ok = np.isclose(a, b, rtol=VJP_RTOL, atol=VJP_RTOL * scale)
+        if not ok.all():
+            raise AssertionError(
+                f"fallback grad[{k}]: {(~ok).sum()}/{a.size} mismatch, max "
+                f"|diff| {np.abs(a - b).max():.3e} at scale {scale:.3e}")
+        worst = max(worst, float(np.abs(a - b).max() / scale))
+    rec["fallback_grad_err"] = worst
+    phase("fallback", f"transparent bunny 160x90 b5 ({rows} rows > 512): "
+          f"composable backward, launches {counts}; 19 groups within "
+          f"rtol {VJP_RTOL} of autograd of brute force, max relative error "
+          f"{worst:.2e}; {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--skip", nargs="*", default=[], choices=PHASES)
@@ -479,15 +979,17 @@ def main(argv=None) -> int:
         return 1
     root = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
-    from cutrace_tpu_torch import cli, load_scene
+    from cutrace_tpu_torch import bigscene, cli, load_scene
     from cutrace_tpu_torch.diff import checkpoint as ckpt
     from cutrace_tpu_torch.diff import grad as tgrad
     from cutrace_tpu_torch.ops import _build, fused
+    from cutrace_tpu_torch.ops import pallas_cast as pc
     from cutrace_tpu_torch.ops import replay as rp
     from cutrace_tpu_torch.ops import replay_vjp as rv
     from cutrace_tpu_torch.parallel.train import fit
     from cutrace_tpu_torch.render.renderer import (to_image, block_rays,
-                                                   prepare, render)
+                                                   camera_rays, prepare,
+                                                   render, render_rays)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -495,6 +997,14 @@ def main(argv=None) -> int:
     scenes = root / "scenes"
     skip = set(args.skip)
     rec = {}
+    m = types.SimpleNamespace(
+        bigscene=bigscene, cli=cli, load_scene=load_scene, tgrad=tgrad,
+        fused=fused, pc=pc, rp=rp, rv=rv, to_image=to_image,
+        block_rays=block_rays, camera_rays=camera_rays, prepare=prepare,
+        render=render, render_rays=render_rays, scenes=scenes,
+        reset=lambda _: reset_launches(fused, rv, pc),
+        read=lambda _: read_launches(fused, rv, pc))
+    t_start = time.perf_counter()
 
     # 1. probe
     smi = subprocess.run(
@@ -559,7 +1069,7 @@ def main(argv=None) -> int:
         rec["kernel_ms"] = cuda_ms(kernel_fn, 10)
         plain_ms.append(cuda_ms(plain_fn, 1))
         rec["plain_ms"] = min(plain_ms)
-        tally = torch.zeros(2, dtype=torch.int64, device=dev)
+        tally = torch.zeros(3, dtype=torch.int64, device=dev)
         fused._fused_forward_cuda(soa, main_prepared.tables, o, d, 1e-3, 5,
                                   tally=tally)
         rec["bound"] = forward_bound(soa, accel, main_prepared.tables,
@@ -567,18 +1077,19 @@ def main(argv=None) -> int:
         phase("timing", f"{MAIN_SCENE} {soa.width}x{soa.height} b5 M="
               f"{accel.order.shape[0]}: kernel {rec['kernel_ms']:.3f} ms, "
               f"plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms; casts "
-              f"{int(tally[0])} cluster visits {int(tally[1])}; bound "
+              f"{int(tally[0])} cluster visits {int(tally[1])} slab tests "
+              f"{int(tally[2])}; bound "
               f"{rec['bound'][0]:.3f} ms ({rec['bound'][1]}) ({smi})")
 
     # 5. the main path through the CLI
     launches = {}
     if "main" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
-            reset_launches(fused, rv)
+            reset_launches(fused, rv, pc)
             buf = io.StringIO()
             with redirect_stdout(buf):
                 rc = cli.main([str(scenes / MAIN_SCENE), "--out", tmp])
-            launches["cli"] = read_launches(fused, rv)
+            launches["cli"] = read_launches(fused, rv, pc)
             text = buf.getvalue()
             print(text, end="")
             if rc != 0:
@@ -619,10 +1130,10 @@ def main(argv=None) -> int:
     # 8. grad: the gradient step over all 19 groups at 1080p
     if "grad" not in skip:
         step, params = grad_step_fn(main_prepared, 5, tgrad)
-        reset_launches(fused, rv)
+        reset_launches(fused, rv, pc)
         loss = step().detach()
         torch.cuda.synchronize()
-        launches["grad"] = read_launches(fused, rv)
+        launches["grad"] = read_launches(fused, rv, pc)
         if len(params) != 19:
             raise AssertionError(f"{len(params)} parameter groups, not 19")
         for k, p in params.items():
@@ -672,13 +1183,13 @@ def main(argv=None) -> int:
         kw = dict(lr=5e-2, bounces=5, param_filter=("mat_color",),
                   checkpoint_every=2, accel=accel, device=dev)
         with tempfile.TemporaryDirectory() as tmp:
-            reset_launches(fused, rv)
+            reset_launches(fused, rv, pc)
             t0 = time.perf_counter()
             params, losses = fit(start_soa, target, steps=5,
                                  checkpoint_dir=tmp, **kw)
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - t0
-            launches["train"] = read_launches(fused, rv)
+            launches["train"] = read_launches(fused, rv, pc)
             if len(losses) != 5 or not np.isfinite(losses).all():
                 raise AssertionError(f"fit losses {losses}")
             if not losses[-1] < losses[0]:
@@ -700,6 +1211,35 @@ def main(argv=None) -> int:
               f"{fit_s:.2f} s: losses " + " ".join(f"{x:.6f}" for x in losses)
               + f"; resumed at step 5: " + " ".join(f"{x:.6f}" for x in more)
               + f"; launches {launches['train']}")
+
+    # 10.-17. big scenes through K3, the culling cast through K4
+    big = {}
+    if "big-parity" not in skip:
+        t0 = time.perf_counter()
+        big = phase_big_parity(m, rec)
+        phase("big-parity", f"done in {time.perf_counter() - t0:.1f} s")
+        if "big-topo" not in skip:
+            t0 = time.perf_counter()
+            phase_big_topo_vjp(m, big, skip, rec)
+            phase("big-topo", f"done in {time.perf_counter() - t0:.1f} s")
+    if "big-frame" not in skip:
+        phase_big_frame(m, smi, rec, launches)
+    if "big-grad" not in skip:
+        prepared, _ = big_prepared(m, 4, 960, 540)
+        phase_big_grad(m, prepared, smi, rec, launches)
+        del prepared
+        torch.cuda.empty_cache()
+    if "cast" not in skip:
+        p256 = next((p for p in big.values() if p.accel.order.shape[0]
+                     == 1024), None) or big_prepared(m, 4, 160, 90)[0]
+        phase_cast(m, p256, smi, rec)
+        del p256
+    big.clear()
+    if "pallas" not in skip:
+        phase_pallas(m, smi, rec, launches)
+    if "fallback" not in skip:
+        phase_fallback(m, smi, rec)
+    phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
 
     if skip:
         phase("result", f"phases skipped ({' '.join(sorted(skip))}): no "
@@ -728,13 +1268,46 @@ def main(argv=None) -> int:
          "max_abs_err": vjp_err, "ms": rec["vjp_ms"],
          "plain_ms": rec["vjp_plain_ms"], "bound_ms": rec["vjp_bound"][0],
          "bound_by": rec["vjp_bound"][1], **common},
+        {"name": "fused_forward_big",
+         "source": "cutrace_tpu_torch/ops/csrc/fused_forward.cu",
+         "replaces": "cutrace_tpu/ops/fused.py:445",
+         "launches": launches["big_frame"]["fused_forward_big"],
+         "max_abs_err": rec["big_err"], "ms": rec["big_ms"],
+         "plain_ms": rec["big_plain_ms"], "bound_ms": rec["big_bound"][0],
+         "bound_by": rec["big_bound"][1], "shape": rec["big_shape"],
+         **common},
+        {"name": "fused_forward_big_topo",
+         "source": "cutrace_tpu_torch/ops/csrc/fused_forward.cu",
+         "replaces": "cutrace_tpu/ops/fused.py:445",
+         "launches": launches["big_grad"]["fused_forward_big_topo"],
+         "max_abs_err": rec["big_topo_err"],
+         "ms": rec["big_topo"]["topo_ms"],
+         "plain_ms": rec["big_topo"]["topo_plain_ms"],
+         "bound_ms": rec["big_topo"]["topo_bound"][0],
+         "bound_by": rec["big_topo"]["topo_bound"][1],
+         "shape": rec["big_shape"], **common},
+        {"name": "cluster_cast",
+         "source": "cutrace_tpu_torch/ops/csrc/cluster_cast.cu",
+         "replaces": "cutrace_tpu/ops/pallas_cast.py:81",
+         "launches": launches["pallas"]["cluster_cast"],
+         "max_abs_err": rec["cast_err"], "ms": rec["cast_ms"],
+         "plain_ms": rec["cast_plain_ms"], "bound_ms": rec["cast_bound"][0],
+         "bound_by": rec["cast_bound"][1],
+         "shape": "bunny 1920x1080 primary rays, M=16 C=64", **common},
     ]
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels, "grad_step_s": rec["step_ms"] / 1e3,
-                      "grad_step_parts_ms": rec["parts"],
-                      "sphere_plane_grad_step_s": rec["sp_step_ms"] / 1e3,
-                      "sphere_plane_grad_step_parts_ms": rec["sp_parts"]}),
-          flush=True)
+    print(json.dumps({
+        "kernels": kernels, "grad_step_s": rec["step_ms"] / 1e3,
+        "grad_step_parts_ms": rec["parts"],
+        "sphere_plane_grad_step_s": rec["sp_step_ms"] / 1e3,
+        "sphere_plane_grad_step_parts_ms": rec["sp_parts"],
+        "big_grad_step_s": rec["big_step_ms"] / 1e3,
+        "big_grad_step_parts_ms": rec["big_parts"],
+        "replay_vjp_256k": {k: rec["big_topo"][k] for k in (
+            "vjp_ms", "vjp_plain_ms", "vjp_bound")},
+        "bigscene": rec["bigscene"],
+        "pallas_render_ms": rec["pallas_render_ms"],
+        "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

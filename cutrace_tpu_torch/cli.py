@@ -13,9 +13,10 @@ Flags beyond the reference (all optional):
   --out DIR        output directory (default: the working directory)
   --bounces N      bounce depth (default 5)
   --device DEV     cuda or cpu (default: cuda; without a card the run
-                   fails unless --device cpu is given); on cuda the scene
-                   renders through the fused kernel, on cpu through the
-                   composable torch path
+                   fails unless --device cpu is given)
+  --accel KIND     auto, none, clusters, pallas or fused (default auto:
+                   the fused kernels on cuda, the composable torch path
+                   on cpu); see render.renderer.prepare
 """
 
 from __future__ import annotations
@@ -85,6 +86,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=".", help="output directory")
     parser.add_argument("--bounces", type=int, default=5)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--accel", default="auto",
+                        choices=("auto", "none", "clusters", "pallas",
+                                 "fused"))
     args = parser.parse_args(argv)
 
     if args.scene is None:
@@ -112,7 +116,7 @@ def main(argv=None) -> int:
     from cutrace_tpu_torch.render.renderer import prepare
 
     total_start = time.perf_counter()
-    prepared = prepare(scene, accel="auto", device=device,
+    prepared = prepare(scene, accel=args.accel, device=device,
                        bounces=args.bounces)
     # warm-up: builds the kernel on first use and fills the caches; the
     # timed render below is the one reported

@@ -90,18 +90,22 @@ def with_params(soa: SceneArrays,
 
 def render_image_flat(soa: SceneArrays, bounces: int, fudge, accel=None):
     """Render all pixels in one batch, in scanline order: (color (N,3),
-    depth (N,), normal (N,3)). With `accel` (an ops.bvh.Accel) it runs
-    ops.fused.fused_render_rays, whose backward replays topology codes
-    (the kernels on the card, their plain versions on the CPU); without,
-    the composable pipeline, differentiated by autograd."""
+    depth (N,), normal (N,3)). With a "fused" `accel` (an ops.bvh.Accel)
+    inside the kernels' scope it runs ops.fused.fused_render_rays, whose
+    backward replays topology codes (the kernels on the card, their plain
+    versions on the CPU). Otherwise it runs the composable pipeline with
+    the partition's triangle query (ops.bvh.candidates_fn: the culling
+    cast for "pallas" and for "fused" past the kernels' 63 nodes, the dense
+    cast for "clusters", brute force without `accel`), differentiated by
+    autograd."""
+    from cutrace_tpu_torch.ops import bvh, fused
+
     n = soa.width * soa.height
     idx = torch.arange(n, device=soa.device)
     o, d = camera_rays(soa, idx % soa.width, idx // soa.width)
-    if accel is None:
-        return render_rays(soa, o, d, bounces, fudge)
-    from cutrace_tpu_torch.ops.fused import fused_render_rays
-
-    return fused_render_rays(soa, accel, o, d, fudge, bounces)
+    if fused.fused_supported(soa, accel, bounces):
+        return fused.fused_render_rays(soa, accel, o, d, fudge, bounces)
+    return render_rays(soa, o, d, bounces, fudge, bvh.candidates_fn(accel))
 
 
 def render_loss(params: Dict[str, torch.Tensor], soa: SceneArrays, target,

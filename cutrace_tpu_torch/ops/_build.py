@@ -2,8 +2,8 @@
 
 Each kernel source under `csrc/` has plain C entry points. It is compiled
 with nvcc for Hopper (`sm_90a`) into its own shared library under the
-repo's `build/kernels/`, named by a hash of its source and flags, at first
-use, and loaded with ctypes with every entry point's signature declared.
+repo's `build/kernels/`, named by a hash of its source, the `csrc/`
+headers it includes and the flags, at first use, and loaded with ctypes with every entry point's signature declared.
 Nothing is built or loaded at import. `build_all` starts one nvcc per
 source, all at once.
 
@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
 SOURCES = {
     "fused_forward": _CSRC / "fused_forward.cu",
     "replay_vjp": _CSRC / "replay_vjp.cu",
+    "cluster_cast": _CSRC / "cluster_cast.cu",
 }
 DEFAULT_NVCC = pathlib.Path("/usr/local/cuda/bin/nvcc")
 
@@ -44,7 +46,7 @@ SIGNATURES = {
                          # bounces shadow_steps any_refl any_transp
             + [_F]  # fudge
             + [_P, _I, _I, _P]  # codes t_cnt p_cnt tally
-            + [_P]  # stream
+            + [_P, _P]  # groups stream
         ),
     },
     "replay_vjp": {
@@ -55,6 +57,13 @@ SIGNATURES = {
                          # bounces shadow_steps any_refl any_transp
             + [_F]  # fudge
             + [_P]  # stream
+        ),
+    },
+    "cluster_cast": {
+        "cutrace_cluster_cast": (
+            [_P] * 6  # rays tri aabb groups t_out ord_out
+            + [_I] * 3  # n_rays m c
+            + [_P, _P]  # tally stream
         ),
     },
 }
@@ -74,10 +83,29 @@ def nvcc_path() -> str:
         "the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: pathlib.Path) -> list:
+    """The headers `source` includes with quotes, found beside it, and
+    theirs in turn: each once, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            path = source.parent / name.decode()
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def library_path(source: pathlib.Path) -> pathlib.Path:
     """Where the library built from `source` lives: keyed by a hash of the
-    source and the flags, so an edit builds anew."""
+    source, the headers it includes and the flags, so an edit of any of
+    them builds anew."""
     h = hashlib.sha256(source.read_bytes())
+    for header in included_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

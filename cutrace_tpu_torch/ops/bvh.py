@@ -13,6 +13,11 @@ gathered from the live scene tensors at render time
 (`clusters_from_accel`), so an Accel can never render stale geometry.
 `order` carries every triangle's original flat index, so nearest-hit ties
 keep the reference's scan-order winner.
+
+The cull kernels (csrc/cast.cuh) test cluster boxes two levels deep:
+`group_boxes` merges each run of GROUP consecutive clusters into one box.
+Clusters are median-split leaves in tree order, so consecutive clusters
+are spatially compact and their union box is tight.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import torch
 from cutrace_tpu_torch.ops import intersect as I
 
 CLUSTER_SIZE = 64
+# Clusters per group box of the two-level cull (csrc/cast.cuh kGroup).
+GROUP = 32
+KINDS = ("clusters", "pallas", "fused")
 
 _FAR = 1.0e8
 _BIG = 2**30
@@ -38,10 +46,14 @@ _SENT = ((_FAR, 0.0, 0.0), (_FAR, 64.0, 0.0), (_FAR, 0.0, 64.0))
 class Accel:
     """Geometry-free cluster partition. `order[m, c]` is the original flat
     triangle index in slot c of cluster m (2**30 on padding slots);
-    `valid` masks live slots."""
+    `valid` masks live slots. `kind` selects the triangle query of the
+    composable path (`candidates_fn`): "clusters" the dense cast with no
+    culling, "pallas" and "fused" the culling cast (K4); a "fused"
+    partition also drives the fused kernels."""
 
     order: torch.Tensor  # (M, C) i32
     valid: torch.Tensor  # (M, C) bool
+    kind: str = "fused"
 
 
 def build_partition(centroids: np.ndarray, cluster_size: int):
@@ -75,17 +87,20 @@ def build_partition(centroids: np.ndarray, cluster_size: int):
     return leaves
 
 
-def accel_from_numpy(order, valid, device="cpu") -> Accel:
+def accel_from_numpy(order, valid, device="cpu", kind="fused") -> Accel:
     """An Accel on `device` from numpy partition arrays (e.g. the JAX
-    package's Accel leaves read back with np.asarray)."""
+    package's Accel leaves read back with np.asarray, and its kind)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown accel kind {kind!r}")
     return Accel(
         order=torch.from_numpy(np.asarray(order, np.int32).copy()).to(device),
         valid=torch.from_numpy(np.asarray(valid, bool).copy()).to(device),
+        kind=kind,
     )
 
 
 def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
-                host_tris=None) -> Accel:
+                host_tris=None, kind: str = "fused") -> Accel:
     """Partition the scene's triangles into an Accel on the scene's device.
     `host_tris` is an optional numpy `(p1, p2, p3, valid)` tuple
     (scene.soa.host_triangle_soup) that skips reading the triangles back
@@ -104,7 +119,7 @@ def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
     for mi, idx in enumerate(leaves):
         order[mi, :len(idx)] = idx
         vmask[mi, :len(idx)] = valid[idx]
-    return accel_from_numpy(order, vmask, soa.device)
+    return accel_from_numpy(order, vmask, soa.device, kind)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,13 +172,38 @@ def clusters_from_accel(soa, accel: Accel) -> TriClusters:
     )
 
 
+def group_boxes(bmin, bmax, live):
+    """(G, 8) rows [bmin xyz, bmax xyz, 0, 0] of the union box of each run
+    of GROUP consecutive clusters, G = ceil(M / GROUP), from (M, 3) cluster
+    boxes and the (M,) mask of clusters with a live slot. Empty clusters
+    stay out of the union (they can never win); a group without a live
+    cluster sits at the never-hit _FAR point, as an empty cluster does."""
+    m = bmin.shape[0]
+    g = -(-m // GROUP)
+    pad = g * GROUP - m
+    live3 = torch.nn.functional.pad(live, (0, pad))[:, None]
+
+    def masked(b, fill):
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        return torch.where(live3, b, fill).reshape(g, GROUP, 3)
+
+    gmin = masked(bmin, math.inf).amin(dim=1)
+    gmax = masked(bmax, -math.inf).amax(dim=1)
+    gmin = torch.where(torch.isfinite(gmin), gmin, _FAR)
+    gmax = torch.where(torch.isfinite(gmax), gmax, _FAR)
+    rows = torch.zeros((g, 8), dtype=torch.float32, device=bmin.device)
+    rows[:, 0:3] = gmin
+    rows[:, 3:6] = gmax
+    return rows
+
+
 def slab_entry(bmin, bmax, o, d):
     """AABB slab interval, (R,3) rays x (M,3) boxes -> ((R,M) tmin,
     (R,M) tmax), tmin clamped at 0. The box is hit iff tmin <= tmax, and
     tmin then bounds the t of any hit inside from below. NaN (0 * inf)
-    takes the reference's fminf/fmaxf meaning. The fused kernel runs the
-    same test per ray itself; the culling cast (K4, ROADMAP A.11) builds
-    its per-tile cluster masks from this one, outside its kernel."""
+    takes the reference's fminf/fmaxf meaning. The cull kernels run the
+    same test per ray themselves (csrc/cast.cuh slab); the tests hold the
+    two-level cull's premise with this one."""
     inv = 1.0 / d
     t1 = (bmin[None, :, :] - o[:, None, :]) * inv[:, None, :]
     t2 = (bmax[None, :, :] - o[:, None, :]) * inv[:, None, :]
@@ -215,13 +255,28 @@ def cluster_candidates(soa, accel: Accel, o, d, min_dist, o0):
     )
 
 
-def candidates_fn(accel):
-    """A ray_cast `tri_candidates` callable bound to `accel` (None -> None,
-    the brute-force scan)."""
-    if accel is None:
-        return None
+def dense_candidates_fn(accel):
+    """A ray_cast `tri_candidates` callable running the dense cast over
+    `accel`'s clusters whatever its kind: the plain versions' query."""
 
     def provider(soa, o, d, min_dist, o0):
         return cluster_candidates(soa, accel, o, d, min_dist, o0)
 
     return provider
+
+
+def candidates_fn(accel, tables=None):
+    """A ray_cast `tri_candidates` callable bound to `accel` (None -> None,
+    the brute-force scan): the dense cast for a "clusters" partition, the
+    culling cast (ops.pallas_cast.pallas_candidates, K4 on CUDA tensors)
+    for "pallas" and "fused" ones. `tables`, the scene's cached
+    ops.pallas_cast.ClusterTables, serves casts that need no gradient."""
+    if accel is None:
+        return None
+    if accel.kind == "clusters":
+        return dense_candidates_fn(accel)
+    if accel.kind not in KINDS:
+        raise ValueError(f"unknown accel kind {accel.kind!r}")
+    from cutrace_tpu_torch.ops.pallas_cast import culling_provider
+
+    return culling_provider(accel, tables)

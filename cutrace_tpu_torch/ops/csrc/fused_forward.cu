@@ -3,14 +3,22 @@
 // bounce tree, one thread per ray, in one kernel launch; optionally the
 // topology codes the replay backward (csrc/replay_vjp.cu) consumes.
 //
-// Replaces cutrace_tpu/ops/fused.py:_make_kernel_lanes (the TPU kernel K1,
-// forward and emit_topo rows). It keeps K1's contract, not its TPU layout:
+// One kernel, two instances, templated on the cluster cull (csrc/cast.cuh):
+//   * K1, the flat loop over every cluster box, replaces
+//     cutrace_tpu/ops/fused.py:_make_kernel_lanes (partitions of at most 32
+//     clusters, forward and emit_topo rows);
+//   * K3, the two-level loop (a group box per kGroup consecutive clusters,
+//     member boxes only inside an admitted group), replaces
+//     cutrace_tpu/ops/fused.py:_make_kernel (the big-scene kernel, more
+//     than 32 clusters of C = 256 or 512 slots). The grouped cull drops
+//     only clusters the flat loop drops too, so K3's winners are exactly
+//     those of a flat loop over all M clusters.
+// Both keep the TPU kernels' contract, not their TPU layout:
 //   * nearest hit = the (t, key) lexicographic minimum: triangles by their
 //     original flat index, then planes and spheres by scene object index
 //     against the triangle winner's object index;
 //   * all positions are recentered by the scene center, and triangles use
-//     the precomputed constants n, ub, ug, a, b, k of the identity form
-//     (cutrace_tpu/ops/pallas_cast.py:_cluster_constants);
+//     the precomputed constants of the identity form (csrc/cast.cuh);
 //   * sphere t is parametric in the normalized direction (reference quirk);
 //   * opaque scenes ask one any-hit occlusion query per light; transparent
 //     scenes march `shadow_steps` nearest casts accumulating
@@ -29,66 +37,52 @@
 //     id in cutrace_tpu/ops/replay.py:topo_layout, and per light either the
 //     occlusion flag (opaque scenes) or the occluder code of every march
 //     step that counted (transparent scenes). The wrapper pre-fills -1
-//     (flag rows 0); entries the replay never reads keep that fill.
-// Rays-on-lanes, scalar-prefetch cull words, the static unroll over
-// clusters and one-hot attribute sums were TPU devices and are gone: each
-// thread culls clusters itself with a per-ray slab test against its
-// current best t (ties kept with <=), and gathers winner attributes with
-// plain loads.
+//     (flag rows 0); entries the replay never reads keep that fill. K3
+//     writes the same rows for opaque and transparent scenes.
+// Rays-on-lanes, scalar-prefetch cull words, static unrolls and one-hot
+// attribute sums were TPU devices and are gone: each thread culls clusters
+// itself against its current best t and gathers winner attributes with
+// plain loads. K3's TPU regimes were not carried over either: the VMEM /
+// HBM table split and the per-visit DMA streaming (the tables simply live
+// in global memory, up to 2048 x 512 x 24 floats = 100.7 MB at 1M
+// triangles), the MXU visit forms and the group ordering (both measured
+// slower on the TPU), and the bit-packed opaque flag columns (a Mosaic
+// device: K3 writes the replay's row layout directly, as K1 does).
 //
 // What bounds it on this card: a divergent, latency-bound traversal. Each
 // thread walks its own clusters and tree nodes, and the scene tables are
 // read from global memory through L1/L2 (bunny: 16 clusters x 64 slots x
-// 24 floats = 96 KB of triangle rows). Staging the tables in shared
-// memory and warp-ballot culls over coherent rays are later work. An
-// optional tally counts the slab-admitted (ray, cluster) visits and the
-// casts, from which chip_smoke.py computes the kernel's operation bound.
+// 24 floats = 96 KB of triangle rows; the 256k bunny 25 MB, inside the
+// 50 MB L2; the 1M bunny 100.7 MB, not). Its least time is the float
+// operations of the admitted visits, C slot tests each, and of the slab
+// tests. An optional tally counts casts, admitted (ray, cluster) visits
+// and slab tests (group and member), from which chip_smoke.py computes
+// that bound. Staging tables in shared memory, warp-ballot culls over
+// coherent rays and front-to-back group order are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "cast.cuh"
 
 namespace {
 
+using namespace cutrace;
+
 constexpr int kBlock = 128;
-constexpr int kTriRows = 24;    // floats per triangle slot
-constexpr int kPsRows = 12;     // floats per plane / sphere row
 constexpr int kMatRows = 8;     // floats per material row
 constexpr int kLightRows = 8;   // floats per light row
-constexpr int kAabbRows = 8;    // floats per cluster AABB row
 constexpr int kMaxParked = 6;   // parked transparency frames (bounces <= 5)
 constexpr float kEps = 1e-6f;   // material activity threshold
-constexpr float kBig = 1073741824.0f;  // 2^30: key of "no winner"
 
-// triangle slot rows (cutrace_tpu_torch/ops/fused.py _TRI_NAMES)
-constexpr int T_N = 0, T_UB = 3, T_UG = 6, T_A = 9, T_B = 12, T_K = 15;
-constexpr int T_ORDER = 16, T_VALID = 17, T_SN = 18, T_OBJ = 21, T_MAT = 22;
-// plane / sphere rows (cutrace_tpu_torch/ops/fused.py _PS_*)
-constexpr int P_OBJ = 0, P_N = 1, P_C = 4, P_K = 7, P_VALID = 8;
-constexpr int P_MAT = 9;
 // material rows: colr colg colb spec refl phong transp 0
 constexpr int M_COL = 0, M_SPEC = 3, M_REFL = 4, M_PHONG = 5, M_TRANSP = 6;
 
 struct Scene {
-  const float* tri;
-  const float* aabb;
+  Clusters cl;
   const float* planes;
   const float* spheres;
   const float* mats;
   const float* lights;
-  int m, c, n_planes, n_spheres, n_lights, n_mats;
+  int n_planes, n_spheres, n_lights, n_mats;
 };
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ float norm3(V3 a) { return sqrtf(dot3(a, a)); }
-__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
 
 // kind of a winner
 constexpr int kMiss = -1, kTri = 0, kPlane = 1, kSphere = 2;
@@ -99,12 +93,6 @@ struct Hit {
   int idx;   // triangle slot (cluster * C + slot) or plane / sphere row
 };
 
-// Work counts of one thread: casts (nearest or any-hit queries) and the
-// (ray, cluster) visits their slab tests admitted.
-struct Tally {
-  unsigned long long casts = 0, visits = 0;
-};
-
 // Where a thread writes its topology codes: row r of its ray's column is
 // codes[r * stride]; null when the caller wants no codes.
 struct Topo {
@@ -113,80 +101,9 @@ struct Topo {
   int t_cnt, p_cnt;  // padded triangle / plane leaf lengths
 };
 
-// Slab entry of a ray against one AABB (rows bmin xyz, bmax xyz). A NaN
-// (0 * inf) bound makes that axis unbounded, as in K1's cull.
-__device__ __forceinline__ bool slab(const float* box, V3 o, V3 inv,
-                                     float* entry) {
-  float lo[3], hi[3];
-  const float oc[3] = {o.x, o.y, o.z};
-  const float ic[3] = {inv.x, inv.y, inv.z};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float t1 = (box[a] - oc[a]) * ic[a];
-    float t2 = (box[3 + a] - oc[a]) * ic[a];
-    if (isnan(t1) || isnan(t2)) {
-      lo[a] = 0.0f;
-      hi[a] = INFINITY;
-    } else {
-      lo[a] = fminf(t1, t2);
-      hi[a] = fmaxf(t1, t2);
-    }
-  }
-  float tmn = fmaxf(fmaxf(lo[0], lo[1]), fmaxf(lo[2], 0.0f));
-  float tmx = fminf(fminf(hi[0], hi[1]), hi[2]);
-  *entry = tmn;
-  return tmn <= tmx;
-}
-
-// Triangle t for one slot, or +inf when the ray misses it (w = d x o).
-__device__ __forceinline__ float tri_t(const float* s, V3 o, V3 d, V3 w,
-                                       float mind) {
-  if (!(s[T_VALID] > 0.0f)) return INFINITY;
-  float alpha = d.x * s[T_N] + d.y * s[T_N + 1] + d.z * s[T_N + 2];
-  float beta_n = (d.x * s[T_UB] + d.y * s[T_UB + 1] + d.z * s[T_UB + 2]) -
-                 (w.x * s[T_B] + w.y * s[T_B + 1] + w.z * s[T_B + 2]);
-  float gamma_n = (w.x * s[T_A] + w.y * s[T_A + 1] + w.z * s[T_A + 2]) -
-                  (d.x * s[T_UG] + d.y * s[T_UG + 1] + d.z * s[T_UG + 2]);
-  float t_n = s[T_K] - (o.x * s[T_N] + o.y * s[T_N + 1] + o.z * s[T_N + 2]);
-  if (alpha == 0.0f) return INFINITY;
-  float inv = 1.0f / alpha;
-  float beta = beta_n * inv;
-  float gamma = gamma_n * inv;
-  float t = t_n * inv;
-  bool ok = beta >= 0.0f && gamma >= 0.0f && beta + gamma <= 1.0f &&
-            isfinite(t) && t > mind;
-  return ok ? t : INFINITY;
-}
-
-__device__ __forceinline__ float plane_t(const float* p, V3 o, V3 d,
-                                         float mind) {
-  V3 n = load3(p + P_N);
-  float denom = dot3(d, n);
-  float on = dot3(o, n);
-  float t = (p[P_K] - on) / (denom == 0.0f ? 1.0f : denom);
-  bool ok = denom != 0.0f && isfinite(t) && t > mind && p[P_VALID] > 0.0f;
-  return ok ? t : INFINITY;
-}
-
-// Sphere t in the normalized direction nd; an exact tangent is a miss.
-__device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 nd,
-                                          float mind) {
-  V3 c = load3(p + P_C);
-  float dec = dot3(nd, c) - dot3(nd, o);
-  float oc = dot3(o, c);
-  float ec2 = dot3(o, o) - 2.0f * oc + dot3(c, c);
-  float sub = dec * dec - (ec2 - p[P_K]);
-  bool missed = sub <= 0.0f;
-  float sq = sqrtf(missed ? 1.0f : sub);
-  float t0 = dec - sq, t1 = dec + sq;
-  bool v0 = !missed && isfinite(t0) && t0 > mind;
-  bool v1 = !missed && isfinite(t1) && t1 > mind;
-  float t = (v0 && v1) ? fminf(t0, t1) : (v0 ? t0 : (v1 ? t1 : INFINITY));
-  return ((v0 || v1) && p[P_VALID] > 0.0f) ? t : INFINITY;
-}
-
 // Nearest hit over all kinds. Planes and spheres go first: their best t
 // bounds which clusters are worth visiting.
+template <bool kGrouped>
 __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
                             Tally& tl) {
   V3 nd;
@@ -222,35 +139,13 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
   }
   const float bound = fminf(tp, ts);
 
-  V3 w = v3(d.y * o.z - d.z * o.y, d.z * o.x - d.x * o.z,
-            d.x * o.y - d.y * o.x);
-  V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
-  float tt = INFINITY, kt = kBig;
-  int it = -1;
+  TriWinner b;
   tl.casts += 1;
-  for (int mi = 0; mi < s.m; ++mi) {
-    float entry;
-    // a cluster entered beyond the best t so far cannot hold a
-    // (t, key)-better triangle; equality keeps it for the tie-break
-    if (!slab(s.aabb + mi * kAabbRows, o, inv, &entry) ||
-        !(entry <= fminf(bound, tt)))
-      continue;
-    tl.visits += 1;
-    const float* slot = s.tri + (size_t)mi * s.c * kTriRows;
-    for (int ci = 0; ci < s.c; ++ci, slot += kTriRows) {
-      float t = tri_t(slot, o, d, w, mind);
-      if (!isfinite(t)) continue;
-      float key = slot[T_ORDER];
-      if (t < tt || (t == tt && key < kt)) {
-        tt = t;
-        kt = key;
-        it = mi * s.c + ci;
-      }
-    }
-  }
+  nearest_triangle<kGrouped>(s.cl, o, d, mind, bound, b, tl);
 
-  Hit h{tt, it >= 0 ? kTri : kMiss, it};
-  float best_obj = it >= 0 ? s.tri[(size_t)it * kTriRows + T_OBJ] : kBig;
+  Hit h{b.t, b.slot >= 0 ? kTri : kMiss, b.slot};
+  float best_obj =
+      b.slot >= 0 ? s.cl.tri[(size_t)b.slot * kTriRows + T_OBJ] : kBig;
   if (ip >= 0 && (tp < h.t || (tp == h.t && kp < best_obj))) {
     h = Hit{tp, kPlane, ip};
     best_obj = kp;
@@ -262,6 +157,7 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
 }
 
 // Any hit closer than ldist (opaque shadow query).
+template <bool kGrouped>
 __device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
                          float ldist, Tally& tl) {
   tl.casts += 1;
@@ -273,25 +169,13 @@ __device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
     for (int i = 0; i < s.n_spheres; ++i)
       if (sphere_t(s.spheres + i * kPsRows, o, nd, mind) < ldist) return true;
   }
-  V3 w = v3(d.y * o.z - d.z * o.y, d.z * o.x - d.x * o.z,
-            d.x * o.y - d.y * o.x);
-  V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
-  for (int mi = 0; mi < s.m; ++mi) {
-    float entry;
-    if (!slab(s.aabb + mi * kAabbRows, o, inv, &entry) || !(entry < ldist))
-      continue;
-    tl.visits += 1;
-    const float* slot = s.tri + (size_t)mi * s.c * kTriRows;
-    for (int ci = 0; ci < s.c; ++ci, slot += kTriRows)
-      if (tri_t(slot, o, d, w, mind) < ldist) return true;
-  }
-  return false;
+  return any_triangle_before<kGrouped>(s.cl, o, d, mind, ldist, tl);
 }
 
 // The winner's topology code (cutrace_tpu/ops/replay.py layout).
 __device__ __forceinline__ int hit_code(const Scene& s, const Topo& tp,
                                         const Hit& h) {
-  if (h.kind == kTri) return (int)s.tri[(size_t)h.idx * kTriRows + T_ORDER];
+  if (h.kind == kTri) return (int)s.cl.tri[(size_t)h.idx * kTriRows + T_ORDER];
   if (h.kind == kPlane) return tp.t_cnt + h.idx;
   if (h.kind == kSphere) return tp.t_cnt + tp.p_cnt + h.idx;
   return -1;
@@ -299,7 +183,7 @@ __device__ __forceinline__ int hit_code(const Scene& s, const Topo& tp,
 
 __device__ __forceinline__ int hit_mat(const Scene& s, const Hit& h) {
   float m = 0.0f;
-  if (h.kind == kTri) m = s.tri[(size_t)h.idx * kTriRows + T_MAT];
+  if (h.kind == kTri) m = s.cl.tri[(size_t)h.idx * kTriRows + T_MAT];
   if (h.kind == kPlane) m = s.planes[h.idx * kPsRows + P_MAT];
   if (h.kind == kSphere) m = s.spheres[h.idx * kPsRows + P_MAT];
   int mi = (int)m;
@@ -317,10 +201,11 @@ struct Shaded {
 };
 
 // `row` is the node's cast row in the code buffer (ignored without one).
+template <bool kGrouped>
 __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
                              float ambient, int shadow_steps, bool opaque,
                              const Topo& tp, int row, Tally& tl) {
-  Hit h = cast_nearest(s, o, d, mind, tl);
+  Hit h = cast_nearest<kGrouped>(s, o, d, mind, tl);
   const int per_light = opaque ? 1 : shadow_steps;
   if (tp.codes) tp.codes[(size_t)row * tp.stride] = hit_code(s, tp, h);
   Shaded r;
@@ -334,7 +219,7 @@ __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
             o.z + r.t_safe * dir.z);
   V3 rn = v3(0.0f, 0.0f, 0.0f);
   if (h.kind == kTri) {
-    rn = load3(s.tri + (size_t)h.idx * kTriRows + T_SN);
+    rn = load3(s.cl.tri + (size_t)h.idx * kTriRows + T_SN);
   } else if (h.kind == kPlane) {
     rn = load3(s.planes + h.idx * kPsRows + P_N);
   } else if (is_sph) {
@@ -384,13 +269,13 @@ __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
     float shadow;
     const int srow = row + 1 + li * per_light;  // this light's first row
     if (opaque) {
-      shadow = occluded(s, p, sd, 1e-3f, light_dist, tl) ? 1.0f : 0.0f;
+      shadow = occluded<kGrouped>(s, p, sd, 1e-3f, light_dist, tl) ? 1.0f : 0.0f;
       if (tp.codes) tp.codes[(size_t)srow * tp.stride] = (int)shadow;
     } else {
       shadow = 0.0f;
       float last = 0.0f;
       for (int si = 0; si < shadow_steps; ++si) {
-        Hit sh = cast_nearest(s, p, sd, last + 1e-3f, tl);
+        Hit sh = cast_nearest<kGrouped>(s, p, sd, last + 1e-3f, tl);
         bool okm = isfinite(sh.t) && sh.t < light_dist;
         if (!okm) break;
         if (tp.codes)
@@ -434,6 +319,7 @@ __device__ __forceinline__ int subtree_nodes(int level, int bounces,
   return (any_refl || any_transp) ? depth : 1;
 }
 
+template <bool kGrouped>
 __global__ void __launch_bounds__(kBlock)
 fused_forward_kernel(const float* __restrict__ rays, Scene s,
                      const float* __restrict__ ambient_p,
@@ -462,7 +348,7 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
   while (true) {
     bool descend = false;
     if (root || w != 0.0f) {
-      Shaded r = shade_node(s, o, d, mind, ambient, shadow_steps, opaque,
+      Shaded r = shade_node<kGrouped>(s, o, d, mind, ambient, shadow_steps, opaque,
                             tp, node * node_rows, tl);
       if (root) {
         float* q = out + (size_t)i * 7;
@@ -524,6 +410,7 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
   if (tally) {
     atomicAdd(tally, tl.casts);
     atomicAdd(tally + 1, tl.visits);
+    atomicAdd(tally + 2, tl.slabs);
   }
 }
 
@@ -533,9 +420,10 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
 // code of the launch (0 on success). Refuses (cudaErrorInvalidValue) a
 // two-branch tree deeper than the parked-frame stack. `codes` (K x n_rays
 // int32, pre-filled by the caller) receives the topology codes, with t_cnt
-// and p_cnt the padded triangle and plane leaf lengths; `tally` (2 x u64,
-// zeroed by the caller) receives the casts and admitted cluster visits.
-// Either may be null.
+// and p_cnt the padded triangle and plane leaf lengths; `tally` (3 x u64,
+// zeroed by the caller) receives the casts, admitted cluster visits and
+// slab tests. Either may be null. With `groups` ((ceil(m / 32), 8) group
+// boxes) the K3 instance runs, the two-level cull; without, K1's flat one.
 extern "C" int cutrace_fused_forward(
     const float* rays, const float* tri, const float* aabb,
     const float* planes, const float* spheres, const float* mats,
@@ -543,16 +431,22 @@ extern "C" int cutrace_fused_forward(
     int c, int n_planes, int n_spheres, int n_lights, int n_mats,
     int bounces, int shadow_steps, int any_refl, int any_transp, float fudge,
     int* codes, int t_cnt, int p_cnt, unsigned long long* tally,
-    void* stream) {
+    const float* groups, void* stream) {
   if (any_refl && any_transp && bounces >= kMaxParked)
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Scene s{tri, aabb, planes, spheres, mats, lights,
-          m, c, n_planes, n_spheres, n_lights, n_mats};
+  Scene s{Clusters{tri, aabb, groups, m, c}, planes, spheres, mats, lights,
+          n_planes, n_spheres, n_lights, n_mats};
   Topo tp{codes, n_rays, t_cnt, p_cnt};
   int grid = (n_rays + kBlock - 1) / kBlock;
-  fused_forward_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      rays, s, ambient, out, n_rays, bounces, shadow_steps, any_refl != 0,
-      any_transp != 0, fudge, tp, tally);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (groups)
+    fused_forward_kernel<true><<<grid, kBlock, 0, st>>>(
+        rays, s, ambient, out, n_rays, bounces, shadow_steps, any_refl != 0,
+        any_transp != 0, fudge, tp, tally);
+  else
+    fused_forward_kernel<false><<<grid, kBlock, 0, st>>>(
+        rays, s, ambient, out, n_rays, bounces, shadow_steps, any_refl != 0,
+        any_transp != 0, fudge, tp, tally);
   return (int)cudaGetLastError();
 }

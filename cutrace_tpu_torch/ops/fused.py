@@ -4,18 +4,23 @@ cutrace_tpu.ops.fused).
 `fused_render_rays` runs primary cast -> per bounce-tree node: nearest hit,
 Phong with per-light shadow queries, reflection/transparency children ->
 color, depth and normal, for every ray of a batch. On a CUDA tensor it
-launches the hand-written Hopper kernel in `csrc/fused_forward.cu`; on a
-CPU tensor it runs `fused_render_rays_plain`, the composable torch pipeline
-(ops.intersect.ray_cast + render.shading.ray_color) over the same cluster
-partition. The plain version is also what the kernel is checked against on
-the card.
+launches the hand-written Hopper kernel in `csrc/fused_forward.cu`: K1,
+its flat-cull instance, for partitions of at most LANES_MAX_M clusters,
+and K3, its two-level-cull instance, for bigger ones. On a CPU tensor it
+runs `fused_render_rays_plain`, the composable torch pipeline
+(ops.intersect.ray_cast + render.shading.ray_color) with the dense cast
+over the same cluster partition. The plain version is also what the
+kernels are checked against on the card.
 
 With `emit_topo` the forward also returns the topology codes of
-ops.replay (the kernel writes them itself; `emit_topo_plain` is their
+ops.replay (the kernels write them themselves; `emit_topo_plain` is their
 plain version). When a gradient is asked for, `fused_render_rays` is a
-torch.autograd.Function: its forward emits the codes and its backward is
-the replay backward (ops.replay_vjp: the kernel in `csrc/replay_vjp.cu` on
-CUDA tensors, torch autograd of the replay on CPU tensors).
+torch.autograd.Function. Within the replay's budgets its forward emits the
+codes and its backward is the replay backward (ops.replay_vjp: the kernel
+in `csrc/replay_vjp.cu` on CUDA tensors, torch autograd of the replay on
+CPU tensors). Past them its forward emits no codes and its backward
+re-runs the composable pipeline with the culling cast (ops.pallas_cast) in
+ray chunks and differentiates it.
 
 The kernel reads the tables `kernel_tables` builds: the rows of the JAX
 package's `_tables` and `_light_table` that the kernel needs (per-slot
@@ -35,38 +40,34 @@ import torch
 
 from cutrace_tpu_torch.ops import bvh
 from cutrace_tpu_torch.ops import intersect as I
+from cutrace_tpu_torch.ops import pallas_cast as pc
 from cutrace_tpu_torch.ops import replay as rp
 from cutrace_tpu_torch.ops import replay_vjp as rv
 from cutrace_tpu_torch.render import shading as sh
 from cutrace_tpu_torch.render.renderer import default_chunk, render_rays
 
-# Partitions of at most this many clusters are in the kernel's scope (the
-# JAX lanes kernel's bound); bigger scenes are ROADMAP item A.10.
+# Partitions of at most this many clusters run K1 (the JAX lanes kernel's
+# bound); bigger ones run K3.
 LANES_MAX_M = 32
-# Bounce-tree nodes in the kernel's scope (a two-branch tree at bounce
-# depth 5); deeper trees are ROADMAP item A.10.
+# Bounce-tree nodes in the kernels' scope (a two-branch tree at bounce
+# depth 5); render and the gradient take the composable culling cast past
+# it.
 MAX_NODES = 63
 # Kernel launches on CUDA tensors since import, or since a caller last
-# reset them: without topology codes, and with them.
+# reset them: K1 without and with topology codes, K3 without and with.
 LAUNCHES = 0
 TOPO_LAUNCHES = 0
+BIG_LAUNCHES = 0
+BIG_TOPO_LAUNCHES = 0
 
-# Row layouts of the kernel's tables. csrc/fused_forward.cu reads the same
-# offsets (its T_* and P_* constants).
-# per-slot rows of the (M, C, 24) triangle table; row 23 is zero
-_TRI_NAMES = (
-    "n0", "n1", "n2", "ub0", "ub1", "ub2", "ug0", "ug1", "ug2",
-    "a0", "a1", "a2", "b0", "b1", "b2", "k", "order", "valid",
-    "snx", "sny", "snz", "obj", "mat",
-)
-_TRI_ROWS = 24
+# Row layouts of the kernels' tables besides ops.pallas_cast's triangle
+# table and boxes. csrc/cast.cuh reads the same offsets (its P_*
+# constants).
 # (P or S, 12) plane and sphere rows: object index, plane normal, sphere
 # center, K (planes: dot(point - o0, normal); spheres: radius^2), valid,
 # material index, 2 zero rows
 _PS_OBJ, _PS_N, _PS_C, _PS_K, _PS_VALID, _PS_MAT = 0, 1, 4, 7, 8, 9
 _PS_ROWS = 12
-# (M, 8) cluster boxes: bmin xyz, bmax xyz, 0, 0
-_AABB_ROWS = 8
 
 
 def n_wave_nodes(bounces, any_refl, any_transp):
@@ -78,19 +79,23 @@ def n_wave_nodes(bounces, any_refl, any_transp):
     return 1
 
 
+def fused_supported(soa, accel, bounces: int) -> bool:
+    """Do the fused kernels render this call: a "fused" partition (of any
+    size) and a bounce tree of at most MAX_NODES nodes?"""
+    return (accel is not None and accel.kind == "fused"
+            and n_wave_nodes(bounces, soa.any_reflective,
+                             soa.any_transparent) <= MAX_NODES)
+
+
 def check_scope(soa, accel, bounces):
-    """Raise NotImplementedError for what the kernel does not cover: more
-    than LANES_MAX_M clusters or a bounce tree of more than MAX_NODES."""
-    m = accel.order.shape[0]
-    if m > LANES_MAX_M:
-        raise NotImplementedError(
-            f"{m} clusters: the fused kernel covers at most {LANES_MAX_M}; "
-            f"bigger partitions are ROADMAP item A.10 (big-scene kernel K3)")
+    """Raise NotImplementedError for a bounce tree of more than MAX_NODES
+    nodes, which the kernels do not cover."""
     nodes = n_wave_nodes(bounces, soa.any_reflective, soa.any_transparent)
     if nodes > MAX_NODES:
         raise NotImplementedError(
-            f"a {nodes}-node bounce tree: the fused kernel covers at most "
-            f"{MAX_NODES} nodes; deeper trees are ROADMAP item A.10")
+            f"a {nodes}-node bounce tree: the fused kernels cover at most "
+            f"{MAX_NODES} nodes; render and the gradient take the "
+            f"composable culling cast past it")
 
 
 # --------------------------------------------------------------------------
@@ -98,35 +103,15 @@ def check_scope(soa, accel, bounces):
 # --------------------------------------------------------------------------
 
 
-def _cluster_constants(c: bvh.TriClusters, o0):
-    """Per-triangle intersection constants recentered by o0: dict of
-    (M, C) tensors (cutrace_tpu.ops.pallas_cast._cluster_constants)."""
-    p1 = c.p1 - o0
-    p2 = c.p2 - o0
-    p3 = c.p3 - o0
-    a = p2 - p1
-    b = p2 - p3
-    n = torch.linalg.cross(a, b)
-    ub = torch.linalg.cross(p2, b)
-    ug = torch.linalg.cross(p2, a)
-    k = (p2 * n).sum(-1)
-    out = {}
-    for name, arr in (("n", n), ("ub", ub), ("ug", ug), ("a", a), ("b", b)):
-        for ax in range(3):
-            out[f"{name}{ax}"] = arr[..., ax]
-    out["k"] = k
-    out["order"] = c.order.to(torch.int32)
-    out["valid"] = c.valid.to(torch.float32)
-    return out
-
-
 @dataclasses.dataclass(frozen=True)
 class KernelTables:
-    """The kernel's scene operands: contiguous float32 tensors on the
-    scene's device, positions recentered by the scene center."""
+    """The kernels' scene operands: contiguous float32 tensors on the
+    scene's device, positions recentered by the scene center. The first
+    three are the partition's ops.pallas_cast.ClusterTables."""
 
-    tri: torch.Tensor  # (M, C, _TRI_ROWS) per-slot rows
-    aabb: torch.Tensor  # (M, _AABB_ROWS)
+    tri: torch.Tensor  # (M, C, 24) per-slot rows
+    aabb: torch.Tensor  # (M, 8) cluster boxes
+    groups: torch.Tensor  # (ceil(M / bvh.GROUP), 8) group boxes
     plane: torch.Tensor  # (P, _PS_ROWS)
     sphere: torch.Tensor  # (S, _PS_ROWS)
     mat: torch.Tensor  # (n_mats, 8): color rgb, spec, refl, phong, transp, 0
@@ -147,27 +132,14 @@ def _light_table(soa, o0):
 
 @torch.no_grad()
 def kernel_tables(soa, accel) -> KernelTables:
-    """The kernel's tables for a scene and its cluster partition (the
+    """The kernels' tables for a scene and its cluster partition (the
     counterpart of cutrace_tpu.ops.fused._tables and _light_table, holding
-    only the rows the kernel reads)."""
+    only the rows the kernels read; the group boxes take the place of its
+    supercluster rows `aabb2`)."""
     o0 = soa.scene_center
     dev = o0.device
     f32 = torch.float32
-    clusters = bvh.clusters_from_accel(soa, accel)
-    rows = _cluster_constants(clusters, o0)
-    sn = -torch.linalg.cross(clusters.p2 - clusters.p3,
-                             clusters.p1 - clusters.p3)
-    sn = sn / torch.sqrt((sn * sn).sum(-1, keepdim=True))
-    rows.update(snx=sn[..., 0], sny=sn[..., 1], snz=sn[..., 2],
-                obj=clusters.obj, mat=clusters.mat)
-    m, c = clusters.valid.shape
-    tri = torch.zeros((m, c, _TRI_ROWS), dtype=f32, device=dev)
-    tri[..., :len(_TRI_NAMES)] = torch.stack(
-        [rows[k].to(f32) for k in _TRI_NAMES], dim=-1)
-
-    aabb = torch.zeros((m, _AABB_ROWS), dtype=f32, device=dev)
-    aabb[:, 0:3] = clusters.bmin - o0
-    aabb[:, 3:6] = clusters.bmax - o0
+    cl = pc.cluster_tables(soa, accel)
 
     def prim_rows(obj, normal, center, k, valid, mat):
         out = torch.zeros((obj.shape[0], _PS_ROWS), dtype=f32, device=dev)
@@ -196,7 +168,8 @@ def kernel_tables(soa, accel) -> KernelTables:
         torch.zeros_like(soa.mat_specular),
     ], dim=1)
     return KernelTables(
-        tri=tri, aabb=aabb, plane=plane, sphere=sphere, mat=mat,
+        tri=cl.tri, aabb=cl.aabb, groups=cl.groups, plane=plane,
+        sphere=sphere, mat=mat,
         lights=_light_table(soa, o0).contiguous(),
         ambient=soa.ambient.reshape(1).to(f32).contiguous(),
     )
@@ -209,12 +182,14 @@ def kernel_tables(soa, accel) -> KernelTables:
 
 @torch.no_grad()
 def fused_render_rays_plain(soa, accel, o, d, fudge, bounces: int):
-    """The plain PyTorch version of the fused kernel: the composable
+    """The plain PyTorch version of the fused kernels: the composable
     pipeline (primary ray_cast for depth/normal, ray_color for color) with
-    the dense cast over `accel`'s clusters, in ray chunks. Returns
-    (color (R,3), depth (R,), normal (R,3))."""
-    tc = bvh.candidates_fn(accel)
-    chunk = default_chunk(soa, bounces)
+    the dense cast over `accel`'s clusters, in ray chunks whose (rays x
+    slots) products stay near 2^26 elements. Returns (color (R,3), depth
+    (R,), normal (R,3))."""
+    tc = bvh.dense_candidates_fn(accel)
+    chunk = max(1, min(default_chunk(soa, bounces),
+                       (1 << 26) // _slots(soa, accel)))
     outs = [
         render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge, tc)
         for s in range(0, o.shape[0], chunk)
@@ -235,18 +210,23 @@ def emit_topo_plain(soa, accel, o, d, fudge, bounces: int):
                               soa.shadow_steps)
     # one node's casts at a time: a chunk's (rays x slots) products stay
     # near 2^26 elements
-    slots = (accel.order.numel() + soa.pl_point.shape[0]
-             + soa.sp_center.shape[0])
-    chunk = max(default_chunk(soa, bounces), (1 << 26) // slots)
+    chunk = max(1, (1 << 26) // _slots(soa, accel))
     return torch.cat([
         _emit_chunk(soa, accel, o[s:s + chunk], d[s:s + chunk], fudge,
                     bounces, nodes)
         for s in range(0, o.shape[0], chunk)])
 
 
+def _slots(soa, accel):
+    """Primitives a dense cast tests per ray: cluster slots, planes and
+    spheres."""
+    return (accel.order.numel() + soa.pl_point.shape[0]
+            + soa.sp_center.shape[0])
+
+
 def _emit_chunk(soa, accel, o, d, fudge, bounces, nodes):
     r = o.shape[0]
-    tc = bvh.candidates_fn(accel)
+    tc = bvh.dense_candidates_fn(accel)
     opaque = not soa.any_transparent
     codes = _code_fill(soa, bounces, o.device).expand(r, -1).clone()
     it = iter(nodes)
@@ -305,14 +285,12 @@ def _emit_chunk(soa, accel, o, d, fudge, bounces, nodes):
 
 
 def replay_supported(soa, accel, bounces: int, n_rays: int = 0) -> bool:
-    """Can the backward replay topology codes for this call: a fused
-    partition inside the kernel's scope, at most REPLAY_MAX_ROWS topo rows,
-    and a code buffer of at most REPLAY_MAX_CODE_BYTES for `n_rays`?"""
-    if accel is None:
-        return False
-    try:
-        check_scope(soa, accel, bounces)
-    except NotImplementedError:
+    """Can the backward replay topology codes for this call: a partition
+    (of any size) and a tree inside the kernels' scope, at most
+    REPLAY_MAX_ROWS topo rows, and a code buffer of at most
+    REPLAY_MAX_CODE_BYTES for `n_rays`?"""
+    if accel is None or n_wave_nodes(bounces, soa.any_reflective,
+                                     soa.any_transparent) > MAX_NODES:
         return False
     rows = rp.replay_rows(soa, bounces)
     if rows > rp.REPLAY_MAX_ROWS:
@@ -360,16 +338,18 @@ def _code_fill(soa, bounces, device):
 @torch.no_grad()
 def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
                         emit_topo=False, tally=None):
-    """Launch the kernel. With `emit_topo` it also returns the codes as an
-    (R, K) view of its (K, R_pad) buffer; `tally`, a zeroed (2,) int64
-    CUDA tensor, receives the casts and admitted cluster visits."""
+    """Launch the kernel: K1 for at most LANES_MAX_M clusters, K3 past
+    that. With `emit_topo` it also returns the codes as an (R, K) view of
+    its (K, R_pad) buffer; `tally`, a zeroed (3,) int64 CUDA tensor,
+    receives the casts, admitted cluster visits and slab tests."""
     from cutrace_tpu_torch.ops import _build
 
-    global LAUNCHES, TOPO_LAUNCHES
+    global LAUNCHES, TOPO_LAUNCHES, BIG_LAUNCHES, BIG_TOPO_LAUNCHES
     dev = tables.tri.device
     _check_rays(o, d, dev)
     r = o.shape[0]
     m, c = tables.tri.shape[:2]
+    big = m > LANES_MAX_M
     r_pad = -(-r // _BLOCK) * _BLOCK
     # rays: [o - o0, d, min_dist, 0]; padding rays get min_dist = +inf, so
     # they can never hit anything
@@ -385,9 +365,9 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         codes = _code_fill(soa, bounces, dev)[:, None].expand(
             -1, r_pad).contiguous()
     if tally is not None and (tally.dtype != torch.int64
-                              or tuple(tally.shape) != (2,)
+                              or tuple(tally.shape) != (3,)
                               or tally.device != dev):
-        raise ValueError("tally: expected a (2,) int64 tensor on the card")
+        raise ValueError("tally: expected a (3,) int64 tensor on the card")
 
     lib = _build.load_library("fused_forward")
     rc = lib.cutrace_fused_forward(
@@ -399,16 +379,36 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         int(soa.any_reflective), int(soa.any_transparent), float(fudge),
         None if codes is None else _ptr(codes), soa.tri_p1.shape[0],
         soa.pl_point.shape[0], None if tally is None else _ptr(tally),
+        _ptr(tables.groups) if big else None,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"fused forward kernel launch failed: CUDA "
                            f"error {rc}")
     if codes is None:
-        LAUNCHES += 1
+        if big:
+            BIG_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
         return out[:r, 0:3], out[:r, 3], out[:r, 4:7]
-    TOPO_LAUNCHES += 1
+    if big:
+        BIG_TOPO_LAUNCHES += 1
+    else:
+        TOPO_LAUNCHES += 1
     return out[:r, 0:3], out[:r, 3], out[:r, 4:7], codes[:, :r].T
+
+
+@torch.no_grad()
+def _forward(soa, accel, o, d, fudge, bounces, tables):
+    """(color, depth, normal): the kernel on CUDA tensors (tables built
+    here when None), the plain version on CPU tensors."""
+    if o.is_cuda:
+        if tables is None:
+            tables = kernel_tables(soa, accel)
+        return _fused_forward_cuda(soa, tables, o, d, fudge, bounces)
+    if o.device.type != "cpu":
+        raise ValueError(f"unsupported device {o.device}")
+    return fused_render_rays_plain(soa, accel, o, d, fudge, bounces)
 
 
 @torch.no_grad()
@@ -457,6 +457,56 @@ class _FusedRender(torch.autograd.Function):
         return (*grads, None, None, None, None, None)
 
 
+def composable_rays(soa, accel, o, d, fudge, bounces: int):
+    """The composable pipeline (render_rays) with the culling cast over
+    `accel` (K4 on CUDA tensors), in ray chunks, each under
+    torch.utils.checkpoint: a backward keeps only the chunks' inputs and
+    recomputes one chunk's forward at a time. Chunks of 65536 rays, or
+    max(4096, 65536 >> bounces) in two-branch trees, as the JAX package's
+    composable backward takes them."""
+    from torch.utils.checkpoint import checkpoint
+
+    two_branch = soa.any_reflective and soa.any_transparent
+    chunk = max(4096, 65536 >> bounces) if two_branch else 65536
+    tc = bvh.candidates_fn(accel)
+
+    def run(oo, dd):
+        return render_rays(soa, oo, dd, bounces, fudge, tc)
+
+    outs = [checkpoint(run, o[s:s + chunk], d[s:s + chunk],
+                       use_reentrant=False)
+            for s in range(0, o.shape[0], chunk)]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+class _FusedRenderComposable(torch.autograd.Function):
+    """The fused render past the replay's budgets. Differentiable inputs:
+    o, d and the scene leaves of ops.replay_vjp.TABLE_FIELDS. The forward
+    runs the kernel without codes; the backward differentiates
+    `composable_rays` over the same partition at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, o, d, soa, accel, fudge, bounces, *leaves):
+        outs = _forward(soa, accel, o.detach(), d.detach(), fudge, bounces,
+                        None)
+        ctx.save_for_backward(o, d, *leaves)
+        ctx.soa, ctx.accel, ctx.fudge, ctx.bounces = soa, accel, fudge, bounces
+        return tuple(x.contiguous() for x in outs)
+
+    @staticmethod
+    def backward(ctx, g_c, g_dep, g_n):
+        o, d, *leaves = ctx.saved_tensors
+        cot = rv._zeros_for_none((g_c, g_dep, g_n), o)
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_() for x in (o, d, *leaves)]
+            soa = dataclasses.replace(
+                ctx.soa, **dict(zip(rv.TABLE_FIELDS, ins[2:])))
+            outs = composable_rays(soa, ctx.accel, ins[0], ins[1], ctx.fudge,
+                                   ctx.bounces)
+            grads = torch.autograd.grad(outs, ins, cot, allow_unused=True)
+        return (grads[0], grads[1], None, None, None, None, *grads[2:])
+
+
 def fused_render_rays(soa, accel, o, d, fudge, bounces: int,
                       emit_topo: bool = False, tables=None):
     """Fused render of explicit rays: (color (R,3), depth (R,),
@@ -465,21 +515,22 @@ def fused_render_rays(soa, accel, o, d, fudge, bounces: int,
     CUDA tensors launch the kernel (raising if it cannot) on `tables`, the
     scene's KernelTables (built here when None); CPU tensors run the plain
     version. When autograd asks for a gradient of the scene leaves or the
-    rays, the call runs as _FusedRender: the forward emits the codes and
-    the backward replays them. Its kernel tables are built here from the
-    live leaves on every call, so pass no `tables` while training."""
+    rays, the call runs as an autograd Function: within the replay's
+    budgets (replay_supported, replay_vjp.replay_vjp_supported) the forward
+    emits codes and the backward replays them; past them the backward
+    differentiates the composable pipeline with the culling cast. Its
+    kernel tables are built here from the live leaves on every call, so
+    pass no `tables` while training."""
     check_scope(soa, accel, bounces)
     if emit_topo:
         return _forward_topo(soa, accel, o, d, fudge, bounces, tables)
+    leaves = [getattr(soa, f) for f in rv.TABLE_FIELDS]
     if torch.is_grad_enabled() and any(
-            t.requires_grad
-            for t in (o, d, *(getattr(soa, f) for f in rv.TABLE_FIELDS))):
-        return _FusedRender.apply(*rv.backward_tables(soa), o, d, soa, accel,
-                                  tables, float(fudge), bounces)
-    if o.is_cuda:
-        if tables is None:
-            tables = kernel_tables(soa, accel)
-        return _fused_forward_cuda(soa, tables, o, d, fudge, bounces)
-    if o.device.type != "cpu":
-        raise ValueError(f"unsupported device {o.device}")
-    return fused_render_rays_plain(soa, accel, o, d, fudge, bounces)
+            t.requires_grad for t in (o, d, *leaves)):
+        if (replay_supported(soa, accel, bounces, n_rays=o.shape[0])
+                and rv.replay_vjp_supported(soa, bounces)):
+            return _FusedRender.apply(*rv.backward_tables(soa), o, d, soa,
+                                      accel, tables, float(fudge), bounces)
+        return _FusedRenderComposable.apply(o, d, soa, accel, float(fudge),
+                                            bounces, *leaves)
+    return _forward(soa, accel, o, d, fudge, bounces, tables)

@@ -101,14 +101,19 @@ def _packed_table(soa):
     flow through the concatenation back to every geometry and material
     leaf) and never stale."""
     def matcols(mat_idx):
+        # index_select, not advanced indexing: its backward is one
+        # index_add_, where indexing's sorts the (N,) indices and walks
+        # each run of duplicates in one warp (a 256k-triangle mesh has
+        # one material)
         mat_idx = mat_idx.to(torch.int64)
-        return torch.cat([
-            soa.mat_color[mat_idx],
-            soa.mat_specular[mat_idx][:, None],
-            soa.mat_reflect[mat_idx][:, None],
-            soa.mat_phong[mat_idx][:, None],
-            soa.mat_transparency[mat_idx][:, None],
-        ], dim=1)  # (N, 7)
+        mats = torch.cat([
+            soa.mat_color,
+            soa.mat_specular[:, None],
+            soa.mat_reflect[:, None],
+            soa.mat_phong[:, None],
+            soa.mat_transparency[:, None],
+        ], dim=1)
+        return torch.index_select(mats, 0, mat_idx)  # (N, 7)
 
     t = soa.tri_p1.shape[0]
     p = soa.pl_point.shape[0]

@@ -26,27 +26,39 @@ from cutrace_tpu_torch.scene.soa import (SceneArrays, host_triangle_soup,
 @dataclasses.dataclass(frozen=True)
 class PreparedScene:
     """A scene plus its cluster partition (an ops.bvh.Accel, or None for
-    the brute-force composable path) and, on a CUDA device, the fused
-    kernel's ops.fused.KernelTables. Build once with `prepare()`."""
+    the brute-force composable path) and, on a CUDA device, the kernels'
+    ops.fused.KernelTables. Build once with `prepare()`."""
 
     soa: SceneArrays
     accel: Optional[bvh.Accel] = None
     tables: Optional[object] = None
 
 
+# Past this many triangles a "fused" partition takes C = 512 (the JAX
+# package's VMEM table bound, where its kernel switched to streamed tables
+# with bigger per-visit blocks).
+BIG_TABLE_TRIANGLES = 262144
+
+
 def prepare(scene_or_soa, accel: str = "auto", device="cuda",
             bounces: Optional[int] = None) -> PreparedScene:
     """Build the device scene and its acceleration structure.
 
-    accel: "none" (composable brute force), "fused" (the fused kernel on
-    CUDA tensors, its plain version on CPU tensors) or "auto" ("fused" on a
-    CUDA device, "none" on the CPU). `device` places a Scene's tensors:
-    the card unless the caller passes "cpu" (without a card the call
-    raises); a SceneArrays stays where it is. With "fused", a
-    partition of more than LANES_MAX_M clusters, or (given `bounces`) a
-    bounce tree of more than MAX_NODES nodes, raises NotImplementedError:
-    those scenes are ROADMAP item A.10. On a CUDA device the kernel's
-    tables are built here, once per scene."""
+    accel: "none" (composable brute force), "clusters" (the composable
+    path with the dense cast over C=64 clusters, no culling), "pallas"
+    (the composable path with the culling cast, K4 on a CUDA device),
+    "fused" (the fused kernels K1 / K3 on a CUDA device, their plain
+    version on the CPU; the composable culling cast past their 63-node
+    scope) or "auto" ("fused" on a CUDA device, "none" on the CPU).
+    `device` places a Scene's tensors: the card unless the caller passes
+    "cpu" (without a card the call raises); a SceneArrays stays where it
+    is. `bounces` is accepted for callers that know the depth; no depth
+    is refused. On a CUDA device the kernels' tables are built here, once
+    per scene.
+
+    The "fused" cluster size is the JAX package's policy: the smallest of
+    C = 64 and 128 that keeps the partition within LANES_MAX_M clusters
+    (K1), else C = 256 (K3), and C = 512 past 262,144 triangles."""
     from cutrace_tpu_torch.ops import fused
 
     host_tris = None
@@ -59,14 +71,20 @@ def prepare(scene_or_soa, accel: str = "auto", device="cuda",
         accel = "fused" if soa.device.type == "cuda" else "none"
     if accel == "none":
         return PreparedScene(soa=soa)
-    if accel != "fused":
+    if accel not in bvh.KINDS:
         raise ValueError(f"unknown accel {accel!r}")
-    # The smallest cluster size that keeps the partition within the
-    # kernel's cluster bound: finer clusters cull more triangle work.
-    n_tris = int(soa.tri_p1.shape[0])
-    size = 64 if n_tris <= fused.LANES_MAX_M * 64 else 128
-    acc = bvh.build_accel(soa, cluster_size=size, host_tris=host_tris)
-    fused.check_scope(soa, acc, 0 if bounces is None else bounces)
+    size = bvh.CLUSTER_SIZE
+    if accel == "fused":
+        n_tris = int(soa.tri_p1.shape[0])
+        size = 256
+        for c in (64, 128):
+            if n_tris <= fused.LANES_MAX_M * c:
+                size = c
+                break
+        if n_tris > BIG_TABLE_TRIANGLES:
+            size = 512
+    acc = bvh.build_accel(soa, cluster_size=size, host_tris=host_tris,
+                          kind=accel)
     tables = (fused.kernel_tables(soa, acc) if soa.device.type == "cuda"
               else None)
     return PreparedScene(soa=soa, accel=acc, tables=tables)
@@ -98,14 +116,16 @@ def render_rays(soa: SceneArrays, o, d, bounces: int, fudge,
     return color, primary.t, primary.normal
 
 
-def default_chunk(soa: SceneArrays, bounces: int) -> int:
+def default_chunk(soa: SceneArrays, bounces: int, lights: bool = True) -> int:
     """Rays per composable batch. It bounds the peak batch: the deepest
     level carries 2^bounces nodes per pixel in two-branch trees, and shadow
     marches batch all lights into one cast over (rays x triangles)
-    intermediates."""
+    intermediates (`lights`; the culling cast has none)."""
     max_nodes = 2**bounces if (soa.any_reflective and soa.any_transparent) \
         else 1
-    return max(1024, 65536 // (max_nodes * max(1, soa.n_lights)))
+    if lights:
+        max_nodes *= max(1, soa.n_lights)
+    return max(1024, 65536 // max_nodes)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -185,11 +205,18 @@ def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
 
     Accepts a Scene (placed on `device`: the card unless the caller
     passes "cpu"; without a card the call raises), a SceneArrays (brute-force
-    composable path) or a PreparedScene from prepare() (its partition:
-    "fused" runs ops.fused.fused_render_rays). `chunk` bounds the rays per
-    composable batch."""
+    composable path) or a PreparedScene from prepare(). A "fused"
+    partition runs ops.fused.fused_render_rays while the bounce tree is in
+    the kernels' scope; past it, and for "clusters" and "pallas"
+    partitions, the composable path runs with the partition's triangle
+    query (ops.bvh.candidates_fn). `chunk` bounds the rays per composable
+    batch."""
+    from cutrace_tpu_torch.ops import fused
+
+    accel = tables = None
     if isinstance(scene_or_soa, PreparedScene):
-        if scene_or_soa.accel is not None:
+        accel, tables = scene_or_soa.accel, scene_or_soa.tables
+        if fused.fused_supported(scene_or_soa.soa, accel, bounces):
             return _render_fused(scene_or_soa, bounces, float(fudge))
         scene_or_soa = scene_or_soa.soa
     soa = (
@@ -200,11 +227,15 @@ def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
 
     n = soa.width * soa.height
     if chunk is None:
-        chunk = default_chunk(soa, bounces)
+        # the culling cast materializes no (rays x triangles) products, so
+        # its chunks need not shrink with the light fan-out
+        culls = accel is not None and accel.kind != "clusters"
+        chunk = default_chunk(soa, bounces, lights=not culls)
     chunk = max(8, min(chunk, _ceil_to(n, 8)))
     o, d, inverse = block_rays(soa, _ceil_to(n, chunk))
+    tc = bvh.candidates_fn(accel, tables)
     outs = [
-        render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge)
+        render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge, tc)
         for s in range(0, o.shape[0], chunk)
     ]
     color, depth, normal = (torch.cat(x) for x in zip(*outs))

@@ -61,16 +61,20 @@ def test_render_outputs(tmp_path):
 
 
 def test_port_never_loads_jax():
-    """Importing the port, rendering with it and taking one fit step on
-    the CPU never loads jax or the JAX package (cutrace_tpu)."""
+    """Importing the port, rendering with it (fused and pallas) and taking
+    one fit step on the CPU never loads jax or the JAX package
+    (cutrace_tpu)."""
     code = (
         "import sys\n"
         "import cutrace_tpu_torch, cutrace_tpu_torch.perf_probe\n"
         "import cutrace_tpu_torch.cli, cutrace_tpu_torch.diff.checkpoint\n"
+        "import cutrace_tpu_torch.bigscene, cutrace_tpu_torch.utils.profiling\n"
+        "import cutrace_tpu_torch.ops.pallas_cast\n"
         "from cutrace_tpu_torch.render.renderer import prepare, render\n"
         "from cutrace_tpu_torch.parallel.train import fit\n"
         "sc = cutrace_tpu_torch.load_scene('scenes/triangle.json')\n"
         "sc.camera.width = sc.camera.height = 8\n"
+        "c, d, n = render(prepare(sc, accel='pallas', device='cpu'), 2)\n"
         "p = prepare(sc, accel='fused', device='cpu')\n"
         "c, d, n = render(p, bounces=2)\n"
         "assert tuple(c.shape) == (8, 8, 3)\n"

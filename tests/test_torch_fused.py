@@ -22,6 +22,7 @@ from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
 from cutrace_tpu_torch.ops import _build
 from cutrace_tpu_torch.ops import bvh as tbvh
 from cutrace_tpu_torch.ops import fused as tfused
+from cutrace_tpu_torch.ops import pallas_cast as tpc
 from cutrace_tpu_torch.render import renderer as TR
 from cutrace_tpu_torch.scene.soa import scene_to_soa
 from test_fused import _compare
@@ -57,7 +58,7 @@ def test_tables_match_jax(scenes_dir, scene):
         t = getattr(kt, k)
         assert t.dtype == torch.float32 and t.is_contiguous(), k
 
-    names = tfused._TRI_NAMES
+    names = tpc._TRI_NAMES
     for i, name in enumerate(names):
         got, want = kt.tri[..., i].numpy(), np.asarray(jt[name], np.float32)
         if name in ("snx", "sny", "snz"):
@@ -126,52 +127,78 @@ def test_slice_matches_jax_fused_kernel(scenes_dir, scene, bounces):
              atol=2e-4)
 
 
+def _subdivided(scenes_dir, levels, w, h):
+    """bunny.json at w x h with its mesh subdivided `levels` times."""
+    from cutrace_tpu.scene.mesh_io import subdivide
+
+    sc = _scene(scenes_dir, "bunny.json", w, h)
+    for ob in sc.objects:
+        if type(ob).__name__ == "Mesh":
+            ob.vertices = subdivide(ob.vertices, levels)
+    return sc
+
+
 def test_prepare_policy(scenes_dir):
+    """The JAX package's cluster-size policy: C=64 for bunny (M=16, K1),
+    C=256 for the 16k bunny (M=64, K3); "clusters" and "pallas" take
+    bvh.CLUSTER_SIZE and keep their kind."""
     soa = torch_soa(_scene(scenes_dir, "bunny.json", 8, 8))
     assert TR.prepare(soa).accel is None  # "auto" on the CPU
     accel = TR.prepare(soa, accel="fused").accel
     assert tuple(accel.order.shape) == (16, 64)  # C=64, M=16
-    with pytest.raises(ValueError):
-        TR.prepare(soa, accel="pallas")
+    assert accel.kind == "fused"
+    big = TR.prepare(port_scene(_subdivided(scenes_dir, 2, 8, 8)),
+                     accel="fused", device="cpu").accel
+    assert tuple(big.order.shape) == (64, 256)  # C=256, M=64
+    for kind in ("pallas", "clusters"):
+        acc = TR.prepare(soa, accel=kind).accel
+        assert acc.kind == kind and acc.order.shape[1] == tbvh.CLUSTER_SIZE
+    with pytest.raises(ValueError, match="unknown accel"):
+        TR.prepare(soa, accel="bvh")
 
 
 def test_scope_is_enforced(scenes_dir):
-    """What the kernel does not cover raises NotImplementedError naming
-    the ROADMAP item; it never falls back silently."""
-    from cutrace_tpu.scene.mesh_io import subdivide
-
-    sc = _scene(scenes_dir, "bunny.json", 8, 8)
-    for ob in sc.objects:
-        if type(ob).__name__ == "Mesh":
-            ob.vertices = subdivide(ob.vertices, 2)  # 16k triangles
-    with pytest.raises(NotImplementedError, match="A.10"):
-        TR.prepare(port_scene(sc), accel="fused", device="cpu")
+    """Partitions past 32 clusters render (K3's plain version here); a
+    127-node tree is prepared and rendered through the composable culling
+    cast, while the fused kernels, called directly, still refuse it."""
+    prepared = TR.prepare(port_scene(_subdivided(scenes_dir, 2, 8, 8)),
+                          accel="fused", device="cpu")
+    assert prepared.accel.order.shape[0] > tfused.LANES_MAX_M
+    color, depth, _ = TR.render(prepared, bounces=1)
+    assert tuple(color.shape) == (8, 8, 3) and torch.isfinite(depth).any()
 
     soa = torch_soa(_scene(scenes_dir, "sphere_plane.json", 4, 4))
-    with pytest.raises(NotImplementedError, match="127-node"):
-        TR.prepare(soa, accel="fused", bounces=6)
-    prepared = TR.prepare(soa, accel="fused", bounces=5)
+    deep = TR.prepare(soa, accel="fused", bounces=6)
+    assert not tfused.fused_supported(soa, deep.accel, 6)
+    assert tfused.fused_supported(soa, deep.accel, 5)
+    color, _, _ = TR.render(deep, bounces=6)
+    assert torch.isfinite(color).all()
     o, d, _ = TR.block_rays(soa)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tfused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 6)
-    # topology codes are in scope now (ROADMAP A.7 done): on CPU tensors
-    # the plain emitter answers, shaped as the replay's layout
-    *_, codes = tfused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 2,
+    with pytest.raises(NotImplementedError, match="127-node"):
+        tfused.fused_render_rays(soa, deep.accel, o, d, 1e-3, 6)
+    # topology codes are in scope: on CPU tensors the plain emitter
+    # answers, shaped as the replay's layout
+    *_, codes = tfused.fused_render_rays(soa, deep.accel, o, d, 1e-3, 2,
                                          emit_topo=True)
     assert tuple(codes.shape) == (16, 49) and codes.dtype == torch.int32
-    wide = tbvh.accel_from_numpy(np.zeros((33, 64), np.int32),
+    # a partition of 33 empty clusters renders nothing but the planes
+    wide = tbvh.accel_from_numpy(np.full((33, 64), 2**30, np.int32),
                                  np.zeros((33, 64), bool))
-    with pytest.raises(NotImplementedError, match="33 clusters"):
-        tfused.fused_render_rays(soa, wide, o, d, 1e-3, 1)
+    c1, d1, _ = tfused.fused_render_rays(soa, wide, o, d, 1e-3, 1)
+    c2, d2, _ = tfused.fused_render_rays(soa, deep.accel, o, d, 1e-3, 1)
+    assert torch.equal(d1, d2) and torch.equal(c1, c2)
 
 
 def test_kernel_row_layout_matches_source():
     """The (M, C, 24) triangle rows the wrapper packs are the rows the
-    CUDA source reads (its T_* constants)."""
-    src = _build.SOURCES["fused_forward"].read_text()
+    CUDA sources read (their T_* constants, in the shared header), and
+    the group size is ops.bvh's."""
+    src = "\n".join(p.read_text() for p in (
+        _build.SOURCES["fused_forward"],
+        *_build.included_headers(_build.SOURCES["fused_forward"])))
     consts = dict(
         (k, int(v)) for k, v in re.findall(r"\b(T_[A-Z]+) = (\d+)", src))
-    names = tfused._TRI_NAMES
+    names = tpc._TRI_NAMES
     assert consts == {
         "T_N": names.index("n0"), "T_UB": names.index("ub0"),
         "T_UG": names.index("ug0"), "T_A": names.index("a0"),
@@ -180,7 +207,7 @@ def test_kernel_row_layout_matches_source():
         "T_SN": names.index("snx"), "T_OBJ": names.index("obj"),
         "T_MAT": names.index("mat"),
     }
-    assert f"kTriRows = {tfused._TRI_ROWS};" in src
+    assert f"kTriRows = {tpc._TRI_ROWS};" in src
     plane_rows = dict(
         (k, int(v)) for k, v in re.findall(r"\b(P_[A-Z]+) = (\d+)", src))
     assert plane_rows == {
@@ -189,7 +216,11 @@ def test_kernel_row_layout_matches_source():
         "P_MAT": tfused._PS_MAT,
     }
     assert f"kPsRows = {tfused._PS_ROWS};" in src
-    assert f"kAabbRows = {tfused._AABB_ROWS};" in src
+    assert f"kAabbRows = {tpc._AABB_ROWS};" in src
+    assert f"kGroup = {tbvh.GROUP};" in src
+    for name in ("fused_forward", "cluster_cast"):
+        assert [p.name for p in _build.included_headers(
+            _build.SOURCES[name])] == ["cast.cuh"]
 
 
 def test_build_needs_nvcc(tmp_path, monkeypatch):
@@ -210,6 +241,23 @@ def test_library_path_follows_the_source(tmp_path):
     a.write_text("// two")
     assert _build.library_path(a) != first
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
+
+
+def test_library_path_follows_included_headers(tmp_path):
+    """A header the source includes, and one that header includes, are
+    part of the build key; a header it does not include is not."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n// kernel')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"')
+    (tmp_path / "b.cuh").write_text("// one")
+    (tmp_path / "c.cuh").write_text("// one")
+    src = tmp_path / "k.cu"
+    assert [p.name for p in _build.included_headers(src)] == ["a.cuh",
+                                                              "b.cuh"]
+    first = _build.library_path(src)
+    (tmp_path / "c.cuh").write_text("// two")
+    assert _build.library_path(src) == first
+    (tmp_path / "b.cuh").write_text("// two")
+    assert _build.library_path(src) != first
 
 
 def test_wrapper_launch_contract(scenes_dir, monkeypatch):
@@ -235,18 +283,20 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     tables = tfused.kernel_tables(soa, TR.prepare(soa, accel="fused").accel)
     o, d, _ = TR.block_rays(soa)
     before = tfused.LAUNCHES
+    big_before = tfused.BIG_LAUNCHES
     color, depth, normal = tfused._fused_forward_cuda(soa, tables, o, d,
                                                       1e-3, 5)
     assert tfused.LAUNCHES == before + 1
+    assert tfused.BIG_LAUNCHES == big_before
     assert tuple(color.shape) == (70, 3) and tuple(depth.shape) == (70,)
     ints = calls[0][9:20]
     # n_rays (padded to the block), M, C, planes, spheres, lights, mats,
     # bounces, shadow steps, any_refl, any_transp
     assert ints == (128, 16, 64, 5, 0, 4, 6, 5, 1, 1, 0)
     # no code buffer or tally; T and P, the padded triangle and plane
-    # leaf lengths
+    # leaf lengths; no group boxes: K1's flat cull
     assert calls[0][21] is None and calls[0][22:24] == (1000, 5)
-    assert calls[0][24] is None
+    assert calls[0][24] is None and calls[0][25] is None
     topo_before = tfused.TOPO_LAUNCHES
     *_, codes = tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5,
                                            emit_topo=True)
@@ -255,6 +305,15 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     # the pre-fill: -1 in cast rows, 0 in the opaque flag rows
     assert (codes[:, 0::5] == -1).all() and (codes[:, 1:5] == 0).all()
     assert calls[1][21] is not None
+    calls.pop()
+    # past 32 clusters the same entry point runs K3 with the group boxes
+    wide = tbvh.build_accel(soa, 8)
+    big_tables = tfused.kernel_tables(soa, wide)
+    assert big_tables.groups.shape == (-(-wide.order.shape[0] // 32), 8)
+    tfused._fused_forward_cuda(soa, big_tables, o, d, 1e-3, 5)
+    assert tfused.BIG_LAUNCHES == big_before + 1
+    assert calls[-1][10:12] == (wide.order.shape[0], 8)
+    assert calls[-1][25] is not None
     calls.pop()
     lib.rc = 700
     with pytest.raises(RuntimeError, match="CUDA error 700"):

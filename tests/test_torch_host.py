@@ -104,6 +104,23 @@ def test_native_library_is_the_ports_own(tmp_path):
     assert (tmp_path / "a.jpg").read_bytes()[:2] == b"\xff\xd8"
 
 
+@pytest.mark.parametrize("name", SCENE_FILES)
+def test_casts_per_pixel_matches_jax(name):
+    """The port's utils.profiling.casts_per_pixel (its own copy, so that
+    Mcasts/s keeps the JAX package's unit) equals the JAX package's on
+    every bundled scene and bounce depth."""
+    from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
+    from cutrace_tpu.utils.profiling import casts_per_pixel as jcasts
+    from cutrace_tpu_torch.scene.soa import scene_to_soa
+    from cutrace_tpu_torch.utils.profiling import casts_per_pixel
+
+    want_soa = jax_soa(jloader.load_scene(str(REPO / "scenes" / name)))
+    got_soa = scene_to_soa(tloader.load_scene(str(REPO / "scenes" / name)),
+                           device="cpu")
+    for bounces in range(7):
+        assert casts_per_pixel(got_soa, bounces) == jcasts(want_soa, bounces)
+
+
 def test_no_cutrace_tpu_import_in_the_port():
     """No module of the port and nothing in chip_smoke.py imports the JAX
     package (not even its jax-free modules) or jax."""
