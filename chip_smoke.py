@@ -51,13 +51,15 @@ line) if any phase fails:
  11. big-topo / big-vjp  the topo and vjp phases on those two scenes: K3
              with codes (bits, replay, emitter gates), K2 at 256k (every
              table cotangent a global atomic)
- 12. big-frame  the 256k bunny through K3 against the 1k bunny through K1
-             at 960x540 b5 (the surface is the same): zero mismatches off
-             the discontinuities and the rays whose topology codes differ
-             between the two (triangles mapped to their 1k parents; at
-             most 0.1 % of rays), at most 10 % of edge pixels; then a
-             cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and 1M with
-             K3's time, bound and launches
+ 12. big-frame  a cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and
+             1M, 960x540 b5, with K3's time, bound and launches. The 256k
+             and 1M frames (K3) against the 1k bunny's through K1 (the
+             surface is the same): zero mismatches off the discontinuities
+             and the rays whose topology codes differ between the two
+             (triangles mapped to their 1k parents; at most 0.1 % of rays),
+             at most 10 % of edge pixels; on those exempt rays, K3 against
+             the plain version under the forward gate. At 1M (C=512,
+             M=2048) K3 against the plain version at 80x45 b5 too
  13. big-grad  one gradient step over all 19 groups at 256k 960x540 b5:
              finite, K3 with codes and K2 launched; s/step and its parts
  14. cast    K4 against its plain version on bunny 480x270 primary rays
@@ -124,6 +126,15 @@ BIG_ROWS = (2, 3, 4, 5)
 EDGE_BUDGET_SUBDIVIDED = 0.10
 # share of rays that may take another path through the subdivided scene
 KNIFE_RAY_BUDGET = 1e-3
+# turns of a ray (radians) within which K3 and the plain version must
+# reach each other's answer on an exempt ray off the discontinuity mask:
+# a knife edge. 1e-7 is about two float32 steps of a unit direction.
+KNIFE_TURNS = (1e-7, 1e-6)
+# bigscene levels whose 960x540 frame is held against the 1k bunny's
+BIG_FRAME_GATED = (4, 5)
+# K3 against the plain version at 1M triangles, on a frame of this size
+# (the plain version batches 63 rays there)
+BIG_PARITY_1M = (80, 45)
 CAST_RANDOM_RAYS = 65536
 CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
 FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
@@ -145,7 +156,19 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def discontinuity_mask(ref_img, thr=1e-3, dilate=1):
+def dilate(g, n):
+    """An (H, W) mask grown n times by its 4-neighbours."""
+    for _ in range(n):
+        g2 = g.copy()
+        g2[1:, :] |= g[:-1, :]
+        g2[:-1, :] |= g[1:, :]
+        g2[:, 1:] |= g[:, :-1]
+        g2[:, :-1] |= g[:, 1:]
+        g = g2
+    return g
+
+
+def discontinuity_mask(ref_img, thr=1e-3):
     """Pixels adjacent to a local jump in the reference image (the same
     mask as tests/test_device_renderer.py discontinuity_mask)."""
     v = ref_img if ref_img.ndim == 2 else np.linalg.norm(ref_img, axis=-1)
@@ -157,17 +180,10 @@ def discontinuity_mask(ref_img, thr=1e-3, dilate=1):
     g[:, :-1] |= dx
     g[1:, :] |= dy
     g[:-1, :] |= dy
-    for _ in range(dilate):
-        g2 = g.copy()
-        g2[1:, :] |= g[:-1, :]
-        g2[:-1, :] |= g[1:, :]
-        g2[:, 1:] |= g[:, :-1]
-        g2[:, :-1] |= g[:, 1:]
-        g = g2
-    return g
+    return dilate(g, 1)
 
 
-def code_edges(codes_img, dilate=1):
+def code_edges(codes_img):
     """Pixels next to a change of any topology code row between
     neighbours, in an (H, W, K) code image: where a winner, an occlusion
     flag or a march occluder changes, float rounding may flip it."""
@@ -178,14 +194,14 @@ def code_edges(codes_img, dilate=1):
     g[:, :-1] |= dx
     g[1:, :] |= dy
     g[:-1, :] |= dy
-    for _ in range(dilate):
-        g2 = g.copy()
-        g2[1:, :] |= g[:-1, :]
-        g2[:-1, :] |= g[1:, :]
-        g2[:, 1:] |= g[:, :-1]
-        g2[:, :-1] |= g[:, 1:]
-        g = g2
-    return g
+    return dilate(g, 1)
+
+
+def mismatch(a, b):
+    """(H, W) pixels of two (H, W[, 3]) images outside isclose(atol=ATOL)
+    (misses on both sides agree)."""
+    ok = np.isclose(a, b, atol=ATOL) | (np.isinf(a) & np.isinf(b))
+    return ~ok.reshape(a.shape[0], a.shape[1], -1).all(-1)
 
 
 def gate(base, out, extra_edges=None):
@@ -195,8 +211,7 @@ def gate(base, out, extra_edges=None):
     discontinuity mask."""
     stats = {}
     for name, a, b in zip(("color", "depth", "normal"), base, out):
-        ok = np.isclose(a, b, atol=ATOL) | (np.isinf(a) & np.isinf(b))
-        bad = ~ok.reshape(a.shape[0], a.shape[1], -1).all(-1)
+        bad = mismatch(a, b)
         edges = discontinuity_mask(a)
         if extra_edges is not None:
             edges = edges | extra_edges
@@ -652,15 +667,248 @@ def subdivided_knife_edges(m, soa_1k, prepared, codes_1k, inverse):
     return rays_to_pixels(soa, inverse, differ)
 
 
+def knife_parity(m, label, prepared, knife, watch):
+    """K3 against the plain version on the rays that `knife` exempts from
+    the big-frame gate, under the forward gate (10 % edge budget): both run
+    on those rays and on the pixels within two steps of them, so the plain
+    image's discontinuity mask is exact at every exempt pixel. Each
+    `watch` pixel (a color mismatch against the 1k frame off the 1k
+    frame's mask) gets a line. Returns the largest |error| off the mask
+    and off the knife-edge rays, as check_parity leaves out edges."""
+    soa = prepared.soa
+    if not knife.any():
+        phase("big-frame", f"{label}: no exempt rays")
+        return 0.0
+    ys, xs = np.nonzero(dilate(knife, 2))
+    o, d = m.camera_rays(soa, torch.from_numpy(xs).cuda(),
+                         torch.from_numpy(ys).cuda())
+    before = m.fused.BIG_LAUNCHES
+    kern = m.fused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 5,
+                                     tables=prepared.tables)
+    torch.cuda.synchronize()
+    if m.fused.BIG_LAUNCHES != before + 1:
+        raise AssertionError(f"{label}: K3 was not launched")
+    plain = m.fused.fused_render_rays_plain(soa, prepared.accel, o, d, 1e-3,
+                                            5)
+    stats, imgs, off = {}, {}, np.zeros(knife.shape, bool)
+    for name, a, b in zip(("color", "depth", "normal"), plain, kern):
+        pair = []
+        for x in (a, b):
+            x = x.cpu().numpy()
+            img = np.full(knife.shape + x.shape[1:], np.nan, np.float32)
+            img[ys, xs] = x
+            pair.append(img)
+        bad = mismatch(*pair) & knife
+        edges = discontinuity_mask(pair[0]) & knife
+        both = np.isfinite(pair[0]) & np.isfinite(pair[1])
+        with np.errstate(invalid="ignore"):
+            err = np.where(both, np.abs(pair[0] - pair[1]), 0.0)
+        err = err.reshape(knife.shape + (-1,)).max(-1)
+        stats[name] = (int((bad & ~edges).sum()), int((bad & edges).sum()),
+                       int(edges.sum()),
+                       float(err[knife & ~edges].max(initial=0.0)))
+        imgs[name] = (err, edges)
+        off |= bad & ~edges
+    phase("big-frame", f"{label}: K3 vs plain on the {int(knife.sum())} "
+          f"exempt rays ({ys.size} rays with their neighbours): " + " ".join(
+              f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]} maxerr {v[3]:.2e}"
+              for k, v in stats.items()))
+    err, edges = imgs["color"]
+    for y, x in watch:
+        phase("big-frame", f"{label}: pixel ({y}, {x}), a color mismatch "
+              f"against the 1k frame: exempt {bool(knife[y, x])}, on the "
+              f"plain image's mask {bool(edges[y, x])}, K3 vs plain color "
+              f"|error| {float(err[y, x]):.2e}")
+    # an off-edge disagreement passes only on a knife-edge ray: one where
+    # either version, the ray turned by at most KNIFE_TURNS[-1], reaches
+    # the other's answer (a hit within the slot test's rounding of a
+    # shared edge, which one version's rounding sees through)
+    pixels = np.argwhere(off)
+    if len(pixels):
+        at = {(y, x): i for i, (y, x) in enumerate(zip(ys, xs))}
+        rows = torch.tensor([at[(y, x)] for y, x in pixels],
+                            device=o.device)
+        o_, d_ = o[rows], d[rows]
+        turns = knife_turns(m, prepared, o_, d_, [x[rows] for x in kern],
+                            [x[rows] for x in plain])
+        *_, k_codes = m.fused.fused_render_rays(
+            soa, prepared.accel, o_, d_, 1e-3, 5, emit_topo=True,
+            tables=prepared.tables)
+        p_codes = m.fused.emit_topo_plain(soa, prepared.accel, o_, d_, 1e-3,
+                                          5)
+        for j, ((y, x), turn) in enumerate(zip(pixels, turns)):
+            differ = torch.nonzero(k_codes[j] != p_codes[j])[:, 0].tolist()
+            phase("big-frame", f"{label}: pixel ({y}, {x}) off the mask: "
+                  f"code rows {differ} differ from the plain emitter's; "
+                  f"the two versions reach each other's answer at a turn "
+                  f"of {turn} rad (None: not up to {KNIFE_TURNS[-1]}); "
+                  + (probe_split(m, prepared, o_[j:j + 1], d_[j:j + 1],
+                                 differ[0]) if differ else "same path"))
+        if None in turns or len(turns) > EDGE_BUDGET_SUBDIVIDED * knife.sum():
+            raise AssertionError(f"{label}: K3 departs from the plain "
+                                 f"version off the mask on the exempt rays")
+    for k, (_, on, n_edges, _) in stats.items():
+        if on > EDGE_BUDGET_SUBDIVIDED * max(n_edges, 1):
+            raise AssertionError(f"{label} {k}: K3 departs from the plain "
+                                 f"version on the exempt rays' edges")
+    return max(float(err[knife & ~edges & ~off].max(initial=0.0))
+               for err, edges in (imgs["color"], imgs["normal"]))
+
+
+def probe_split(m, prepared, o, d, row):
+    """Where K3 and the plain emitter first split at a cast row of a
+    chain (reflections only), walk the plain path to that node and ask K4
+    (the slot test and cull K3 shares) for the node ray's nearest triangle
+    over all clusters, and over the plain winner's cluster alone behind an
+    unbounded box (the slot test alone); with the plain winner's smallest
+    barycentric coordinate in float64. Returns a line."""
+    soa, accel = prepared.soa, prepared.accel
+    _, nodes = m.rp.topo_layout(5, soa.any_reflective, soa.any_transparent,
+                                soa.n_lights, soa.shadow_steps)
+    cast_rows = [cr for _, cr, _ in nodes]
+    if soa.any_transparent or row not in cast_rows:
+        return f"row {row} is not a cast row of a chain"
+    tc = m.bvh.dense_candidates_fn(accel)
+    for _ in range(cast_rows.index(row)):
+        hit = m.I.ray_cast(soa, o, d, 1e-3, tc, need_uv=False)
+        o = o + hit.t[:, None] * d
+        d = m.sh._reflect(m.sh._normalize(d), m.sh._normalize(hit.normal))
+    want = int(m.I.ray_cast(soa, o, d, 1e-3, tc, need_uv=False).prim[0])
+    if not 0 <= want < soa.tri_p1.shape[0]:
+        return f"node {cast_rows.index(row)}: the plain winner {want} " \
+               f"is not a triangle"
+    p1, p2, p3 = (x[want].double() for x in (soa.tri_p1, soa.tri_p2,
+                                              soa.tri_p3))
+    e1, e2, s0 = p2 - p1, p3 - p1, o[0].double() - p1
+    h = torch.linalg.cross(d[0].double(), e2)
+    q = torch.linalg.cross(s0, e1)
+    a = (e1 * h).sum()
+    u, v = float((s0 * h).sum() / a), float((d[0].double() * q).sum() / a)
+    oc = (o - soa.scene_center).contiguous()
+    d = d.contiguous()
+    md = torch.full((1,), 1e-3, device=o.device)
+    _, every = m.pc.cast_clusters(prepared.tables, oc, d, md)
+    mi = int(torch.nonzero(accel.order == want)[0, 0])
+    box = torch.tensor([[-1e30] * 3 + [1e30] * 3 + [0.0, 0.0]],
+                       device=o.device)
+    alone = m.pc.ClusterTables(
+        tri=prepared.tables.tri[mi:mi + 1].contiguous(), aabb=box,
+        groups=box)
+    _, one = m.pc.cast_clusters(alone, oc, d, md)
+    return (f"node {cast_rows.index(row)}: the plain winner is triangle "
+            f"{want} (smallest barycentric {min(u, v, 1 - u - v):.2e} in "
+            f"float64); K4 finds {int(every[0])} over all clusters and "
+            f"{int(one[0])} over cluster {mi} alone, unbounded")
+
+
+def rays_close(a, b):
+    """(R,) rays whose (color, depth, normal) agree under isclose(atol=
+    ATOL), misses on both sides agreeing."""
+    ok = torch.ones(a[0].shape[0], dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        close = torch.isclose(x, y, rtol=1e-5, atol=ATOL) | (
+            torch.isinf(x) & torch.isinf(y))
+        ok &= close.reshape(close.shape[0], -1).all(1)
+    return ok
+
+
+def knife_turns(m, prepared, o, d, kern, plain):
+    """Per ray, the smallest turn in KNIFE_TURNS (radians; four ways round
+    the ray) at which one version's (color, depth, normal) reaches the
+    other's on the unturned ray: the plain version turned reaching `kern`,
+    or K3 turned reaching `plain`; None if neither does."""
+    n = o.shape[0]
+    axis = torch.zeros_like(d)
+    axis[:, 0] = (d[:, 0].abs() < 0.9).float()
+    axis[:, 1] = 1.0 - axis[:, 0]
+    u = torch.nn.functional.normalize(torch.linalg.cross(d, axis), dim=1)
+    v = torch.linalg.cross(d, u)
+    dirs = torch.cat([torch.nn.functional.normalize(d + eps * w, dim=1)
+                      for eps in KNIFE_TURNS for w in (u, -u, v, -v)])
+    k = dirs.shape[0] // n
+    o_k = o.repeat(k, 1)
+    turned_plain = m.fused.fused_render_rays_plain(
+        prepared.soa, prepared.accel, o_k, dirs, 1e-3, 5)
+    turned_kern = m.fused.fused_render_rays(
+        prepared.soa, prepared.accel, o_k, dirs, 1e-3, 5,
+        tables=prepared.tables)
+
+    def repeat(xs):
+        return [x.repeat(k, *[1] * (x.dim() - 1)) for x in xs]
+
+    hit = (rays_close(turned_plain, repeat(kern))
+           | rays_close(turned_kern, repeat(plain)))
+    hit = hit.reshape(len(KNIFE_TURNS), 4, n).any(1)
+    return [next((t for t, h in zip(KNIFE_TURNS, hit[:, j].tolist()) if h),
+                 None) for j in range(n)]
+
+
+def big_frame_gate(m, label, small, codes_1k, inverse, base_np, prepared,
+                   frame, rec):
+    """The subdivided bunny's frame through K3 against the 1k bunny's
+    through K1 (the surface is the same): zero mismatches off the 1k
+    frame's discontinuities and the rays that take another path (at most
+    0.1 % of rays), at most 10 % of edge pixels; K3 against the plain
+    version on those exempt rays (knife_parity)."""
+    knife = subdivided_knife_edges(m, small.soa, prepared, codes_1k, inverse)
+    frame_np = [x.cpu().numpy() for x in frame]
+    plain_mask = gate(base_np, frame_np)
+    stats = gate(base_np, frame_np, knife)
+    phase("big-frame", f"{label} (K3) vs bunny/1k (K1): "
+          f"{int(knife.sum())} rays take another path (codes differ from "
+          f"the 1k frame's, triangles mapped to their 1k parents); "
+          + " ".join(f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]} (color mask "
+                     f"alone: off-edge {plain_mask[k][0]})"
+                     for k, v in stats.items()))
+    watch = np.argwhere(mismatch(base_np[0], frame_np[0])
+                        & ~discontinuity_mask(base_np[0]))
+    if knife.sum() > KNIFE_RAY_BUDGET * knife.size:
+        raise AssertionError(f"big-frame {label}: {int(knife.sum())} rays "
+                             f"take another path")
+    rec["big_err"] = max(rec.get("big_err", 0.0),
+                         knife_parity(m, label, prepared, knife, watch))
+    for k, (off, on, n_edges, _) in stats.items():
+        if off or on > EDGE_BUDGET_SUBDIVIDED * max(n_edges, 1):
+            raise AssertionError(f"big-frame {label} {k}: the subdivided "
+                                 f"frame departs from the 1k frame")
+
+
+def big_parity_1m(m, prepared, rec):
+    """K3 against the plain version on the 1M bunny (C=512, M=2048) at
+    BIG_PARITY_1M b5, the bigscene scene's camera at that size, under the
+    forward gate with the 10 % edge budget."""
+    w, h = BIG_PARITY_1M
+    soa = dataclasses.replace(prepared.soa, width=w, height=h)
+    accel = prepared.accel
+    o, d, inverse = m.block_rays(soa)
+    before = m.fused.BIG_LAUNCHES
+    kern = m.fused.fused_render_rays(soa, accel, o, d, 1e-3, 5,
+                                     tables=prepared.tables)
+    torch.cuda.synchronize()
+    if m.fused.BIG_LAUNCHES != before + 1:
+        raise AssertionError("1M parity: K3 was not launched")
+    t1 = time.perf_counter()
+    plain = m.fused.fused_render_rays_plain(soa, accel, o, d, 1e-3, 5)
+    torch.cuda.synchronize()
+    rec["big1m_plain_ms"] = (time.perf_counter() - t1) * 1e3
+    mm, c = accel.order.shape
+    err = check_parity(f"bunny/{soa.tri_p1.shape[0] // 1000}k {w}x{h} b5 "
+                       f"M={mm} C={c}", soa, inverse, kern, plain, m.to_image,
+                       edge_budget=EDGE_BUDGET_SUBDIVIDED)
+    rec["big_err"] = max(rec.get("big_err", 0.0), err)
+    phase("big-frame", f"1M K3 vs plain at {w}x{h} b5: plain "
+          f"{rec['big1m_plain_ms']:.0f} ms")
+
+
 def phase_big_frame(m, smi, rec, launches):
-    """The 256k bunny through K3 against the 1000-triangle bunny through
-    K1 at 960x540 b5 (the surface is the same), then bigscene rows with
-    K3's kernel time, bound and launches per level."""
+    """bigscene rows with K3's kernel time, bound and launches per level;
+    the 256k and 1M frames (K3) held against the 1000-triangle bunny's
+    (K1) at 960x540 b5, and K3 against the plain version at 1M."""
     t0 = time.perf_counter()
     sc = m.load_scene(m.scenes / "bunny.json")
     sc.camera.width, sc.camera.height = 960, 540
     small = m.prepare(sc, accel="fused", device="cuda", bounces=5)
-    base = m.render(small, bounces=5)
+    base_np = [x.cpu().numpy() for x in m.render(small, bounces=5)]
     # the 1k frame's topology codes, to find the rays that took another
     # path through the subdivided scene
     o, d, inverse = m.block_rays(small.soa)
@@ -670,10 +918,10 @@ def phase_big_frame(m, smi, rec, launches):
     del o, d
     rows = []
     for levels in BIG_ROWS:
-        m.reset(m)
+        m.reset()
         row, prepared, frame = m.bigscene.run(levels, 960, 540, 5, 3,
                                               "cuda")
-        counts = m.read(m)
+        counts = m.read()
         if counts["fused_forward_big"] < 4:
             raise AssertionError(f"bigscene level {levels} missed K3: "
                                  f"{counts}")
@@ -682,26 +930,11 @@ def phase_big_frame(m, smi, rec, launches):
                  f"M={row['clusters']} C={row['cluster_size']}")
         if levels == 4:
             launches["big_frame"] = counts
-            knife = subdivided_knife_edges(m, small.soa, prepared, codes_1k,
-                                           inverse)
-            base_np = [x.cpu().numpy() for x in base]
-            frame_np = [x.cpu().numpy() for x in frame]
-            plain_mask = gate(base_np, frame_np)
-            stats = gate(base_np, frame_np, knife)
-            phase("big-frame", f"{label} (K3) vs bunny/1k (K1): "
-                  f"{int(knife.sum())} rays take another path (codes "
-                  f"differ from the 1k frame's, triangles mapped to their "
-                  f"1k parents); " + " ".join(
-                      f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]} (color mask "
-                      f"alone: off-edge {plain_mask[k][0]})"
-                      for k, v in stats.items()))
-            if knife.sum() > KNIFE_RAY_BUDGET * knife.size:
-                raise AssertionError(f"big-frame: {int(knife.sum())} rays "
-                                     f"take another path")
-            for k, (off, on, n_edges, _) in stats.items():
-                if off or on > EDGE_BUDGET_SUBDIVIDED * max(n_edges, 1):
-                    raise AssertionError(f"big-frame {k}: the 256k frame "
-                                         f"departs from the 1k frame")
+        if levels in BIG_FRAME_GATED:
+            big_frame_gate(m, label, small, codes_1k, inverse, base_np,
+                           prepared, frame, rec)
+        if levels == 5:
+            big_parity_1m(m, prepared, rec)
         o, d, _ = m.block_rays(soa)
         fn = lambda: m.fused.fused_render_rays(  # noqa: E731
             soa, accel, o, d, 1e-3, 5, tables=prepared.tables)
@@ -713,8 +946,6 @@ def phase_big_frame(m, smi, rec, launches):
         row["bound_ms"], row["bound_by"] = forward_bound(
             soa, accel, prepared.tables, o.shape[0], tally, 0)
         row["launches"] = counts["fused_forward_big"]
-        if levels == 4:
-            rec["big_frame_ms"] = row["kernel_ms"]
         rows.append(row)
         print("bigscene " + json.dumps(row), flush=True)
         del prepared, frame, o, d
@@ -728,10 +959,10 @@ def phase_big_grad(m, prepared, smi, rec, launches):
     codes and K2; s/step and its parts."""
     t0 = time.perf_counter()
     step, params = grad_step_fn(prepared, 5, m.tgrad)
-    m.reset(m)
+    m.reset()
     loss = step().detach()
     torch.cuda.synchronize()
-    launches["big_grad"] = m.read(m)
+    launches["big_grad"] = m.read()
     if len(params) != 19:
         raise AssertionError(f"{len(params)} parameter groups, not 19")
     for k, p in params.items():
@@ -782,12 +1013,14 @@ def cast_case(m, label, tables, o, d):
     diff = (t_k - t_p).abs()
     if not bool(torch.equal(torch.isinf(t_k[same]), torch.isinf(t_p[same]))):
         raise AssertionError(f"cast {label}: misses differ")
+    scale = t_p.abs() + o.norm(dim=1)
     rel = hit & (diff > 1e-5 * t_p.abs())
-    over = rel & (diff > 1e-5 * (t_p.abs() + o.norm(dim=1)))
+    over = rel & (diff > 1e-5 * scale)
     phase("cast", f"{label}: {o.shape[0]} rays, {int(hit.sum())} hits, "
           f"knife edges {int(knife.sum())}, t past rtol 1e-5 "
           f"{int(rel.sum())}, past the gate {int(over.sum())}, max |dt| "
-          f"{float(diff[hit].max()):.3e}")
+          f"{float(diff[hit].max()):.3e}, max |dt| / (t + |o - o0|) "
+          f"{float((diff[hit] / scale[hit]).max()):.3e} (gate 1e-5)")
     if bool(over.any()):
         raise AssertionError(f"cast {label}: t differs past the gate")
     return float(diff[hit].max())
@@ -845,12 +1078,12 @@ def phase_pallas(m, smi, rec, launches):
     render at 480x270 b5 against the plain dense cast."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        m.reset(m)
+        m.reset()
         buf = io.StringIO()
         with redirect_stdout(buf):
             rc = m.cli.main([str(m.scenes / "bunny.json"), "--accel",
                              "pallas", "--out", tmp])
-        launches["pallas"] = m.read(m)
+        launches["pallas"] = m.read()
         text = buf.getvalue()
         if rc != 0:
             raise AssertionError(f"cli.main --accel pallas returned {rc}")
@@ -900,9 +1133,9 @@ def phase_fallback(m, smi, rec):
     sc = transparent_bunny(m, 160, 90)
     prepared = m.prepare(sc, accel="fused", device="cuda", bounces=6)
     soa = prepared.soa
-    m.reset(m)
+    m.reset()
     kern = m.render(prepared, bounces=6)
-    counts = m.read(m)
+    counts = m.read()
     if counts["cluster_cast"] < 1 or counts["fused_forward"]:
         raise AssertionError(f"b6 fallback launches {counts}")
     plain = m.render(soa, bounces=6)
@@ -924,11 +1157,11 @@ def phase_fallback(m, smi, rec):
     target = 0.9 * c0
     params = {k: v.detach().clone().requires_grad_()
               for k, v in m.tgrad.extract_params(soa).items()}
-    m.reset(m)
+    m.reset()
     loss = m.tgrad.render_loss(params, soa, target, 5, 1e-3, prepared.accel)
     loss.backward()
     torch.cuda.synchronize()
-    counts = m.read(m)
+    counts = m.read()
     if (counts["fused_forward"] < 1 or counts["cluster_cast"] < 1
             or counts["fused_forward_topo"] or counts["replay_vjp"]):
         raise AssertionError(f"composable backward launches {counts}")
@@ -982,11 +1215,13 @@ def main(argv=None) -> int:
     from cutrace_tpu_torch import bigscene, cli, load_scene
     from cutrace_tpu_torch.diff import checkpoint as ckpt
     from cutrace_tpu_torch.diff import grad as tgrad
-    from cutrace_tpu_torch.ops import _build, fused
+    from cutrace_tpu_torch.ops import _build, bvh, fused
+    from cutrace_tpu_torch.ops import intersect
     from cutrace_tpu_torch.ops import pallas_cast as pc
     from cutrace_tpu_torch.ops import replay as rp
     from cutrace_tpu_torch.ops import replay_vjp as rv
     from cutrace_tpu_torch.parallel.train import fit
+    from cutrace_tpu_torch.render import shading
     from cutrace_tpu_torch.render.renderer import (to_image, block_rays,
                                                    camera_rays, prepare,
                                                    render, render_rays)
@@ -999,11 +1234,12 @@ def main(argv=None) -> int:
     rec = {}
     m = types.SimpleNamespace(
         bigscene=bigscene, cli=cli, load_scene=load_scene, tgrad=tgrad,
-        fused=fused, pc=pc, rp=rp, rv=rv, to_image=to_image,
+        fused=fused, pc=pc, rp=rp, rv=rv, bvh=bvh, I=intersect, sh=shading,
+        to_image=to_image,
         block_rays=block_rays, camera_rays=camera_rays, prepare=prepare,
         render=render, render_rays=render_rays, scenes=scenes,
-        reset=lambda _: reset_launches(fused, rv, pc),
-        read=lambda _: read_launches(fused, rv, pc))
+        reset=lambda: reset_launches(fused, rv, pc),
+        read=lambda: read_launches(fused, rv, pc))
     t_start = time.perf_counter()
 
     # 1. probe

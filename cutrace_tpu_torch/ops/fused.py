@@ -79,19 +79,24 @@ def n_wave_nodes(bounces, any_refl, any_transp):
     return 1
 
 
+def tree_in_scope(soa, bounces: int) -> bool:
+    """Is the scene's bounce tree at most MAX_NODES nodes?"""
+    return n_wave_nodes(bounces, soa.any_reflective,
+                        soa.any_transparent) <= MAX_NODES
+
+
 def fused_supported(soa, accel, bounces: int) -> bool:
     """Do the fused kernels render this call: a "fused" partition (of any
-    size) and a bounce tree of at most MAX_NODES nodes?"""
+    size) and a bounce tree in their scope?"""
     return (accel is not None and accel.kind == "fused"
-            and n_wave_nodes(bounces, soa.any_reflective,
-                             soa.any_transparent) <= MAX_NODES)
+            and tree_in_scope(soa, bounces))
 
 
 def check_scope(soa, accel, bounces):
     """Raise NotImplementedError for a bounce tree of more than MAX_NODES
     nodes, which the kernels do not cover."""
-    nodes = n_wave_nodes(bounces, soa.any_reflective, soa.any_transparent)
-    if nodes > MAX_NODES:
+    if not tree_in_scope(soa, bounces):
+        nodes = n_wave_nodes(bounces, soa.any_reflective, soa.any_transparent)
         raise NotImplementedError(
             f"a {nodes}-node bounce tree: the fused kernels cover at most "
             f"{MAX_NODES} nodes; render and the gradient take the "
@@ -104,14 +109,12 @@ def check_scope(soa, accel, bounces):
 
 
 @dataclasses.dataclass(frozen=True)
-class KernelTables:
-    """The kernels' scene operands: contiguous float32 tensors on the
-    scene's device, positions recentered by the scene center. The first
-    three are the partition's ops.pallas_cast.ClusterTables."""
+class KernelTables(pc.ClusterTables):
+    """The kernels' scene operands: the partition's ClusterTables (slot
+    rows, cluster and group boxes) and the rows below, contiguous float32
+    tensors on the scene's device, positions recentered by the scene
+    center."""
 
-    tri: torch.Tensor  # (M, C, 24) per-slot rows
-    aabb: torch.Tensor  # (M, 8) cluster boxes
-    groups: torch.Tensor  # (ceil(M / bvh.GROUP), 8) group boxes
     plane: torch.Tensor  # (P, _PS_ROWS)
     sphere: torch.Tensor  # (S, _PS_ROWS)
     mat: torch.Tensor  # (n_mats, 8): color rgb, spec, refl, phong, transp, 0
@@ -168,8 +171,7 @@ def kernel_tables(soa, accel) -> KernelTables:
         torch.zeros_like(soa.mat_specular),
     ], dim=1)
     return KernelTables(
-        tri=cl.tri, aabb=cl.aabb, groups=cl.groups, plane=plane,
-        sphere=sphere, mat=mat,
+        **vars(cl), plane=plane, sphere=sphere, mat=mat,
         lights=_light_table(soa, o0).contiguous(),
         ambient=soa.ambient.reshape(1).to(f32).contiguous(),
     )
@@ -289,8 +291,7 @@ def replay_supported(soa, accel, bounces: int, n_rays: int = 0) -> bool:
     (of any size) and a tree inside the kernels' scope, at most
     REPLAY_MAX_ROWS topo rows, and a code buffer of at most
     REPLAY_MAX_CODE_BYTES for `n_rays`?"""
-    if accel is None or n_wave_nodes(bounces, soa.any_reflective,
-                                     soa.any_transparent) > MAX_NODES:
+    if accel is None or not tree_in_scope(soa, bounces):
         return False
     rows = rp.replay_rows(soa, bounces)
     if rows > rp.REPLAY_MAX_ROWS:

@@ -111,7 +111,7 @@ def cluster_tables(soa, accel) -> ClusterTables:
 @torch.no_grad()
 def cast_clusters_plain(tables, o, d, min_dist):
     """The plain version of the kernel: the dense cast over every slot of
-    `tables` (a ClusterTables or ops.fused.KernelTables), with the JAX
+    `tables` (a ClusterTables, such as ops.fused.KernelTables), with the JAX
     kernel's arithmetic, in ray batches of about 2^22 (ray, slot) pairs.
     o is recentered (o - o0). Returns (t (R,), order (R,) int32)."""
     tri = tables.tri.reshape(-1, _TRI_ROWS)
@@ -209,7 +209,7 @@ def cast_clusters(tables, o, d, min_dist, tally=None):
 
 def pallas_candidates(soa, accel, o, d, min_dist, o0, tables=None):
     """ray_cast triangle query backed by the culling cast over `accel`.
-    `tables` (the partition's ClusterTables or KernelTables) are built
+    `tables` (the partition's ClusterTables, or KernelTables) are built
     from the live leaves when None. The kernel picks only the winner's
     original index; its vertices are then gathered from soa.tri_p1/p2/p3
     and t re-derived differentiably, so gradients reach the vertices as in

@@ -6,9 +6,10 @@ tests run it) and against the port's plain composable path.
 
 The CUDA kernel K4 runs only on the card; chip_smoke.py holds it against
 cast_clusters_plain there. Gates: winner order equal and t within 1e-6
-of its cancelling terms' scale, over the hit's cosine, for the query; tests/test_fused.py's _compare (atol
-2e-4) for renders; relative error below 2e-4 per parameter group for
-gradients (tests/test_torch_grad.py's gate)."""
+of its cancelling terms' scale, over the hit's cosine floored at 0.1, for
+the query; tests/test_fused.py's _compare (atol 2e-4) for renders;
+relative error below 2e-4 per parameter group for gradients
+(tests/test_torch_grad.py's gate)."""
 
 import dataclasses
 
@@ -89,9 +90,12 @@ def test_cast_clusters_matches_jax(scenes_dir, cluster_size):
     assert 50 < hits.sum() < 700
     assert np.isinf(t.numpy()[~hits]).all()
     # t within 1e-6 of the scale of its cancelling terms, t + |o - o0|,
-    # over the hit's |cos| to the triangle's normal: in t = (k - o.n) /
-    # (d.n) both quotients cancel, near the surface and at grazing hits,
-    # and there the two frameworks' rounding grows by those factors
+    # over the hit's |cos| to the triangle's normal floored at 0.1: in
+    # t = (k - o.n) / (d.n) both quotients cancel, near the surface and at
+    # grazing hits, and there the two frameworks' rounding grows by those
+    # factors. Here |dt| max(|cos|, 0.1) / (t + |o - o0|) reads at most
+    # 1.6e-7 (C=8; 8.5e-8 at C=64); without the cosine it reaches 1.6e-6
+    # at a grazing hit
     rows = tables.tri.reshape(-1, tpc._TRI_ROWS)[tables.tri.reshape(
         -1, tpc._TRI_ROWS)[:, 17] > 0]
     normal = torch.zeros((ts.tri_p1.shape[0], 3))
@@ -101,7 +105,12 @@ def test_cast_clusters_matches_jax(scenes_dir, cluster_size):
                                         .long()]).sum(1).abs().numpy()
     got, want = t.numpy()[hits], np.asarray(want_t)[hits]
     scale = want + np.linalg.norm(o - np.asarray(o0), axis=1)[hits]
-    assert (np.abs(got - want) * cos[hits] <= 1e-6 * scale).all()
+    dt = np.abs(got - want)
+    reading = dt * np.maximum(cos[hits], 0.1) / scale
+    print(f"C={cluster_size}: max |dt| {dt.max():.2e}, max |dt| "
+          f"max(|cos|, 0.1) / (t + |o - o0|) {reading.max():.2e}, without "
+          f"the cosine {(dt / scale).max():.2e}")
+    assert (reading <= 1e-6).all()
     assert np.median(np.abs(got - want) / want) < 1e-7
 
 
