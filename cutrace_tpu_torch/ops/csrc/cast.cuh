@@ -8,6 +8,9 @@
 //   alpha = d.n   beta = (d.ub - w.b)/alpha   gamma = (w.a - d.ug)/alpha
 //   t = (k - o.n)/alpha                       with w = d x o.
 // The nearest triangle is the (t, original index) lexicographic minimum.
+// A slot test reads the slot's first kSlotRead rows as five 16-byte
+// vector loads (a 96-byte slot row starts on a 16-byte boundary of a
+// torch allocation), a box test its row as two.
 //
 // The cluster loops cull with a per-ray slab test against the ray's best t
 // so far (ties kept with <=). The flat loop tests every cluster box. The
@@ -27,6 +30,7 @@
 namespace cutrace {
 
 constexpr int kTriRows = 24;    // floats per triangle slot
+constexpr int kSlotRead = 20;   // rows a slot test reads: five float4s
 constexpr int kPsRows = 12;     // floats per plane / sphere row
 constexpr int kAabbRows = 8;    // floats per cluster or group box row
 constexpr int kGroup = 32;      // clusters per group box (ops/bvh.py GROUP)
@@ -57,17 +61,21 @@ struct Tally {
   unsigned long long casts = 0, visits = 0, slabs = 0;
 };
 
-// Slab entry of a ray against one box (rows bmin xyz, bmax xyz). A NaN
-// (0 * inf) bound makes that axis unbounded.
+// Slab entry of a ray against one box (rows bmin xyz, bmax xyz, read as
+// two float4s). A NaN (0 * inf) bound makes that axis unbounded.
 __device__ __forceinline__ bool slab(const float* box, V3 o, V3 inv,
                                      float* entry) {
+  const float4 b0 = reinterpret_cast<const float4*>(box)[0];
+  const float4 b1 = reinterpret_cast<const float4*>(box)[1];
+  const float bl[3] = {b0.x, b0.y, b0.z};
+  const float bh[3] = {b0.w, b1.x, b1.y};
   float lo[3], hi[3];
   const float oc[3] = {o.x, o.y, o.z};
   const float ic[3] = {inv.x, inv.y, inv.z};
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float t1 = (box[a] - oc[a]) * ic[a];
-    float t2 = (box[3 + a] - oc[a]) * ic[a];
+    float t1 = (bl[a] - oc[a]) * ic[a];
+    float t2 = (bh[a] - oc[a]) * ic[a];
     if (isnan(t1) || isnan(t2)) {
       lo[a] = 0.0f;
       hi[a] = INFINITY;
@@ -82,9 +90,24 @@ __device__ __forceinline__ bool slab(const float* box, V3 o, V3 inv,
   return tmn <= tmx;
 }
 
-// Triangle t for one slot, or +inf when the ray misses it (w = d x o).
-__device__ __forceinline__ float tri_t(const float* s, V3 o, V3 d, V3 w,
-                                       float mind) {
+// The first kSlotRead rows of one slot, as float4 loads.
+__device__ __forceinline__ void load_slot(const float* s,
+                                          float (&r)[kSlotRead]) {
+  const float4* q = reinterpret_cast<const float4*>(s);
+#pragma unroll
+  for (int j = 0; j < kSlotRead / 4; ++j) {
+    const float4 v = q[j];
+    r[4 * j] = v.x;
+    r[4 * j + 1] = v.y;
+    r[4 * j + 2] = v.z;
+    r[4 * j + 3] = v.w;
+  }
+}
+
+// Triangle t for one slot's rows, or +inf when the ray misses it
+// (w = d x o).
+__device__ __forceinline__ float tri_t(const float (&s)[kSlotRead], V3 o,
+                                       V3 d, V3 w, float mind) {
   if (!(s[T_VALID] > 0.0f)) return INFINITY;
   float alpha = d.x * s[T_N] + d.y * s[T_N + 1] + d.z * s[T_N + 2];
   float beta_n = (d.x * s[T_UB] + d.y * s[T_UB + 1] + d.z * s[T_UB + 2]) -
@@ -152,9 +175,11 @@ __device__ __forceinline__ void visit_nearest(const Clusters& cl, int mi,
                                               TriWinner& b) {
   const float* slot = cl.tri + (size_t)mi * cl.c * kTriRows;
   for (int ci = 0; ci < cl.c; ++ci, slot += kTriRows) {
-    float t = tri_t(slot, o, d, w, mind);
+    float r[kSlotRead];
+    load_slot(slot, r);
+    float t = tri_t(r, o, d, w, mind);
     if (!isfinite(t)) continue;
-    float key = slot[T_ORDER];
+    float key = r[T_ORDER];
     if (t < b.t || (t == b.t && key < b.key)) {
       b.t = t;
       b.key = key;
@@ -226,8 +251,11 @@ __device__ __forceinline__ bool any_triangle_before(const Clusters& cl,
         continue;
       tl.visits += 1;
       const float* slot = cl.tri + (size_t)mi * cl.c * kTriRows;
-      for (int ci = 0; ci < cl.c; ++ci, slot += kTriRows)
-        if (tri_t(slot, o, d, w, mind) < ldist) return true;
+      for (int ci = 0; ci < cl.c; ++ci, slot += kTriRows) {
+        float r[kSlotRead];
+        load_slot(slot, r);
+        if (tri_t(r, o, d, w, mind) < ldist) return true;
+      }
     }
   }
   return false;
