@@ -11,13 +11,20 @@ line) if any phase fails:
              sm_90a, one nvcc per source, all started together
   3. parity  the forward kernel against its plain PyTorch version, same
              rays on the same card: triangle 20x20 b5, bunny / mirror /
-             sphere_plane 480x270 b5. Gate (tests/test_fused.py
-             _compare): np.isclose(atol=2e-4), no mismatch off the
-             reference image's discontinuities, at most 5 % of edge pixels
+             sphere_plane 480x270 b5 (K1's shared-memory instance). Gate
+             (tests/test_fused.py _compare): np.isclose(atol=2e-4), no
+             mismatch off the reference image's discontinuities, at most
+             5 % of edge pixels. Then the 4k subdivided bunny (C=128,
+             M=32, 393 KB of tables) at 480x270 b5: rendered with the
+             launch counts reset just before (K1's global-memory instance
+             must run), and that instance against the plain version under
+             the gate with the 10 % edge budget of subdivided meshes
   4. timing  bunny 1920x1080 b5 frame through the kernel and through the
              plain version, CUDA events, in turns plain, kernel, plain;
              the first call of each is held to the parity gate at that
-             size too
+             size too; K1's global-memory instance on the same rays (the
+             size rule overridden for that timing alone) between two
+             timings of the shared-memory one
   5. main    `python -m cutrace_tpu_torch scenes/bunny.json` (cli.main) at
              1920x1080 b5: three non-empty JPEGs, the forward kernel's
              launch count grew, and a library render is finite
@@ -52,7 +59,8 @@ line) if any phase fails:
              with codes (bits, replay, emitter gates), K2 at 256k (every
              table cotangent a global atomic)
  12. big-frame  a cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and
-             1M, 960x540 b5, with K3's time, bound and launches. The 256k
+             1M, 960x540 b5, with K3's time, both bounds, launches, and
+             slab tests, admitted and needed visits a cast. The 256k
              and 1M frames (K3) against the 1k bunny's through K1 (the
              surface is the same): zero mismatches off the discontinuities
              and the rays whose topology codes differ between the two
@@ -66,7 +74,10 @@ line) if any phase fails:
              and 65,536 seeded rays, on the bunny (M=16) and 256k
              (M=1024) partitions: orders equal but for knife edges (at
              most 0.1 % of rays), t within isclose(rtol 1e-5, atol
-             1e-5 |o - o0|); K4's time and bound on the 1080p primary rays
+             1e-5 |o - o0|); K4's time and bounds on the 1080p primary
+             rays in one launch, and summed over its launches (at most
+             65,536 rays each) inside one --accel pallas bunny 1080p b5
+             frame
  15. pallas  the CLI with --accel pallas at bunny 1920x1080 b5: three
              JPEGs, K4 launched, K1/K3 not; the pallas render at 480x270
              b5 against the dense cast under the forward gate
@@ -79,12 +90,15 @@ line) if any phase fails:
  17. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
 
-Each main path (the CLI render, the gradient step, fit, the 256k
-bigscene run, the 256k step, the --accel pallas CLI) runs with every
-kernel's launch count set to 0 just before it and read just after; the
-counts of the result line come from those runs. `--skip` leaves phases out
-while developing; the result line is printed only when nothing was
-skipped. Nothing here imports jax.
+Each main path (the CLI render, the 4k bunny render, the gradient step,
+fit, the 256k bigscene run, the 256k step, the --accel pallas CLI) runs
+with every kernel's launch count set to 0 just before it and read just
+after; the counts of the result line come from those runs. Each bound is
+given twice: the work these inputs need whatever the traversal ("bound":
+the tally's needed cluster visits) and the kernel's own work
+("bound_admitted": its slab tests and admitted visits). `--skip` leaves
+phases out while developing; the result line is printed only when nothing
+was skipped. Nothing here imports jax.
 """
 
 import argparse
@@ -135,6 +149,9 @@ BIG_FRAME_GATED = (4, 5)
 # K3 against the plain version at 1M triangles, on a frame of this size
 # (the plain version batches 63 rays there)
 BIG_PARITY_1M = (80, 45)
+# the 4k subdivided bunny (C=128, M=32) through K1's global-memory
+# instance, at this size
+K1_GLOBAL_PARITY = (480, 270)
 CAST_RANDOM_RAYS = 65536
 CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
 FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
@@ -261,12 +278,15 @@ def cuda_ms(fn, reps):
 
 def reset_launches(fused, rv, pc):
     fused.LAUNCHES = fused.TOPO_LAUNCHES = rv.LAUNCHES = 0
+    fused.GLOBAL_LAUNCHES = fused.GLOBAL_TOPO_LAUNCHES = 0
     fused.BIG_LAUNCHES = fused.BIG_TOPO_LAUNCHES = pc.LAUNCHES = 0
 
 
 def read_launches(fused, rv, pc):
     return {"fused_forward": fused.LAUNCHES,
             "fused_forward_topo": fused.TOPO_LAUNCHES,
+            "fused_forward_global": fused.GLOBAL_LAUNCHES,
+            "fused_forward_global_topo": fused.GLOBAL_TOPO_LAUNCHES,
             "fused_forward_big": fused.BIG_LAUNCHES,
             "fused_forward_big_topo": fused.BIG_TOPO_LAUNCHES,
             "replay_vjp": rv.LAUNCHES,
@@ -280,34 +300,58 @@ def _bound(nbytes, ops):
 
 
 def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
-    """(bound ms, what bounds it) of one forward launch: the bytes it must
-    move (rays, tables, outputs, codes) at the card's memory rate against
-    the float operations of this run's casts, slab tests (group and
-    member boxes) and slab-admitted cluster visits (`tally`) at its
-    float32 rate."""
+    """Two (bound ms, what bounds it) of one forward launch: the bytes it
+    must move (rays, scene tables, outputs, codes) at the card's memory
+    rate against float operations at its float32 rate. "bound": the
+    operations these inputs need whatever the traversal: per cast, its
+    plane and sphere tests and C slot tests for each cluster it needs
+    (the tally's needed visits: clusters entered by the final winner's t,
+    or before the light). "bound_admitted": the kernel's own work, its
+    slab tests and its admitted visits (and the group boxes of a
+    two-level cull among the bytes), which a better cull lowers."""
     m, c = accel.order.shape
     names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
-    if m > 32:  # K3 reads the group boxes too
-        names.append("groups")
     table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
-    casts, visits, slabs = (int(x) for x in tally.tolist())
-    ops = (visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
-           + casts * (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
-                      + OPS_CAST))
-    return _bound(nbytes, ops)
+    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
+    per_cast = (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
+                + OPS_CAST)
+    return {"bound": _bound(nbytes, needed * c * OPS_TRI_SLOT
+                            + casts * per_cast),
+            "bound_admitted": _bound(
+                nbytes + (tables.groups.numel() * 4 if m > 32 else 0),
+                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
+                + casts * per_cast)}
 
 
 def cast_bound(tables, n_rays, tally):
-    """(bound ms, what bounds it) of one culling-cast launch: rays in, t
-    and order out and the 18 cast rows of the slot table plus the boxes,
-    against the float operations of its slab tests and admitted visits."""
+    """Two (bound ms, what bounds it) of one culling-cast launch: rays in,
+    t and order out and the 18 cast rows of the slot table plus the
+    cluster boxes, against the float operations of the cluster visits
+    the casts need ("bound"), or ("bound_admitted") of the kernel's own
+    slab tests and admitted visits (group boxes among the bytes)."""
     m, c = tables.tri.shape[:2]
-    nbytes = (n_rays * (8 + 2) * 4 + m * c * 18 * 4
-              + (tables.aabb.numel() + tables.groups.numel()) * 4)
-    casts, visits, slabs = (int(x) for x in tally.tolist())
-    return _bound(nbytes, visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
-                  + casts * OPS_CAST)
+    nbytes = n_rays * (8 + 2) * 4 + m * c * 18 * 4 + tables.aabb.numel() * 4
+    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
+    return {"bound": _bound(nbytes, needed * c * OPS_TRI_SLOT
+                            + casts * OPS_CAST),
+            "bound_admitted": _bound(nbytes + tables.groups.numel() * 4,
+                                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
+                                + casts * OPS_CAST)}
+
+
+def bound_text(b):
+    """One line of a forward_bound / cast_bound pair."""
+    return (f"bound {b['bound'][0]:.4f} ms ({b['bound'][1]}; from admitted "
+            f"visits {b['bound_admitted'][0]:.4f} ms, "
+            f"{b['bound_admitted'][1]})")
+
+
+def tally_text(tally):
+    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
+    n = max(casts, 1)
+    return (f"casts {casts}, a cast: slab tests {slabs / n:.2f}, admitted "
+            f"visits {visits / n:.3f}, needed visits {needed / n:.3f}")
 
 
 def vjp_bound(soa, codes, bounces):
@@ -440,17 +484,14 @@ def run_topo(label, prepared, bounces, fused, rp, rec):
             rec["plain_ms"] = cuda_ms(lambda: fused.fused_render_rays_plain(
                 soa, accel, o, d, 1e-3, bounces), 1)
         rec["topo_plain_ms"] = rec["plain_ms"] + emit_s * 1e3
-        tally = torch.zeros(3, dtype=torch.int64, device=o.device)
-        fused._fused_forward_cuda(soa, tables, o, d, 1e-3, bounces,
-                                  emit_topo=True, tally=tally)
+        tally = tally_of(lambda t: fused._fused_forward_cuda(
+            soa, tables, o, d, 1e-3, bounces, emit_topo=True, tally=t))
         rec["topo_bound"] = forward_bound(soa, accel, tables, o.shape[0],
                                           tally, codes.shape[1])
         phase("topo", f"{label}: kernel with codes {rec['topo_ms']:.3f} ms, "
               f"without {rec['notopo_ms']:.3f} ms, plain forward + emitter "
-              f"{rec['topo_plain_ms']:.0f} ms; casts {int(tally[0])} "
-              f"cluster visits {int(tally[1])} slab tests {int(tally[2])}; "
-              f"bound "
-              f"{rec['topo_bound'][0]:.3f} ms ({rec['topo_bound'][1]})")
+              f"{rec['topo_plain_ms']:.0f} ms; {tally_text(tally)}; "
+              + bound_text(rec["topo_bound"]))
     return codes, o, d, max(errs["color"][0], errs["normal"][0])
 
 
@@ -569,10 +610,57 @@ def big_prepared(m, levels, w, h):
 
 def tally_of(fn):
     """Run fn(tally) on a zeroed (3,) int64 tally; return it."""
-    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    tally = torch.zeros(4, dtype=torch.int64, device="cuda")
     fn(tally)
     torch.cuda.synchronize()
     return tally
+
+
+def phase_k1_global(m, rec, launches):
+    """The 4k subdivided bunny (C=128, M=32: 393 KB of tables, past a
+    block's shared memory) at 480x270 b5: rendered through the entry point
+    with every launch count set to 0 just before and read just after (K1's
+    global-memory instance must run, its shared-memory one must not), then
+    that instance against the plain version under the forward gate; its
+    time, the plain version's and its bounds."""
+    t0 = time.perf_counter()
+    sc, n_tris = m.bigscene.subdivided_bunny(1, *K1_GLOBAL_PARITY)
+    prepared = m.prepare(sc, accel="fused", device="cuda", bounces=5)
+    soa, accel, tables = prepared.soa, prepared.accel, prepared.tables
+    mm, c = accel.order.shape
+    label = f"bunny/{n_tris // 1000}k {soa.width}x{soa.height} b5 M={mm} C={c}"
+    if (mm, c) != (32, 128):
+        raise AssertionError(f"{label}: not the C=128, M=32 partition")
+    m.reset()
+    m.render(prepared, bounces=5)
+    torch.cuda.synchronize()
+    launches["k1_global"] = counts = m.read()
+    if counts["fused_forward_global"] < 1 or counts["fused_forward"]:
+        raise AssertionError(f"{label}: launches {counts}, not K1's "
+                             f"global-memory instance")
+    o, d, inverse = m.block_rays(soa)
+    kern = m.fused.fused_render_rays(soa, accel, o, d, 1e-3, 5, tables=tables)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = m.fused.fused_render_rays_plain(soa, accel, o, d, 1e-3, 5)
+    torch.cuda.synchronize()
+    rec["k1g_plain_ms"] = (time.perf_counter() - t1) * 1e3
+    rec["k1g_err"] = check_parity(label, soa, inverse, kern, plain,
+                                  m.to_image,
+                                  edge_budget=EDGE_BUDGET_SUBDIVIDED)
+    rec["k1g_ms"] = cuda_ms(lambda: m.fused.fused_render_rays(
+        soa, accel, o, d, 1e-3, 5, tables=tables), 10)
+    tally = tally_of(lambda t: m.fused._fused_forward_cuda(
+        soa, tables, o, d, 1e-3, 5, tally=t))
+    rec["k1g_bound"] = forward_bound(soa, accel, tables, o.shape[0], tally,
+                                     0)
+    rec["k1g_shape"] = label
+    phase("parity", f"{label}: K1 global-memory instance "
+          f"{m.fused.k1_shared_bytes(soa, tables)} bytes of tables (limit "
+          f"{m.fused.shared_limit(o.device)}), launches {counts}; "
+          f"{rec['k1g_ms']:.3f} ms, plain {rec['k1g_plain_ms']:.0f} ms; "
+          f"{tally_text(tally)}; " + bound_text(rec["k1g_bound"])
+          + f"; {time.perf_counter() - t0:.1f} s")
 
 
 def phase_big_parity(m, rec):
@@ -609,8 +697,8 @@ def phase_big_parity(m, rec):
                                              o.shape[0], tally, 0)
             rec["big_shape"] = label
             phase("big-parity", f"{label}: K3 {rec['big_ms']:.3f} ms, plain "
-                  f"{plain_s * 1e3:.0f} ms; tally {tally.tolist()}; bound "
-                  f"{rec['big_bound'][0]:.3f} ms ({rec['big_bound'][1]})")
+                  f"{plain_s * 1e3:.0f} ms; {tally_text(tally)}; "
+                  + bound_text(rec["big_bound"]))
         out[label] = prepared
         phase("big-parity", f"{label} done in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -793,7 +881,7 @@ def probe_split(m, prepared, o, d, row):
                        device=o.device)
     alone = m.pc.ClusterTables(
         tri=prepared.tables.tri[mi:mi + 1].contiguous(), aabb=box,
-        groups=box)
+        groups=box, tree=box)
     _, one = m.pc.cast_clusters(alone, oc, d, md)
     return (f"node {cast_rows.index(row)}: the plain winner is triangle "
             f"{want} (smallest barycentric {min(u, v, 1 - u - v):.2e} in "
@@ -943,8 +1031,14 @@ def phase_big_frame(m, smi, rec, launches):
         tally = tally_of(lambda t: m.fused._fused_forward_cuda(
             soa, prepared.tables, o, d, 1e-3, 5, tally=t))
         row["tally"] = tally.tolist()
-        row["bound_ms"], row["bound_by"] = forward_bound(
-            soa, accel, prepared.tables, o.shape[0], tally, 0)
+        casts = max(int(tally[0]), 1)
+        row["slabs_per_cast"] = int(tally[2]) / casts
+        row["visits_per_cast"] = int(tally[1]) / casts
+        row["needed_per_cast"] = int(tally[3]) / casts
+        b = forward_bound(soa, accel, prepared.tables, o.shape[0], tally, 0)
+        row["bound_ms"], row["bound_by"] = b["bound"]
+        row["bound_ms_admitted"], row["bound_by_admitted"] = (
+            b["bound_admitted"])
         row["launches"] = counts["fused_forward_big"]
         rows.append(row)
         print("bigscene " + json.dumps(row), flush=True)
@@ -1066,11 +1160,71 @@ def phase_cast(m, big_prepared_256k, smi, rec):
     tally = tally_of(lambda t: m.pc.cast_clusters(main.tables, o, d, md,
                                                   tally=t))
     rec["cast_bound"] = cast_bound(main.tables, o.shape[0], tally)
-    phase("cast", f"bunny 1920x1080 primary rays M=16: K4 "
+    phase("cast", f"bunny 1920x1080 primary rays M=16, one launch: K4 "
           f"{rec['cast_ms']:.3f} ms, plain {rec['cast_plain_ms']:.0f} ms; "
-          f"tally {tally.tolist()}; bound {rec['cast_bound'][0]:.4f} ms "
-          f"({rec['cast_bound'][1]}); {time.perf_counter() - t0:.1f} s "
-          f"({smi})")
+          f"{tally_text(tally)}; " + bound_text(rec["cast_bound"]))
+    chunk = slice(0, 65536)
+    rec["cast_chunk_plain_ms"] = cuda_ms(lambda: m.pc.cast_clusters_plain(
+        main.tables, o[chunk], d[chunk], md[chunk]), 1)
+    k4_in_frame(m, main, rec)
+    phase("cast", f"done in {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def k4_in_frame(m, prepared, rec):
+    """K4 at the shape its path launches it: one bunny 1920x1080 b5
+    render with accel="pallas" (the CLI's --accel pallas frame), K4's
+    launches timed one by one with CUDA events around the library call
+    and summed; then the same frame again with a tally per launch, whose
+    bounds are summed over the same launches."""
+    lib = m.build.load_library("cluster_cast")
+    load = m.build.load_library
+    events, tallies = [], []
+
+    class Timed:
+        def cutrace_cluster_cast(self, *args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            rc = lib.cutrace_cluster_cast(*args)
+            ev[1].record()
+            events.append(ev)
+            return rc
+
+    class Tallied:
+        def cutrace_cluster_cast(self, *args):
+            t = torch.zeros(4, dtype=torch.int64, device="cuda")
+            tallies.append((args[6], t))
+            args = (*args[:9], m.fused._ptr(t), args[10])
+            return lib.cutrace_cluster_cast(*args)
+
+    m.render(prepared, bounces=5)  # warm-up
+    torch.cuda.synchronize()
+    try:
+        for stand_in in (Timed(), Tallied()):
+            m.build.load_library = (
+                lambda name, s=stand_in: s if name == "cluster_cast"
+                else load(name))
+            m.render(prepared, bounces=5)
+            torch.cuda.synchronize()
+    finally:
+        m.build.load_library = load
+    n = len(events)
+    if n == 0 or n != len(tallies):
+        raise AssertionError(f"K4 in the pallas frame: {n} timed launches, "
+                             f"{len(tallies)} tallied")
+    total = sum(a.elapsed_time(b) for a, b in events)
+    bounds = [cast_bound(prepared.tables, r, t) for r, t in tallies]
+    tally = sum(t for _, t in tallies)
+    frame = {k: (sum(b[k][0] for b in bounds),
+                 "operations" if sum(b[k][1] == "operations" for b in bounds)
+                 * 2 >= n else "bytes") for k in ("bound", "bound_admitted")}
+    rec["cast_frame"] = {"launches": n, "ms": total, "bound": frame,
+                         "rays": sum(r for r, _ in tallies)}
+    phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame: "
+          f"{n} launches of at most 65536 rays ({rec['cast_frame']['rays']} "
+          f"rays), {total:.3f} ms summed ({total / n:.4f} ms a launch); "
+          f"{tally_text(tally)}; summed " + bound_text(frame)
+          + f"; plain on one 65536-ray chunk "
+          f"{rec['cast_chunk_plain_ms']:.1f} ms")
 
 
 def phase_pallas(m, smi, rec, launches):
@@ -1235,7 +1389,7 @@ def main(argv=None) -> int:
     m = types.SimpleNamespace(
         bigscene=bigscene, cli=cli, load_scene=load_scene, tgrad=tgrad,
         fused=fused, pc=pc, rp=rp, rv=rv, bvh=bvh, I=intersect, sh=shading,
-        to_image=to_image,
+        to_image=to_image, build=_build,
         block_rays=block_rays, camera_rays=camera_rays, prepare=prepare,
         render=render, render_rays=render_rays, scenes=scenes,
         reset=lambda: reset_launches(fused, rv, pc),
@@ -1265,6 +1419,7 @@ def main(argv=None) -> int:
 
     # 3. parity: kernel vs plain version, same rays on the same card
     max_err = 0.0
+    launches = {}
     prepared_small = {}
     for name, w, h, bounces in PARITY:
         scene = load_scene(scenes / name)
@@ -1282,6 +1437,8 @@ def main(argv=None) -> int:
         max_err = max(max_err, check_parity(
             f"{name} {w}x{h} b{bounces} M={accel.order.shape[0]}", soa,
             inverse, kern, plain, to_image))
+    if "parity" not in skip:
+        phase_k1_global(m, rec, launches)
 
     # 4. timing at the main path's shapes; the first calls are also held
     # to the parity gate at that size
@@ -1305,20 +1462,37 @@ def main(argv=None) -> int:
         rec["kernel_ms"] = cuda_ms(kernel_fn, 10)
         plain_ms.append(cuda_ms(plain_fn, 1))
         rec["plain_ms"] = min(plain_ms)
-        tally = torch.zeros(3, dtype=torch.int64, device=dev)
-        fused._fused_forward_cuda(soa, main_prepared.tables, o, d, 1e-3, 5,
-                                  tally=tally)
+        tally = tally_of(lambda t: fused._fused_forward_cuda(
+            soa, main_prepared.tables, o, d, 1e-3, 5, tally=t))
         rec["bound"] = forward_bound(soa, accel, main_prepared.tables,
                                      o.shape[0], tally, 0)
+        shared = fused.k1_instance(soa, main_prepared.tables)
+        if shared != fused._K1_SHARED:
+            raise AssertionError("bunny 1080p does not take K1's "
+                                 "shared-memory instance")
+        # what the shared-memory staging bought: K1's global-memory
+        # instance on the same rays (the size rule overridden for this
+        # timing alone), in turns with the shared-memory one
+        index = dev.index or 0
+        limit = fused.shared_limit(dev)
+        fused._SHARED_LIMIT[index] = 0
+        try:
+            glob = kernel_fn()
+            rec["kernel_global_ms"] = cuda_ms(kernel_fn, 10)
+        finally:
+            fused._SHARED_LIMIT[index] = limit
+        rec["kernel_ms_again"] = cuda_ms(kernel_fn, 10)
+        diff = max(float(torch.nan_to_num(
+            (a - b).abs(), nan=0.0).max()) for a, b in zip(glob, kernel_fn()))
         phase("timing", f"{MAIN_SCENE} {soa.width}x{soa.height} b5 M="
-              f"{accel.order.shape[0]}: kernel {rec['kernel_ms']:.3f} ms, "
-              f"plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms; casts "
-              f"{int(tally[0])} cluster visits {int(tally[1])} slab tests "
-              f"{int(tally[2])}; bound "
-              f"{rec['bound'][0]:.3f} ms ({rec['bound'][1]}) ({smi})")
+              f"{accel.order.shape[0]}: K1 shared-memory instance "
+              f"{rec['kernel_ms']:.3f} / {rec['kernel_ms_again']:.3f} ms, "
+              f"global-memory instance {rec['kernel_global_ms']:.3f} ms "
+              f"(max |difference| {diff:.2e}), plain {plain_ms[0]:.3f} / "
+              f"{plain_ms[1]:.3f} ms; {tally_text(tally)}; "
+              + bound_text(rec["bound"]) + f" ({smi})")
 
     # 5. the main path through the CLI
-    launches = {}
     if "main" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
             reset_launches(fused, rv, pc)
@@ -1481,55 +1655,69 @@ def main(argv=None) -> int:
         phase("result", f"phases skipped ({' '.join(sorted(skip))}): no "
               f"result line")
         return 0
-    common = {"route": "cuda", "library_ms": None}
+    fused_src = "cutrace_tpu_torch/ops/csrc/fused_forward.cu"
+
+    def entry(name, source, replaces, n, err, ms, plain, bounds, **extra):
+        """One kernel of the result line: the work-based bound and the one
+        from admitted visits (the same for K2, whose bound reads no
+        tally)."""
+        if not isinstance(bounds, dict):
+            bounds = {"bound": bounds, "bound_admitted": bounds}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain,
+                "bound_ms": bounds["bound"][0],
+                "bound_by": bounds["bound"][1],
+                "bound_ms_admitted": bounds["bound_admitted"][0],
+                "bound_by_admitted": bounds["bound_admitted"][1],
+                "library_ms": None, **extra}
+
+    frame = rec["cast_frame"]
     kernels = [
-        {"name": "fused_forward",
-         "source": "cutrace_tpu_torch/ops/csrc/fused_forward.cu",
-         "replaces": "cutrace_tpu/ops/fused.py:1734",
-         "launches": launches["cli"]["fused_forward"],
-         "max_abs_err": max_err, "ms": rec["kernel_ms"],
-         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
-         "bound_by": rec["bound"][1], **common},
-        {"name": "fused_forward_topo",
-         "source": "cutrace_tpu_torch/ops/csrc/fused_forward.cu",
-         "replaces": "cutrace_tpu/ops/fused.py:1734",
-         "launches": launches["train"]["fused_forward_topo"],
-         "max_abs_err": topo_err, "ms": rec["topo_ms"],
-         "plain_ms": rec["topo_plain_ms"], "bound_ms": rec["topo_bound"][0],
-         "bound_by": rec["topo_bound"][1], **common},
-        {"name": "replay_vjp",
-         "source": "cutrace_tpu_torch/ops/csrc/replay_vjp.cu",
-         "replaces": "cutrace_tpu/ops/replay_vjp.py:204",
-         "launches": launches["train"]["replay_vjp"],
-         "max_abs_err": vjp_err, "ms": rec["vjp_ms"],
-         "plain_ms": rec["vjp_plain_ms"], "bound_ms": rec["vjp_bound"][0],
-         "bound_by": rec["vjp_bound"][1], **common},
-        {"name": "fused_forward_big",
-         "source": "cutrace_tpu_torch/ops/csrc/fused_forward.cu",
-         "replaces": "cutrace_tpu/ops/fused.py:445",
-         "launches": launches["big_frame"]["fused_forward_big"],
-         "max_abs_err": rec["big_err"], "ms": rec["big_ms"],
-         "plain_ms": rec["big_plain_ms"], "bound_ms": rec["big_bound"][0],
-         "bound_by": rec["big_bound"][1], "shape": rec["big_shape"],
-         **common},
-        {"name": "fused_forward_big_topo",
-         "source": "cutrace_tpu_torch/ops/csrc/fused_forward.cu",
-         "replaces": "cutrace_tpu/ops/fused.py:445",
-         "launches": launches["big_grad"]["fused_forward_big_topo"],
-         "max_abs_err": rec["big_topo_err"],
-         "ms": rec["big_topo"]["topo_ms"],
-         "plain_ms": rec["big_topo"]["topo_plain_ms"],
-         "bound_ms": rec["big_topo"]["topo_bound"][0],
-         "bound_by": rec["big_topo"]["topo_bound"][1],
-         "shape": rec["big_shape"], **common},
-        {"name": "cluster_cast",
-         "source": "cutrace_tpu_torch/ops/csrc/cluster_cast.cu",
-         "replaces": "cutrace_tpu/ops/pallas_cast.py:81",
-         "launches": launches["pallas"]["cluster_cast"],
-         "max_abs_err": rec["cast_err"], "ms": rec["cast_ms"],
-         "plain_ms": rec["cast_plain_ms"], "bound_ms": rec["cast_bound"][0],
-         "bound_by": rec["cast_bound"][1],
-         "shape": "bunny 1920x1080 primary rays, M=16 C=64", **common},
+        entry("fused_forward", fused_src, "cutrace_tpu/ops/fused.py:1734",
+              launches["cli"]["fused_forward"], max_err, rec["kernel_ms"],
+              rec["plain_ms"], rec["bound"],
+              instance="K1, shared memory",
+              global_instance_ms=rec["kernel_global_ms"]),
+        entry("fused_forward_topo", fused_src,
+              "cutrace_tpu/ops/fused.py:1734",
+              launches["train"]["fused_forward_topo"], topo_err,
+              rec["topo_ms"], rec["topo_plain_ms"], rec["topo_bound"],
+              instance="K1, shared memory"),
+        entry("fused_forward_global", fused_src,
+              "cutrace_tpu/ops/fused.py:1734",
+              launches["k1_global"]["fused_forward_global"], rec["k1g_err"],
+              rec["k1g_ms"], rec["k1g_plain_ms"], rec["k1g_bound"],
+              instance="K1, global memory", shape=rec["k1g_shape"]),
+        entry("replay_vjp", "cutrace_tpu_torch/ops/csrc/replay_vjp.cu",
+              "cutrace_tpu/ops/replay_vjp.py:204",
+              launches["train"]["replay_vjp"], vjp_err, rec["vjp_ms"],
+              rec["vjp_plain_ms"], rec["vjp_bound"]),
+        entry("fused_forward_big", fused_src, "cutrace_tpu/ops/fused.py:445",
+              launches["big_frame"]["fused_forward_big"], rec["big_err"],
+              rec["big_ms"], rec["big_plain_ms"], rec["big_bound"],
+              instance="K3, ordered tree walk", shape=rec["big_shape"]),
+        entry("fused_forward_big_topo", fused_src,
+              "cutrace_tpu/ops/fused.py:445",
+              launches["big_grad"]["fused_forward_big_topo"],
+              rec["big_topo_err"], rec["big_topo"]["topo_ms"],
+              rec["big_topo"]["topo_plain_ms"], rec["big_topo"]["topo_bound"],
+              instance="K3, ordered tree walk", shape=rec["big_shape"]),
+        entry("cluster_cast", "cutrace_tpu_torch/ops/csrc/cluster_cast.cu",
+              "cutrace_tpu/ops/pallas_cast.py:81",
+              launches["pallas"]["cluster_cast"], rec["cast_err"],
+              frame["ms"] / frame["launches"], rec["cast_chunk_plain_ms"],
+              {k: (v[0] / frame["launches"], v[1])
+               for k, v in frame["bound"].items()},
+              shape="one launch of an --accel pallas bunny 1920x1080 b5 "
+                    "frame (at most 65536 rays), M=16 C=64; the mean "
+                    "over the frame's launches",
+              frame_ms=frame["ms"], frame_launches=frame["launches"],
+              primary_1080p={"ms": rec["cast_ms"],
+                             "plain_ms": rec["cast_plain_ms"],
+                             "bound_ms": rec["cast_bound"]["bound"][0],
+                             "bound_ms_admitted":
+                                 rec["cast_bound"]["bound_admitted"][0]}),
     ]
     print(smi, flush=True)
     print(json.dumps({

@@ -46,8 +46,10 @@ SIGNATURES = {
                          # bounces shadow_steps any_refl any_transp
             + [_F]  # fudge
             + [_P, _I, _I, _P]  # codes t_cnt p_cnt tally
-            + [_P, _P]  # groups stream
+            + [_P, _I, _I]  # tree leaves instance
+            + [_P, _P]  # next_chunk stream
         ),
+        "cutrace_shared_limit": [_P],  # bytes (int *)
     },
     "replay_vjp": {
         "cutrace_replay_vjp": (

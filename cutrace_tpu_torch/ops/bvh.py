@@ -14,10 +14,12 @@ gathered from the live scene tensors at render time
 `order` carries every triangle's original flat index, so nearest-hit ties
 keep the reference's scan-order winner.
 
-The cull kernels (csrc/cast.cuh) test cluster boxes two levels deep:
-`group_boxes` merges each run of GROUP consecutive clusters into one box.
+The cull kernels (csrc/cast.cuh) test cluster boxes through a hierarchy.
 Clusters are median-split leaves in tree order, so consecutive clusters
-are spatially compact and their union box is tight.
+are spatially compact and their union box is tight: `group_boxes` merges
+each run of GROUP consecutive clusters into one box (K4's two-level
+loop), and `tree_boxes` builds a complete binary tree of such unions
+(K3's ordered walk), widened by `widen_tree`.
 """
 
 from __future__ import annotations
@@ -29,10 +31,25 @@ import numpy as np
 import torch
 
 from cutrace_tpu_torch.ops import intersect as I
+from cutrace_tpu_torch.scene.soa import resolve_device
 
 CLUSTER_SIZE = 64
 # Clusters per group box of the two-level cull (csrc/cast.cuh kGroup).
 GROUP = 32
+# Children per node of the cluster tree K3 walks (csrc/cast.cuh
+# kTreeArity). Binary: the median split is binary, so the unions of
+# sibling clusters are its own boxes; the walk orders two children with
+# one compare, and its stack needs one slot per level (11 at 2048
+# clusters).
+TREE_ARITY = 2
+# The tree's boxes are widened outward by this share of the scene's extent
+# (the live clusters' union box, its longest side), so the ordered walk
+# cannot cull a cluster whose triangle t rounds to before the cluster's
+# own box entry (csrc/cast.cuh): float32 rounding of t and of a slab entry
+# is about 1e-7 of the distances involved; 1e-4 covers grazing hits to a
+# cosine of about 1e-3, and widens a 256k-triangle cluster (about 1/32 of
+# the extent) by 0.3 %.
+TREE_MARGIN = 1e-4
 KINDS = ("clusters", "pallas", "fused")
 
 _FAR = 1.0e8
@@ -87,14 +104,16 @@ def build_partition(centroids: np.ndarray, cluster_size: int):
     return leaves
 
 
-def accel_from_numpy(order, valid, device="cpu", kind="fused") -> Accel:
-    """An Accel on `device` from numpy partition arrays (e.g. the JAX
-    package's Accel leaves read back with np.asarray, and its kind)."""
+def accel_from_numpy(order, valid, device="cuda", kind="fused") -> Accel:
+    """An Accel on `device` (the card unless the caller asks for the CPU)
+    from numpy partition arrays (e.g. the JAX package's Accel leaves read
+    back with np.asarray, and its kind)."""
     if kind not in KINDS:
         raise ValueError(f"unknown accel kind {kind!r}")
+    dev = resolve_device(device)
     return Accel(
-        order=torch.from_numpy(np.asarray(order, np.int32).copy()).to(device),
-        valid=torch.from_numpy(np.asarray(valid, bool).copy()).to(device),
+        order=torch.from_numpy(np.asarray(order, np.int32).copy()).to(dev),
+        valid=torch.from_numpy(np.asarray(valid, bool).copy()).to(dev),
         kind=kind,
     )
 
@@ -195,6 +214,55 @@ def group_boxes(bmin, bmax, live):
     rows[:, 0:3] = gmin
     rows[:, 3:6] = gmax
     return rows
+
+
+def tree_leaves(m: int) -> int:
+    """Leaves of the complete binary tree over m clusters: the power of
+    two at least m."""
+    return 1 << max(m - 1, 0).bit_length()
+
+
+def tree_boxes(bmin, bmax, live):
+    """(2L, 8) rows [bmin xyz, bmax xyz, 0, 0] of a complete binary tree
+    over the M clusters, L = tree_leaves(M), in heap order: row 1 is the
+    root, node n's children are rows 2n and 2n + 1, rows L..L+M-1 are the
+    (M, 3) cluster boxes; row 0 is unused (zero). Each node is the union
+    of its children, built bottom up by pairs of consecutive clusters.
+    Empty clusters (`live` False) and the padding leaves past M stay out
+    of the unions; a node without a live cluster sits at the never-hit
+    _FAR point, as an empty cluster does."""
+    m = bmin.shape[0]
+    pad = tree_leaves(m) - m
+    live3 = torch.nn.functional.pad(live, (0, pad))[:, None]
+    lo = torch.where(live3, torch.nn.functional.pad(bmin, (0, 0, 0, pad)),
+                     math.inf)
+    hi = torch.where(live3, torch.nn.functional.pad(bmax, (0, 0, 0, pad)),
+                     -math.inf)
+    los, his = [lo], [hi]
+    while lo.shape[0] > 1:
+        lo = lo.reshape(-1, TREE_ARITY, 3).amin(dim=1)
+        hi = hi.reshape(-1, TREE_ARITY, 3).amax(dim=1)
+        los.append(lo)
+        his.append(hi)
+    lo = torch.cat(los[::-1])
+    hi = torch.cat(his[::-1])
+    rows = torch.zeros((lo.shape[0] + 1, 8), dtype=torch.float32,
+                       device=bmin.device)
+    rows[1:, 0:3] = torch.where(torch.isfinite(lo), lo, _FAR)
+    rows[1:, 3:6] = torch.where(torch.isfinite(hi), hi, _FAR)
+    return rows
+
+
+def widen_tree(rows, margin: float = TREE_MARGIN):
+    """`tree_boxes` rows with every node widened outward by `margin` times
+    the root box's longest side (none when no cluster is live)."""
+    root = rows[1]
+    extent = (root[3:6] - root[0:3]).amax()
+    delta = margin * extent
+    out = rows.clone()
+    out[1:, 0:3] -= delta
+    out[1:, 3:6] += delta
+    return out
 
 
 def slab_entry(bmin, bmax, o, d):

@@ -14,10 +14,12 @@
 // and the (M, C, 24) slot table (of which the first 18 rows are read) is
 // read from global memory whatever its size.
 //
-// What bounds it on this card: the float operations of the admitted
-// visits (C slot tests of 38 operations each) and the slab tests, read
-// through L1/L2; the tally counts casts, admitted visits and slab tests,
-// from which chip_smoke.py computes that bound.
+// What bounds it on this card: the float operations of the cluster
+// visits a cast needs (C slot tests of 38 operations each for every
+// cluster whose box the ray enters by its winner's t), read through
+// L1/L2; the tally counts casts, admitted visits, slab tests and those
+// needed visits (a post-pass over the cluster boxes, run only with a
+// tally), from which chip_smoke.py computes that bound.
 
 #include "cast.cuh"
 
@@ -38,13 +40,12 @@ cluster_cast_kernel(const float* __restrict__ rays, Clusters cl,
   Tally tl;
   tl.casts = 1;
   TriWinner b;
-  nearest_triangle<true>(cl, o, d, ray[6], INFINITY, b, tl);
+  nearest_triangle_grouped(cl, o, d, ray[6], INFINITY, b, tl);
   t_out[i] = b.t;
   ord_out[i] = b.slot >= 0 ? (int)b.key : (1 << 30);
   if (tally) {
-    atomicAdd(tally, tl.casts);
-    atomicAdd(tally + 1, tl.visits);
-    atomicAdd(tally + 2, tl.slabs);
+    tl.needed = needed_visits(cl, o, d, b.t, false);
+    flush_tally(tally, tl);
   }
 }
 
@@ -53,8 +54,8 @@ cluster_cast_kernel(const float* __restrict__ rays, Clusters cl,
 // Launches the query on `stream` over n_rays rays (rows [o - o0, d,
 // min_dist, 0]); returns the CUDA error code of the launch (0 on success).
 // t_out receives +inf and ord_out 2^30 where no triangle is hit. `tally`
-// (3 x u64, zeroed by the caller, may be null) receives the casts, admitted
-// cluster visits and slab tests.
+// (4 x u64, zeroed by the caller, may be null) receives the casts, admitted
+// cluster visits, slab tests and needed visits.
 extern "C" int cutrace_cluster_cast(const float* rays, const float* tri,
                                     const float* aabb, const float* groups,
                                     float* t_out, int* ord_out, int n_rays,
@@ -63,6 +64,7 @@ extern "C" int cutrace_cluster_cast(const float* rays, const float* tri,
   if (n_rays <= 0) return 0;
   int grid = (n_rays + kBlock - 1) / kBlock;
   cluster_cast_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      rays, Clusters{tri, aabb, groups, m, c}, t_out, ord_out, n_rays, tally);
+      rays, Clusters{tri, aabb, groups, nullptr, m, c, 0}, t_out, ord_out,
+      n_rays, tally);
   return (int)cudaGetLastError();
 }

@@ -3,17 +3,39 @@
 // bounce tree, one thread per ray, in one kernel launch; optionally the
 // topology codes the replay backward (csrc/replay_vjp.cu) consumes.
 //
-// One kernel, two instances, templated on the cluster cull (csrc/cast.cuh):
-//   * K1, the flat loop over every cluster box, replaces
-//     cutrace_tpu/ops/fused.py:_make_kernel_lanes (partitions of at most 32
-//     clusters, forward and emit_topo rows);
-//   * K3, the two-level loop (a group box per kGroup consecutive clusters,
-//     member boxes only inside an admitted group), replaces
-//     cutrace_tpu/ops/fused.py:_make_kernel (the big-scene kernel, more
-//     than 32 clusters of C = 256 or 512 slots). The grouped cull drops
-//     only clusters the flat loop drops too, so K3's winners are exactly
-//     those of a flat loop over all M clusters.
-// Both keep the TPU kernels' contract, not their TPU layout:
+// One ray body (trace_ray), three instances, chosen by the caller before
+// the launch from the partition's size (ops/fused.py):
+//   * K1, which replaces cutrace_tpu/ops/fused.py:_make_kernel_lanes
+//     (partitions of at most 32 clusters, forward and emit_topo rows), in
+//     two instances over the flat cluster loop of csrc/cast.cuh:
+//       - the shared-memory instance runs persistent blocks (as many as
+//         fit on the card at once). Each block copies the partition's
+//         slot rows and cluster boxes, the plane, sphere, material and
+//         light rows into dynamic shared memory once, with cp.async.
+//         Then each warp takes 32 rays at a time from a counter until
+//         none are left: ray costs vary by orders of magnitude (a miss
+//         against a 6-node mirror chain), so a fixed share per warp would
+//         leave the card waiting on the slowest. Bunny's tables (16 x 64
+//         slots) take 99 KB: two blocks an SM;
+//       - the global-memory instance, for partitions whose rows do not fit
+//         in a block's shared memory (C = 128 with M up to 32 is up to
+//         393 KB), reads the tables through L1/L2.
+//     In both, the lanes of a warp walk the clusters in the same index
+//     order, each culling against its own best t, so its winner is the
+//     flat loop's. A cluster that many lanes admit is scanned by them
+//     side by side, one that few admit by the whole warp, one admitting
+//     lane's ray at a time with its slots spread over the lanes
+//     (csrc/cast.cuh visit_nearest_warp).
+//   * K3, which replaces cutrace_tpu/ops/fused.py:_make_kernel (the
+//     big-scene kernel, more than 32 clusters of C = 256 or 512 slots),
+//     runs the warp-coherent ordered walk over the widened cluster tree of
+//     csrc/cast.cuh: its winners are the flat loop's over all M clusters
+//     (or a triangle the flat loop's rounding dropped). Its tables stay in
+//     global memory (up to 2048 x 512 x 24 floats = 100.7 MB at 1M
+//     triangles, past the 50 MB L2; the tree 128 KB). A visit reads a
+//     cluster's rows from L2 or HBM: a lone lane scanning its C slots
+//     waits on C loads in a row, a warp visiting in turn on C / 32.
+// All keep the TPU kernels' contract, not their TPU layout:
 //   * nearest hit = the (t, key) lexicographic minimum: triangles by their
 //     original flat index, then planes and spheres by scene object index
 //     against the triangle winner's object index;
@@ -42,23 +64,21 @@
 // Rays-on-lanes, scalar-prefetch cull words, static unrolls and one-hot
 // attribute sums were TPU devices and are gone: each thread culls clusters
 // itself against its current best t and gathers winner attributes with
-// plain loads. K3's TPU regimes were not carried over either: the VMEM /
-// HBM table split and the per-visit DMA streaming (the tables simply live
-// in global memory, up to 2048 x 512 x 24 floats = 100.7 MB at 1M
-// triangles), the MXU visit forms and the group ordering (both measured
-// slower on the TPU), and the bit-packed opaque flag columns (a Mosaic
-// device: K3 writes the replay's row layout directly, as K1 does).
+// plain loads, once per winner. K3's TPU regimes were not carried over
+// either: the VMEM / HBM table split and the per-visit DMA streaming, the
+// MXU visit forms and the bit-packed opaque flag columns (a Mosaic
+// device: K3 writes the replay's row layout directly, as K1 does). The
+// TPU's group ordering measured slower there (docs/performance.md), but it
+// culled whole tiles; a per-ray ordered walk is another thing.
 //
-// What bounds it on this card: a divergent, latency-bound traversal. Each
-// thread walks its own clusters and tree nodes, and the scene tables are
-// read from global memory through L1/L2 (bunny: 16 clusters x 64 slots x
-// 24 floats = 96 KB of triangle rows; the 256k bunny 25 MB, inside the
-// 50 MB L2; the 1M bunny 100.7 MB, not). Its least time is the float
-// operations of the admitted visits, C slot tests each, and of the slab
-// tests. An optional tally counts casts, admitted (ray, cluster) visits
-// and slab tests (group and member), from which chip_smoke.py computes
-// that bound. Staging tables in shared memory, warp-ballot culls over
-// coherent rays and front-to-back group order are later work.
+// What bounds it on this card: a divergent, latency-bound traversal, each
+// thread walking its own clusters and tree nodes. Its least time is the
+// float operations of the cluster visits its casts need (C slot tests
+// each: the clusters entered before the final winner, or before the
+// light), whatever order visits them. An optional tally counts casts,
+// admitted visits, slab tests and those needed visits (a post-pass per
+// cast over the unwidened cluster boxes, run only with a tally), from
+// which chip_smoke.py computes that bound.
 
 #include "cast.cuh"
 
@@ -66,7 +86,10 @@ namespace {
 
 using namespace cutrace;
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 128;      // threads per block, global-memory instances
+constexpr int kSmemBlock = 256;  // threads per block, K1 in shared memory
+// instances (ops/fused.py _K1_GLOBAL, _K1_SHARED, _K3)
+constexpr int kInstanceK1Global = 0, kInstanceK1Shared = 1, kInstanceK3 = 2;
 constexpr int kMatRows = 8;     // floats per material row
 constexpr int kLightRows = 8;   // floats per light row
 constexpr int kMaxParked = 6;   // parked transparency frames (bounces <= 5)
@@ -103,7 +126,7 @@ struct Topo {
 
 // Nearest hit over all kinds. Planes and spheres go first: their best t
 // bounds which clusters are worth visiting.
-template <bool kGrouped>
+template <bool kTree>
 __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
                             Tally& tl) {
   V3 nd;
@@ -141,7 +164,10 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
 
   TriWinner b;
   tl.casts += 1;
-  nearest_triangle<kGrouped>(s.cl, o, d, mind, bound, b, tl);
+  if (kTree)
+    walk_tree<false>(s.cl, o, d, mind, bound, b, tl);
+  else
+    nearest_triangle_flat(s.cl, o, d, mind, bound, b, tl);
 
   Hit h{b.t, b.slot >= 0 ? kTri : kMiss, b.slot};
   float best_obj =
@@ -153,14 +179,14 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
   if (is >= 0 && (ts < h.t || (ts == h.t && ks < best_obj))) {
     h = Hit{ts, kSphere, is};
   }
+  if (tl.count_needed) tl.needed += needed_visits(s.cl, o, d, h.t, false);
   return h;
 }
 
 // Any hit closer than ldist (opaque shadow query).
-template <bool kGrouped>
-__device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
-                         float ldist, Tally& tl) {
-  tl.casts += 1;
+template <bool kTree>
+__device__ bool occluded_any(const Scene& s, V3 o, V3 d, float mind,
+                             float ldist, Tally& tl) {
   for (int i = 0; i < s.n_planes; ++i)
     if (plane_t(s.planes + i * kPsRows, o, d, mind) < ldist) return true;
   if (s.n_spheres > 0) {
@@ -169,7 +195,19 @@ __device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
     for (int i = 0; i < s.n_spheres; ++i)
       if (sphere_t(s.spheres + i * kPsRows, o, nd, mind) < ldist) return true;
   }
-  return any_triangle_before<kGrouped>(s.cl, o, d, mind, ldist, tl);
+  TriWinner unused;
+  return kTree ? walk_tree<true>(s.cl, o, d, mind, ldist, unused, tl)
+               : any_triangle_flat(s.cl, o, d, mind, ldist, tl);
+}
+
+template <bool kTree>
+__device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
+                         float ldist, Tally& tl) {
+  tl.casts += 1;
+  const bool hit = occluded_any<kTree>(s, o, d, mind, ldist, tl);
+  if (tl.count_needed)
+    tl.needed += hit ? 1 : needed_visits(s.cl, o, d, ldist, true);
+  return hit;
 }
 
 // The winner's topology code (cutrace_tpu/ops/replay.py layout).
@@ -201,11 +239,11 @@ struct Shaded {
 };
 
 // `row` is the node's cast row in the code buffer (ignored without one).
-template <bool kGrouped>
+template <bool kTree>
 __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
                              float ambient, int shadow_steps, bool opaque,
                              const Topo& tp, int row, Tally& tl) {
-  Hit h = cast_nearest<kGrouped>(s, o, d, mind, tl);
+  Hit h = cast_nearest<kTree>(s, o, d, mind, tl);
   const int per_light = opaque ? 1 : shadow_steps;
   if (tp.codes) tp.codes[(size_t)row * tp.stride] = hit_code(s, tp, h);
   Shaded r;
@@ -269,13 +307,13 @@ __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
     float shadow;
     const int srow = row + 1 + li * per_light;  // this light's first row
     if (opaque) {
-      shadow = occluded<kGrouped>(s, p, sd, 1e-3f, light_dist, tl) ? 1.0f : 0.0f;
+      shadow = occluded<kTree>(s, p, sd, 1e-3f, light_dist, tl) ? 1.0f : 0.0f;
       if (tp.codes) tp.codes[(size_t)srow * tp.stride] = (int)shadow;
     } else {
       shadow = 0.0f;
       float last = 0.0f;
       for (int si = 0; si < shadow_steps; ++si) {
-        Hit sh = cast_nearest<kGrouped>(s, p, sd, last + 1e-3f, tl);
+        Hit sh = cast_nearest<kTree>(s, p, sd, last + 1e-3f, tl);
         bool okm = isfinite(sh.t) && sh.t < light_dist;
         if (!okm) break;
         if (tp.codes)
@@ -319,18 +357,14 @@ __device__ __forceinline__ int subtree_nodes(int level, int bounces,
   return (any_refl || any_transp) ? depth : 1;
 }
 
-template <bool kGrouped>
-__global__ void __launch_bounds__(kBlock)
-fused_forward_kernel(const float* __restrict__ rays, Scene s,
-                     const float* __restrict__ ambient_p,
-                     float* __restrict__ out, int n_rays, int bounces,
-                     int shadow_steps, bool any_refl, bool any_transp,
-                     float fudge, Topo tp,
-                     unsigned long long* __restrict__ tally) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+// One ray through the bounce tree: color into out[i, 0:3], the primary
+// cast's depth and normal into out[i, 3:7].
+template <bool kTree>
+__device__ __forceinline__ void trace_ray(
+    int i, const float* __restrict__ rays, const Scene& s, float ambient,
+    float* __restrict__ out, int bounces, int shadow_steps, bool any_refl,
+    bool any_transp, float fudge, Topo tp, Tally& tl) {
   const float* ray = rays + (size_t)i * 8;
-  const float ambient = *ambient_p;
   const bool opaque = !any_transp;
   const bool branches = any_refl || any_transp;
   const int node_rows = 1 + s.n_lights * (opaque ? 1 : shadow_steps);
@@ -343,13 +377,12 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
   V3 color = v3(0.0f, 0.0f, 0.0f);
   Frame parked[kMaxParked];
   int n_parked = 0;
-  Tally tl;
 
   while (true) {
     bool descend = false;
     if (root || w != 0.0f) {
-      Shaded r = shade_node<kGrouped>(s, o, d, mind, ambient, shadow_steps, opaque,
-                            tp, node * node_rows, tl);
+      Shaded r = shade_node<kTree>(s, o, d, mind, ambient, shadow_steps,
+                                   opaque, tp, node * node_rows, tl);
       if (root) {
         float* q = out + (size_t)i * 7;
         q[3] = r.hit ? r.t_safe : INFINITY;
@@ -407,23 +440,124 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
   q[0] = color.x;
   q[1] = color.y;
   q[2] = color.z;
-  if (tally) {
-    atomicAdd(tally, tl.casts);
-    atomicAdd(tally + 1, tl.visits);
-    atomicAdd(tally + 2, tl.slabs);
+}
+
+// K1's global-memory instance (kTree false) and K3 (kTree true): one ray a
+// thread, tables read from global memory.
+template <bool kTree>
+__global__ void __launch_bounds__(kBlock)
+fused_forward_kernel(const float* __restrict__ rays, Scene s,
+                     const float* __restrict__ ambient_p,
+                     float* __restrict__ out, int n_rays, int bounces,
+                     int shadow_steps, bool any_refl, bool any_transp,
+                     float fudge, Topo tp,
+                     unsigned long long* __restrict__ tally) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  Tally tl;
+  tl.count_needed = tally != nullptr;
+  trace_ray<kTree>(i, rays, s, *ambient_p, out, bounces, shadow_steps,
+                   any_refl, any_transp, fudge, tp, tl);
+  flush_tally(tally, tl);
+}
+
+// Copy n_floats (a multiple of 4) from global to shared memory in 16-byte
+// cp.async chunks spread over the block; returns the next free float.
+__device__ __forceinline__ float* stage(float* dst, const float* src,
+                                        int n_floats) {
+  for (int k = threadIdx.x; k < n_floats / 4; k += blockDim.x) {
+    const unsigned a =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * k));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                 "l"(src + 4 * k)
+                 : "memory");
   }
+  return dst + n_floats;
+}
+
+// The floats K1's shared-memory instance stages (ops/fused.py
+// k1_shared_bytes counts the same).
+__host__ __device__ __forceinline__ size_t shared_floats(
+    int m, int c, int n_planes, int n_spheres, int n_mats, int n_lights) {
+  return (size_t)m * c * kTriRows + (size_t)m * kAabbRows +
+         (size_t)(n_planes + n_spheres) * kPsRows + (size_t)n_mats * kMatRows +
+         (size_t)n_lights * kLightRows;
+}
+
+// K1's shared-memory instance: persistent blocks, the scene staged once
+// per block; then each warp takes the next 32 rays from a counter
+// (`next_chunk`, zeroed by the caller) until none are left, so warps that
+// draw cheap rays (misses) take more of them.
+__global__ void __launch_bounds__(kSmemBlock, 2)
+fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
+                            const float* __restrict__ ambient_p,
+                            float* __restrict__ out, int n_rays, int bounces,
+                            int shadow_steps, bool any_refl, bool any_transp,
+                            float fudge, Topo tp,
+                            unsigned long long* __restrict__ tally,
+                            int* __restrict__ next_chunk) {
+  extern __shared__ float4 smem4[];
+  float* p = reinterpret_cast<float*>(smem4);
+  Scene ss = s;
+  ss.cl.tri = p;
+  p = stage(p, s.cl.tri, s.cl.m * s.cl.c * kTriRows);
+  ss.cl.aabb = p;
+  p = stage(p, s.cl.aabb, s.cl.m * kAabbRows);
+  ss.planes = p;
+  p = stage(p, s.planes, s.n_planes * kPsRows);
+  ss.spheres = p;
+  p = stage(p, s.spheres, s.n_spheres * kPsRows);
+  ss.mats = p;
+  p = stage(p, s.mats, s.n_mats * kMatRows);
+  ss.lights = p;
+  stage(p, s.lights, s.n_lights * kLightRows);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const float ambient = *ambient_p;
+  Tally tl;
+  tl.count_needed = tally != nullptr;
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = (n_rays + 31) / 32;
+  while (true) {
+    int chunk = 0;
+    if (lane == 0) chunk = atomicAdd(next_chunk, 1);
+    chunk = __shfl_sync(0xffffffffu, chunk, 0);
+    if (chunk >= n_chunks) break;
+    const int i = chunk * 32 + lane;
+    if (i < n_rays)
+      trace_ray<false>(i, rays, ss, ambient, out, bounces, shadow_steps,
+                       any_refl, any_transp, fudge, tp, tl);
+  }
+  flush_tally(tally, tl);
 }
 
 }  // namespace
 
+// The largest dynamic shared memory a block of the current device may opt
+// in to (bytes), into *bytes; returns the CUDA error code.
+extern "C" int cutrace_shared_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
 // Launches the kernel on `stream` over n_rays rays; returns the CUDA error
-// code of the launch (0 on success). Refuses (cudaErrorInvalidValue) a
-// two-branch tree deeper than the parked-frame stack. `codes` (K x n_rays
-// int32, pre-filled by the caller) receives the topology codes, with t_cnt
-// and p_cnt the padded triangle and plane leaf lengths; `tally` (3 x u64,
-// zeroed by the caller) receives the casts, admitted cluster visits and
-// slab tests. Either may be null. With `groups` ((ceil(m / 32), 8) group
-// boxes) the K3 instance runs, the two-level cull; without, K1's flat one.
+// code of the launch (0 on success). `instance` is kInstanceK1Global,
+// kInstanceK1Shared or kInstanceK3 (ops/fused.py picks it from the
+// partition's size); a K1 shared-memory launch whose tables exceed the
+// block limit, K3 without a tree, or a two-branch tree deeper than the
+// parked-frame stack is refused (cudaErrorInvalidValue), never run as
+// another instance. `codes` (K x n_rays int32, pre-filled by the caller)
+// receives the topology codes, with t_cnt and p_cnt the padded triangle
+// and plane leaf lengths; `tally` (4 x u64, zeroed by the caller) receives
+// the casts, admitted cluster visits, slab tests and needed visits. Either
+// may be null. `tree` holds K3's (2 * leaves, 8) tree boxes; `next_chunk`
+// (one int, zeroed by the caller) is the shared-memory instance's work
+// counter.
 extern "C" int cutrace_fused_forward(
     const float* rays, const float* tri, const float* aabb,
     const float* planes, const float* spheres, const float* mats,
@@ -431,22 +565,54 @@ extern "C" int cutrace_fused_forward(
     int c, int n_planes, int n_spheres, int n_lights, int n_mats,
     int bounces, int shadow_steps, int any_refl, int any_transp, float fudge,
     int* codes, int t_cnt, int p_cnt, unsigned long long* tally,
-    const float* groups, void* stream) {
+    const float* tree, int leaves, int instance, int* next_chunk,
+    void* stream) {
   if (any_refl && any_transp && bounces >= kMaxParked)
     return (int)cudaErrorInvalidValue;
+  if ((instance == kInstanceK3 && (!tree || leaves < m)) ||
+      (instance == kInstanceK1Shared && !next_chunk))
+    return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Scene s{Clusters{tri, aabb, groups, m, c}, planes, spheres, mats, lights,
+  Scene s{Clusters{tri, aabb, nullptr, tree, m, c, leaves},
+          planes, spheres, mats, lights,
           n_planes, n_spheres, n_lights, n_mats};
   Topo tp{codes, n_rays, t_cnt, p_cnt};
-  int grid = (n_rays + kBlock - 1) / kBlock;
   cudaStream_t st = (cudaStream_t)stream;
-  if (groups)
+  const bool refl = any_refl != 0, transp = any_transp != 0;
+  if (instance == kInstanceK1Shared) {
+    const size_t bytes =
+        4 * shared_floats(m, c, n_planes, n_spheres, n_mats, n_lights);
+    int limit = 0, dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = (cudaError_t)cutrace_shared_limit(&limit);
+    if (err != cudaSuccess) return (int)err;
+    if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(fused_forward_shared_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_forward_shared_kernel, kSmemBlock, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (n_rays + kSmemBlock - 1) / kSmemBlock;
+    const int grid = min(tiles, max(per_sm, 1) * sms);
+    fused_forward_shared_kernel<<<grid, kSmemBlock, bytes, st>>>(
+        rays, s, ambient, out, n_rays, bounces, shadow_steps, refl, transp,
+        fudge, tp, tally, next_chunk);
+    return (int)cudaGetLastError();
+  }
+  const int grid = (n_rays + kBlock - 1) / kBlock;
+  if (instance == kInstanceK3)
     fused_forward_kernel<true><<<grid, kBlock, 0, st>>>(
-        rays, s, ambient, out, n_rays, bounces, shadow_steps, any_refl != 0,
-        any_transp != 0, fudge, tp, tally);
-  else
+        rays, s, ambient, out, n_rays, bounces, shadow_steps, refl, transp,
+        fudge, tp, tally);
+  else if (instance == kInstanceK1Global)
     fused_forward_kernel<false><<<grid, kBlock, 0, st>>>(
-        rays, s, ambient, out, n_rays, bounces, shadow_steps, any_refl != 0,
-        any_transp != 0, fudge, tp, tally);
+        rays, s, ambient, out, n_rays, bounces, shadow_steps, refl, transp,
+        fudge, tp, tally);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

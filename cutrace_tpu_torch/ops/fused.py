@@ -5,8 +5,11 @@ cutrace_tpu.ops.fused).
 Phong with per-light shadow queries, reflection/transparency children ->
 color, depth and normal, for every ray of a batch. On a CUDA tensor it
 launches the hand-written Hopper kernel in `csrc/fused_forward.cu`: K1,
-its flat-cull instance, for partitions of at most LANES_MAX_M clusters,
-and K3, its two-level-cull instance, for bigger ones. On a CPU tensor it
+its flat-cull instances, for partitions of at most LANES_MAX_M clusters
+(the shared-memory instance when the partition's tables fit in a block's
+shared memory, else the global-memory one: `k1_instance` decides before
+the launch), and K3, its ordered-tree-walk instance, for bigger ones. On
+a CPU tensor it
 runs `fused_render_rays_plain`, the composable torch pipeline
 (ops.intersect.ray_cast + render.shading.ray_color) with the dense cast
 over the same cluster partition. The plain version is also what the
@@ -54,9 +57,12 @@ LANES_MAX_M = 32
 # it.
 MAX_NODES = 63
 # Kernel launches on CUDA tensors since import, or since a caller last
-# reset them: K1 without and with topology codes, K3 without and with.
+# reset them, without and with topology codes: K1's shared-memory
+# instance, K1's global-memory instance, K3.
 LAUNCHES = 0
 TOPO_LAUNCHES = 0
+GLOBAL_LAUNCHES = 0
+GLOBAL_TOPO_LAUNCHES = 0
 BIG_LAUNCHES = 0
 BIG_TOPO_LAUNCHES = 0
 
@@ -111,7 +117,7 @@ def check_scope(soa, accel, bounces):
 @dataclasses.dataclass(frozen=True)
 class KernelTables(pc.ClusterTables):
     """The kernels' scene operands: the partition's ClusterTables (slot
-    rows, cluster and group boxes) and the rows below, contiguous float32
+    rows, cluster, group and tree boxes) and the rows below, contiguous float32
     tensors on the scene's device, positions recentered by the scene
     center."""
 
@@ -137,8 +143,9 @@ def _light_table(soa, o0):
 def kernel_tables(soa, accel) -> KernelTables:
     """The kernels' tables for a scene and its cluster partition (the
     counterpart of cutrace_tpu.ops.fused._tables and _light_table, holding
-    only the rows the kernels read; the group boxes take the place of its
-    supercluster rows `aabb2`)."""
+    only the rows the kernels read; the group and tree boxes take the
+    place of its supercluster rows `aabb2`). The tree is built here from
+    the live leaves on every call, as the rest."""
     o0 = soa.scene_center
     dev = o0.device
     f32 = torch.float32
@@ -305,10 +312,59 @@ def replay_supported(soa, accel, bounces: int, n_rays: int = 0) -> bool:
 
 
 _BLOCK = 128  # threads per block; rays are padded to a multiple of it
+# The kernel's instances (csrc/fused_forward.cu kInstance*).
+_K1_GLOBAL, _K1_SHARED, _K3 = 0, 1, 2
+# floats per material and light row (csrc/fused_forward.cu kMatRows,
+# kLightRows)
+_MAT_ROWS = _LIGHT_ROWS = 8
+# the card's shared-memory limit per block (bytes), per device index
+_SHARED_LIMIT: dict = {}
 
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def k1_shared_bytes(soa, tables: KernelTables) -> int:
+    """Bytes K1's shared-memory instance stages per block: the slot rows,
+    cluster boxes and the rows of the scene's planes, spheres, materials
+    and lights (csrc/fused_forward.cu shared_floats)."""
+    return 4 * (tables.tri.numel() + tables.aabb.numel()
+                + (soa.n_planes + soa.n_spheres) * _PS_ROWS
+                + tables.mat.shape[0] * _MAT_ROWS
+                + soa.n_lights * _LIGHT_ROWS)
+
+
+def shared_limit(device) -> int:
+    """The largest dynamic shared memory a block may opt in to on the
+    current CUDA device, from the kernel library (cudaDevAttrMaxShared
+    MemoryPerBlockOptin: 232,448 bytes on an H100), kept per index of
+    `device`."""
+    from cutrace_tpu_torch.ops import _build
+
+    index = torch.device(device).index or 0
+    if index not in _SHARED_LIMIT:
+        out = ctypes.c_int(0)
+        rc = _build.load_library("fused_forward").cutrace_shared_limit(
+            ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"shared-memory limit query failed: CUDA "
+                               f"error {rc}")
+        _SHARED_LIMIT[index] = out.value
+    return _SHARED_LIMIT[index]
+
+
+def k1_instance(soa, tables: KernelTables) -> int:
+    """Which instance runs a partition, decided before the launch: K3
+    past LANES_MAX_M clusters; else K1's shared-memory instance when its
+    tables fit in a block's shared memory on the tables' card, K1's
+    global-memory instance when they do not. Neither gives way to the
+    other after a failed launch."""
+    if tables.tri.shape[0] > LANES_MAX_M:
+        return _K3
+    if k1_shared_bytes(soa, tables) <= shared_limit(tables.tri.device):
+        return _K1_SHARED
+    return _K1_GLOBAL
 
 
 def _check_rays(o, d, device):
@@ -339,18 +395,26 @@ def _code_fill(soa, bounces, device):
 @torch.no_grad()
 def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
                         emit_topo=False, tally=None):
-    """Launch the kernel: K1 for at most LANES_MAX_M clusters, K3 past
-    that. With `emit_topo` it also returns the codes as an (R, K) view of
-    its (K, R_pad) buffer; `tally`, a zeroed (3,) int64 CUDA tensor,
-    receives the casts, admitted cluster visits and slab tests."""
+    """Launch the kernel's instance `k1_instance` picks: K1 (shared or
+    global memory) for at most LANES_MAX_M clusters, K3 past that. With
+    `emit_topo` it also returns the codes as an (R, K) view of its
+    (K, R_pad) buffer; `tally`, a zeroed (4,) int64 CUDA tensor, receives
+    the casts, admitted cluster visits, slab tests and the cluster visits
+    the casts need whatever the traversal (csrc/cast.cuh
+    needed_visits)."""
     from cutrace_tpu_torch.ops import _build
 
-    global LAUNCHES, TOPO_LAUNCHES, BIG_LAUNCHES, BIG_TOPO_LAUNCHES
+    global LAUNCHES, TOPO_LAUNCHES, GLOBAL_LAUNCHES, GLOBAL_TOPO_LAUNCHES
+    global BIG_LAUNCHES, BIG_TOPO_LAUNCHES
     dev = tables.tri.device
     _check_rays(o, d, dev)
     r = o.shape[0]
     m, c = tables.tri.shape[:2]
-    big = m > LANES_MAX_M
+    instance = k1_instance(soa, tables)
+    for f in ("tri", "aabb", "plane", "sphere", "mat", "lights", "tree"):
+        if getattr(tables, f).data_ptr() % 16:
+            raise ValueError(f"tables.{f}: the kernel reads 16-byte rows; "
+                             f"the tensor must start on a 16-byte boundary")
     r_pad = -(-r // _BLOCK) * _BLOCK
     # rays: [o - o0, d, min_dist, 0]; padding rays get min_dist = +inf, so
     # they can never hit anything
@@ -366,10 +430,12 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         codes = _code_fill(soa, bounces, dev)[:, None].expand(
             -1, r_pad).contiguous()
     if tally is not None and (tally.dtype != torch.int64
-                              or tuple(tally.shape) != (3,)
+                              or tuple(tally.shape) != (4,)
                               or tally.device != dev):
-        raise ValueError("tally: expected a (3,) int64 tensor on the card")
+        raise ValueError("tally: expected a (4,) int64 tensor on the card")
 
+    # the shared-memory instance's work counter
+    next_chunk = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = _build.load_library("fused_forward")
     rc = lib.cutrace_fused_forward(
         _ptr(rays), _ptr(tables.tri), _ptr(tables.aabb), _ptr(tables.plane),
@@ -380,22 +446,28 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         int(soa.any_reflective), int(soa.any_transparent), float(fudge),
         None if codes is None else _ptr(codes), soa.tri_p1.shape[0],
         soa.pl_point.shape[0], None if tally is None else _ptr(tally),
-        _ptr(tables.groups) if big else None,
+        _ptr(tables.tree) if instance == _K3 else None,
+        tables.tree.shape[0] // 2, instance,
+        _ptr(next_chunk) if instance == _K1_SHARED else None,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"fused forward kernel launch failed: CUDA "
                            f"error {rc}")
     if codes is None:
-        if big:
+        if instance == _K3:
             BIG_LAUNCHES += 1
-        else:
+        elif instance == _K1_SHARED:
             LAUNCHES += 1
+        else:
+            GLOBAL_LAUNCHES += 1
         return out[:r, 0:3], out[:r, 3], out[:r, 4:7]
-    if big:
+    if instance == _K3:
         BIG_TOPO_LAUNCHES += 1
-    else:
+    elif instance == _K1_SHARED:
         TOPO_LAUNCHES += 1
+    else:
+        GLOBAL_TOPO_LAUNCHES += 1
     return out[:r, 0:3], out[:r, 3], out[:r, 4:7], codes[:, :r].T
 
 

@@ -15,9 +15,10 @@ ops, so autograd reaches the vertices with no custom backward.
 
 Both read the per-slot rows `cluster_tables` builds from the scene and its
 partition (the (M, C, 24) triangle table of the fused kernels, whose first
-18 rows are the cast constants of `_cluster_constants`, the cluster boxes
-and the group boxes of ops.bvh.group_boxes), all positions recentered by
-the scene center.
+18 rows are the cast constants of `_cluster_constants`, the cluster boxes,
+the group boxes of ops.bvh.group_boxes and the widened tree boxes of
+ops.bvh.tree_boxes, which K3 walks), all positions recentered by the
+scene center.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ _TRI_NAMES = (
 _TRI_ROWS = 24
 # the rows the query reads
 _CONST_NAMES = _TRI_NAMES[:18]
-# (M, 8) cluster boxes and (G, 8) group boxes: bmin xyz, bmax xyz, 0, 0
+# (M, 8) cluster boxes, (G, 8) group boxes and (2L, 8) tree boxes: bmin
+# xyz, bmax xyz, 0, 0
 _AABB_ROWS = 8
 # (rays x slots) elements per batch of the plain version
 _PLAIN_ELEMS = 1 << 22
@@ -81,6 +83,7 @@ class ClusterTables:
     tri: torch.Tensor  # (M, C, _TRI_ROWS) per-slot rows
     aabb: torch.Tensor  # (M, _AABB_ROWS) cluster boxes
     groups: torch.Tensor  # (ceil(M / bvh.GROUP), _AABB_ROWS) group boxes
+    tree: torch.Tensor  # (2 * bvh.tree_leaves(M), _AABB_ROWS) widened tree
 
 
 @torch.no_grad()
@@ -104,8 +107,10 @@ def cluster_tables(soa, accel) -> ClusterTables:
     aabb = torch.zeros((m, _AABB_ROWS), dtype=f32, device=o0.device)
     aabb[:, 0:3] = bmin
     aabb[:, 3:6] = bmax
-    groups = bvh.group_boxes(bmin, bmax, clusters.valid.any(dim=1))
-    return ClusterTables(tri=tri, aabb=aabb, groups=groups)
+    live = clusters.valid.any(dim=1)
+    groups = bvh.group_boxes(bmin, bmax, live)
+    tree = bvh.widen_tree(bvh.tree_boxes(bmin, bmax, live))
+    return ClusterTables(tri=tri, aabb=aabb, groups=groups, tree=tree)
 
 
 @torch.no_grad()
@@ -158,8 +163,10 @@ def _ptr(t):
 
 @torch.no_grad()
 def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
-    """Launch the kernel; `tally`, a zeroed (3,) int64 CUDA tensor,
-    receives the casts, admitted cluster visits and slab tests."""
+    """Launch the kernel; `tally`, a zeroed (4,) int64 CUDA tensor,
+    receives the casts, admitted cluster visits, slab tests and the
+    cluster visits the casts need (those whose box the ray enters by its
+    winner's t)."""
     from cutrace_tpu_torch.ops import _build
 
     global LAUNCHES
@@ -172,9 +179,9 @@ def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
             raise ValueError(f"{name}: expected float32 {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if tally is not None and (tally.dtype != torch.int64
-                              or tuple(tally.shape) != (3,)
+                              or tuple(tally.shape) != (4,)
                               or tally.device != dev):
-        raise ValueError("tally: expected a (3,) int64 tensor on the card")
+        raise ValueError("tally: expected a (4,) int64 tensor on the card")
     m, c = tables.tri.shape[:2]
     rays = torch.zeros((r, 8), dtype=torch.float32, device=dev)
     rays[:, 0:3] = o

@@ -95,7 +95,7 @@ def probe(path: pathlib.Path, plain: bool) -> dict:
 
     rec.update(
         kernel_ms=per_frame_ms(e for e in dev
-                               if "fused_forward_kernel" in e.key),
+                               if "fused_forward" in e.key),
         device_ms=per_frame_ms(dev),
         htod_ms=per_frame_ms(e for e in dev if "HtoD" in e.key),
         device_ops=sum(e.count for e in dev) / PROFILED,

@@ -183,7 +183,7 @@ def test_scope_is_enforced(scenes_dir):
     assert tuple(codes.shape) == (16, 49) and codes.dtype == torch.int32
     # a partition of 33 empty clusters renders nothing but the planes
     wide = tbvh.accel_from_numpy(np.full((33, 64), 2**30, np.int32),
-                                 np.zeros((33, 64), bool))
+                                 np.zeros((33, 64), bool), device="cpu")
     c1, d1, _ = tfused.fused_render_rays(soa, wide, o, d, 1e-3, 1)
     c2, d2, _ = tfused.fused_render_rays(soa, deep.accel, o, d, 1e-3, 1)
     assert torch.equal(d1, d2) and torch.equal(c1, c2)
@@ -218,6 +218,25 @@ def test_kernel_row_layout_matches_source():
     assert f"kPsRows = {tfused._PS_ROWS};" in src
     assert f"kAabbRows = {tpc._AABB_ROWS};" in src
     assert f"kGroup = {tbvh.GROUP};" in src
+    # the tree K3 walks is ops.bvh's
+    assert f"kTreeArity = {tbvh.TREE_ARITY};" in src
+    assert f"kTreeStack = 32;" in src
+    # a slot test reads whole float4s: rows 0-15 (n, ub, ug, a, b, k) and
+    # 16-19 (order, valid, snx, sny); a slot row is a whole number of
+    # 16-byte vectors, so every row of a table starts on one
+    read = int(re.search(r"kSlotRead = (\d+);", src).group(1))
+    assert read == 20 and read % 4 == 0
+    assert consts["T_K"] == 15 and consts["T_ORDER"] // 4 == 4
+    assert consts["T_VALID"] // 4 == 4 and consts["T_VALID"] < read
+    assert (tpc._TRI_ROWS * 4) % 16 == 0 and (tpc._AABB_ROWS * 4) % 16 == 0
+    # the instances and the rows K1's shared-memory instance stages
+    inst = dict((k, int(v)) for k, v in re.findall(
+        r"\b(kInstance\w+) = (\d+)", src))
+    assert inst == {"kInstanceK1Global": tfused._K1_GLOBAL,
+                    "kInstanceK1Shared": tfused._K1_SHARED,
+                    "kInstanceK3": tfused._K3}
+    assert f"kMatRows = {tfused._MAT_ROWS};" in src
+    assert f"kLightRows = {tfused._LIGHT_ROWS};" in src
     for name in ("fused_forward", "cluster_cast"):
         assert [p.name for p in _build.included_headers(
             _build.SOURCES[name])] == ["cast.cuh"]
@@ -260,43 +279,64 @@ def test_library_path_follows_included_headers(tmp_path):
     assert _build.library_path(src) != first
 
 
-def test_wrapper_launch_contract(scenes_dir, monkeypatch):
-    """The CUDA wrapper's host side, with a stand-in library: the launch
-    gets the partition's sizes, LAUNCHES counts successful launches only,
-    a CUDA error code raises, and rays of the wrong type raise before any
-    launch."""
-    calls = []
+class FakeLib:
+    """A stand-in for the kernel library: records each launch's arguments
+    and answers the shared-memory limit query with `limit`."""
 
-    class FakeLib:
-        rc = 0
+    def __init__(self, limit=232448):
+        self.rc, self.limit, self.calls = 0, limit, []
 
-        def cutrace_fused_forward(self, *args):
-            calls.append(args)
-            return self.rc
+    def cutrace_fused_forward(self, *args):
+        self.calls.append(args)
+        return self.rc
 
-    lib = FakeLib()
+    def cutrace_shared_limit(self, out):
+        out._obj.value = self.limit
+        return 0
+
+
+def _fake_library(monkeypatch, limit=232448):
+    lib = FakeLib(limit)
     monkeypatch.setattr(_build, "load_library",
                         lambda name="fused_forward": lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(tfused, "_SHARED_LIMIT", {})
+    return lib
+
+
+def test_wrapper_launch_contract(scenes_dir, monkeypatch):
+    """The CUDA wrapper's host side, with a stand-in library: the launch
+    gets the partition's sizes and the instance the size rule picks (K1's
+    shared-memory instance for bunny, no tree), each instance's counter
+    counts its successful launches only, K3 gets the tree boxes, a CUDA
+    error code raises, and rays of the wrong type raise before any
+    launch."""
+    lib = _fake_library(monkeypatch)
+    calls = lib.calls
     soa = torch_soa(_scene(scenes_dir, "bunny.json", 10, 7))
     tables = tfused.kernel_tables(soa, TR.prepare(soa, accel="fused").accel)
     o, d, _ = TR.block_rays(soa)
     before = tfused.LAUNCHES
     big_before = tfused.BIG_LAUNCHES
+    global_before = tfused.GLOBAL_LAUNCHES
     color, depth, normal = tfused._fused_forward_cuda(soa, tables, o, d,
                                                       1e-3, 5)
     assert tfused.LAUNCHES == before + 1
     assert tfused.BIG_LAUNCHES == big_before
+    assert tfused.GLOBAL_LAUNCHES == global_before
     assert tuple(color.shape) == (70, 3) and tuple(depth.shape) == (70,)
     ints = calls[0][9:20]
     # n_rays (padded to the block), M, C, planes, spheres, lights, mats,
     # bounces, shadow steps, any_refl, any_transp
     assert ints == (128, 16, 64, 5, 0, 4, 6, 5, 1, 1, 0)
     # no code buffer or tally; T and P, the padded triangle and plane
-    # leaf lengths; no group boxes: K1's flat cull
+    # leaf lengths; no tree: K1's flat cull, its shared-memory instance
     assert calls[0][21] is None and calls[0][22:24] == (1000, 5)
     assert calls[0][24] is None and calls[0][25] is None
+    # the shared-memory instance gets its work counter
+    assert calls[0][26:28] == (16, tfused._K1_SHARED)
+    assert calls[0][28] is not None
     topo_before = tfused.TOPO_LAUNCHES
     *_, codes = tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5,
                                            emit_topo=True)
@@ -306,14 +346,16 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     assert (codes[:, 0::5] == -1).all() and (codes[:, 1:5] == 0).all()
     assert calls[1][21] is not None
     calls.pop()
-    # past 32 clusters the same entry point runs K3 with the group boxes
+    # past 32 clusters the same entry point runs K3 with the tree boxes:
+    # M = 125 clusters, 128 leaves
     wide = tbvh.build_accel(soa, 8)
     big_tables = tfused.kernel_tables(soa, wide)
-    assert big_tables.groups.shape == (-(-wide.order.shape[0] // 32), 8)
+    assert big_tables.tree.shape == (256, 8)
     tfused._fused_forward_cuda(soa, big_tables, o, d, 1e-3, 5)
     assert tfused.BIG_LAUNCHES == big_before + 1
     assert calls[-1][10:12] == (wide.order.shape[0], 8)
-    assert calls[-1][25] is not None
+    assert calls[-1][25].value == big_tables.tree.data_ptr()
+    assert calls[-1][26:28] == (128, tfused._K3) and calls[-1][28] is None
     calls.pop()
     lib.rc = 700
     with pytest.raises(RuntimeError, match="CUDA error 700"):
@@ -321,3 +363,48 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         tfused._fused_forward_cuda(soa, tables, o.double(), d, 1e-3, 5)
     assert tfused.LAUNCHES == before + 1 and len(calls) == 2
+
+
+@pytest.mark.parametrize("case", ["bunny", "bunny 4k", "bunny, small card"])
+def test_k1_size_rule(scenes_dir, monkeypatch, case):
+    """K1's instance is picked before the launch from the partition's
+    staged bytes and the card's shared-memory limit: bunny (M=16, C=64,
+    99 KB) fits an H100 block and runs the shared-memory instance
+    (LAUNCHES); the 4k bunny (C=128, M=32, 393 KB), or bunny on a card
+    whose limit is below its bytes, runs the global-memory instance
+    (GLOBAL_LAUNCHES). A failed launch raises and counts nothing."""
+    limit = 99000 if case == "bunny, small card" else 232448
+    lib = _fake_library(monkeypatch, limit)
+    if case == "bunny 4k":
+        soa = TR.prepare(port_scene(_subdivided(scenes_dir, 1, 8, 4)),
+                         accel="fused", device="cpu")
+        soa, accel = soa.soa, soa.accel
+        assert tuple(accel.order.shape) == (32, 128)
+    else:
+        soa = torch_soa(_scene(scenes_dir, "bunny.json", 8, 4))
+        accel = TR.prepare(soa, accel="fused").accel
+    tables = tfused.kernel_tables(soa, accel)
+    m, c = accel.order.shape
+    staged = tfused.k1_shared_bytes(soa, tables)
+    assert staged == 4 * (m * c * 24 + m * 8 + (5 + 0) * 12
+                          + tables.mat.shape[0] * 8 + 4 * 8)
+    want = (tfused._K1_SHARED if case == "bunny" else tfused._K1_GLOBAL)
+    assert (staged <= limit) == (want == tfused._K1_SHARED)
+    assert tfused.k1_instance(soa, tables) == want
+    o, d, _ = TR.block_rays(soa)
+    counts = (tfused.LAUNCHES, tfused.GLOBAL_LAUNCHES, tfused.TOPO_LAUNCHES,
+              tfused.GLOBAL_TOPO_LAUNCHES)
+    tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5)
+    tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5, emit_topo=True)
+    assert [a[27] for a in lib.calls] == [want, want]
+    shared = want == tfused._K1_SHARED
+    assert (tfused.LAUNCHES, tfused.GLOBAL_LAUNCHES, tfused.TOPO_LAUNCHES,
+            tfused.GLOBAL_TOPO_LAUNCHES) == (
+        counts[0] + shared, counts[1] + (not shared),
+        counts[2] + shared, counts[3] + (not shared))
+    lib.rc = 1
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5)
+    assert len(lib.calls) == 3 and lib.calls[-1][27] == want
+    assert tfused.LAUNCHES + tfused.GLOBAL_LAUNCHES == (
+        counts[0] + counts[1] + 1)

@@ -166,7 +166,7 @@ def test_emit_topo_past_budget_raises(scenes_dir):
     ROADMAP item, instead of falling back."""
     _, ts = _pair(scenes_dir, "sphere_plane.json", 4, 4)
     accel = tbvh.accel_from_numpy(np.full((1, 64), 2**30, np.int32),
-                                  np.zeros((1, 64), bool))
+                                  np.zeros((1, 64), bool), device="cpu")
     o, d, _ = TR.block_rays(ts)
     import cutrace_tpu_torch.ops.replay as rp
 

@@ -134,10 +134,12 @@ def test_no_cutrace_tpu_import_in_the_port():
 
 
 @pytest.mark.parametrize("entry", ["scene_to_soa", "soa_from_numpy",
-                                   "params_from_numpy", "prepare", "render"])
+                                   "params_from_numpy", "accel_from_numpy",
+                                   "prepare", "render"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without device=, the entry points ask for the card: with no card
     they raise and never run on the CPU."""
+    from cutrace_tpu_torch.ops import bvh as tbvh
     from cutrace_tpu_torch.render import renderer
     from cutrace_tpu_torch.scene import soa as tsoa
 
@@ -149,6 +151,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "soa_from_numpy": lambda: tsoa.soa_from_numpy(leaves, meta),
         "params_from_numpy": lambda: tsoa.params_from_numpy(
             {"ambient": np.float32(0.1)}),
+        "accel_from_numpy": lambda: tbvh.accel_from_numpy(
+            np.zeros((1, 64), np.int32), np.ones((1, 64), bool)),
         "prepare": lambda: renderer.prepare(sc, accel="fused"),
         "render": lambda: renderer.render(sc, bounces=1),
     }

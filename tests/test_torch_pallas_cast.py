@@ -77,7 +77,7 @@ def test_cast_clusters_matches_jax(scenes_dir, cluster_size):
 
     ts = scene_to_soa(port_scene(sc), device="cpu")
     accel = tbvh.accel_from_numpy(np.asarray(ja.order), np.asarray(ja.valid),
-                                  kind="pallas")
+                                  device="cpu", kind="pallas")
     tables = tpc.cluster_tables(ts, accel)
     before = tpc.LAUNCHES
     t, order = tpc.cast_clusters(tables, torch.from_numpy(o) - ts.scene_center,
@@ -140,7 +140,7 @@ def test_pallas_grad_matches_jax(scenes_dir):
     _, want = jgrad.grad_render_loss(js, jnp.asarray(target), 2, accel=ja)
     ts = scene_to_soa(port_scene(sc), device="cpu")
     accel = tbvh.accel_from_numpy(np.asarray(ja.order), np.asarray(ja.valid),
-                                  kind="pallas")
+                                  device="cpu", kind="pallas")
     loss, got = tgrad.grad_render_loss(ts, torch.from_numpy(target), 2,
                                        accel=accel)
     assert np.isfinite(loss.item())

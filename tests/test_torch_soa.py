@@ -75,7 +75,7 @@ def test_build_accel_partition(scenes_dir, scene, cluster_size):
     assert np.array_equal(port.order.numpy(), np.asarray(ref.order))
     assert np.array_equal(port.valid.numpy(), np.asarray(ref.valid))
     again = tbvh.accel_from_numpy(np.asarray(ref.order),
-                                  np.asarray(ref.valid))
+                                  np.asarray(ref.valid), device="cpu")
     assert torch.equal(again.order, port.order)
     assert torch.equal(again.valid, port.valid)
 
