@@ -43,7 +43,10 @@ line) if any phase fails:
              codes and numpy-seeded cotangents (depth cotangents zero on
              misses): every non-camera parameter group, d_o and d_d under
              isclose(rtol=2e-3, atol=2e-3 * scale)
-             (tests/test_replay_vjp.py:71-78)
+             (tests/test_replay_vjp.py:71-78); the instance
+             (ops.replay_vjp.vjp_instance) and its compiled resources on
+             each line; at 1080p the kernel's time alone (CUDA events
+             around the library call) beside the wrapper's
   8. grad    one full gradient step, loss = mean((c - 0.9 c0)^2) over all
              19 parameter groups, on bunny 1920x1080 b5: finite gradients,
              both kernels launched; s/step by CUDA events (mean of 3 after
@@ -74,20 +77,27 @@ line) if any phase fails:
              and 65,536 seeded rays, on the bunny (M=16) and 256k
              (M=1024) partitions: orders equal but for knife edges (at
              most 0.1 % of rays), t within isclose(rtol 1e-5, atol
-             1e-5 |o - o0|); K4's time and bounds on the 1080p primary
-             rays in one launch, and summed over its launches (at most
-             65,536 rays each) inside one --accel pallas bunny 1080p b5
-             frame
+             1e-5 |o - o0|), each partition's instance (flat or tree)
+             and its compiled resources; K4's time and bounds on the
+             1080p primary rays in one launch, and summed over its
+             launches (65,536 rays for a nearest cast, 262,144 for the
+             four lights' shadow casts) inside one --accel pallas bunny
+             1080p b5 frame
  15. pallas  the CLI with --accel pallas at bunny 1920x1080 b5: three
              JPEGs, K4 launched, K1/K3 not; the pallas render at 480x270
              b5 against the dense cast under the forward gate
- 16. fallback  a transparent bunny (mesh transparency 0.5): at 160x90 b6
+ 16. trace   torch.profiler over one warm --accel pallas bunny 1920x1080
+             b5 render: host ops by count and time, kernel launches, the
+             device's busy time and idle share, the gaps between device
+             activities, and K4's device time a launch (`--trace-out
+             PATH.json.gz` keeps the chrome trace)
+ 17. fallback  a transparent bunny (mesh transparency 0.5): at 160x90 b6
              (127 nodes) render takes the composable culling cast and
              matches brute force; at b5 (567 code rows, past the replay's
              512) a gradient step runs K1 forward and the composable
              backward through K4, within rtol 2e-3 of autograd of brute
              force
- 17. result  a JSON line of per-kernel numbers, then the contract line
+ 18. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
@@ -130,7 +140,7 @@ PARITY = (
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
-          "cast", "pallas", "fallback")
+          "cast", "pallas", "trace", "fallback")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -307,8 +317,8 @@ def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
     plane and sphere tests and C slot tests for each cluster it needs
     (the tally's needed visits: clusters entered by the final winner's t,
     or before the light). "bound_admitted": the kernel's own work, its
-    slab tests and its admitted visits (and the group boxes of a
-    two-level cull among the bytes), which a better cull lowers."""
+    slab tests and its admitted visits (and the tree boxes of a tree
+    walk among the bytes), which a better cull lowers."""
     m, c = accel.order.shape
     names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
     table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
@@ -319,7 +329,7 @@ def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
     return {"bound": _bound(nbytes, needed * c * OPS_TRI_SLOT
                             + casts * per_cast),
             "bound_admitted": _bound(
-                nbytes + (tables.groups.numel() * 4 if m > 32 else 0),
+                nbytes + (tables.tree.numel() * 4 if m > 32 else 0),
                 visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
                 + casts * per_cast)}
 
@@ -329,15 +339,17 @@ def cast_bound(tables, n_rays, tally):
     t and order out and the 18 cast rows of the slot table plus the
     cluster boxes, against the float operations of the cluster visits
     the casts need ("bound"), or ("bound_admitted") of the kernel's own
-    slab tests and admitted visits (group boxes among the bytes)."""
+    slab tests and admitted visits (the tree boxes of a tree walk among
+    the bytes)."""
     m, c = tables.tri.shape[:2]
     nbytes = n_rays * (8 + 2) * 4 + m * c * 18 * 4 + tables.aabb.numel() * 4
     casts, visits, slabs, needed = (int(x) for x in tally.tolist())
     return {"bound": _bound(nbytes, needed * c * OPS_TRI_SLOT
                             + casts * OPS_CAST),
-            "bound_admitted": _bound(nbytes + tables.groups.numel() * 4,
-                                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
-                                + casts * OPS_CAST)}
+            "bound_admitted": _bound(
+                nbytes + (tables.tree.numel() * 4 if m > 32 else 0),
+                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
+                + casts * OPS_CAST)}
 
 
 def bound_text(b):
@@ -352,6 +364,44 @@ def tally_text(tally):
     n = max(casts, 1)
     return (f"casts {casts}, a cast: slab tests {slabs / n:.2f}, admitted "
             f"visits {visits / n:.3f}, needed visits {needed / n:.3f}")
+
+
+def resources_text(res):
+    return (f"{res['registers']} registers, {res['local_bytes']} local "
+            f"bytes a thread, {res['static_shared_bytes']} static shared "
+            f"bytes, at most {res['max_threads']} threads")
+
+
+def library_ms(lib_name, fn_name, call, reps):
+    """Mean ms of the library's `fn_name` launches alone inside `call()`
+    run `reps` times: CUDA events around each library call, the
+    wrapper's packing left out. Returns (kernel ms a call, launches a
+    call)."""
+    from cutrace_tpu_torch.ops import _build
+
+    lib = _build.load_library(lib_name)
+    load = _build.load_library
+    events = []
+
+    def timed(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        rc = getattr(lib, fn_name)(*args)
+        ev[1].record()
+        events.append(ev)
+        return rc
+
+    stand_in = types.SimpleNamespace(**{fn_name: timed})
+    _build.load_library = (lambda name: stand_in if name == lib_name
+                           else load(name))
+    try:
+        for _ in range(reps):
+            call()
+    finally:
+        _build.load_library = load
+    torch.cuda.synchronize()
+    total = sum(a.elapsed_time(b) for a, b in events)
+    return total / reps, len(events) / reps
 
 
 def vjp_bound(soa, codes, bounces):
@@ -498,6 +548,8 @@ def run_topo(label, prepared, bounces, fused, rp, rec):
 def run_vjp(label, soa, o, d, codes, bounces, rp, rv, seed, rec):
     """The vjp phase on one scene: the kernel against the chunked plain
     version at the scene leaves. Returns the largest relative error."""
+    from cutrace_tpu_torch.ops import _build
+
     r = o.shape[0]
     rng = np.random.default_rng(seed)
     cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(o.device)
@@ -527,17 +579,29 @@ def run_vjp(label, soa, o, d, codes, bounces, rp, rv, seed, rec):
                 f"{label} {name}: {(~ok).sum()}/{a.size} mismatch, max "
                 f"|diff| {np.abs(a - b).max():.3e} at scale {scale:.3e}")
         worst = max(worst, float(np.abs(a - b).max() / scale))
+    inst = rv.vjp_instance(soa, bounces)
+    res = _build.kernel_attributes("replay_vjp", inst.code, inst.nodes)
     phase("vjp", f"{label}: 15 groups + d_o, d_d within the gate; max "
-          f"relative error {worst:.2e}")
+          f"relative error {worst:.2e}; instance {inst.shape} of "
+          f"{inst.nodes} nodes, {inst.sums} sums, {inst.block} threads, "
+          f"{inst.shared_bytes} shared bytes a block; "
+          + resources_text(res))
     if rec is not None:
         tables = rv.backward_tables(soa)
         kern = lambda: rv.vjp_tables(soa, *tables, o, d, codes, cot,  # noqa: E731
                                      1e-3, bounces)
         kern()
-        rec["vjp_ms"] = cuda_ms(kern, 10)
+        rec["vjp_wrapper_ms"] = cuda_ms(kern, 10)
+        rec["vjp_ms"], n = library_ms("replay_vjp", "cutrace_replay_vjp",
+                                      kern, 10)
+        if n != 1:
+            raise AssertionError(f"{label}: {n} K2 launches a call")
         rec["vjp_plain_ms"] = plain_ms
         rec["vjp_bound"] = vjp_bound(soa, codes, bounces)
-        phase("vjp", f"{label}: kernel {rec['vjp_ms']:.3f} ms, plain "
+        rec["vjp_instance"] = dataclasses.asdict(inst)
+        rec["vjp_resources"] = res
+        phase("vjp", f"{label}: kernel {rec['vjp_ms']:.3f} ms (the library "
+              f"call alone), wrapper {rec['vjp_wrapper_ms']:.3f} ms, plain "
               f"{plain_ms:.0f} ms; bound {rec['vjp_bound'][0]:.3f} ms "
               f"({rec['vjp_bound'][1]})")
     return worst
@@ -609,7 +673,7 @@ def big_prepared(m, levels, w, h):
 
 
 def tally_of(fn):
-    """Run fn(tally) on a zeroed (3,) int64 tally; return it."""
+    """Run fn(tally) on a zeroed (4,) int64 tally; return it."""
     tally = torch.zeros(4, dtype=torch.int64, device="cuda")
     fn(tally)
     torch.cuda.synchronize()
@@ -655,11 +719,14 @@ def phase_k1_global(m, rec, launches):
     rec["k1g_bound"] = forward_bound(soa, accel, tables, o.shape[0], tally,
                                      0)
     rec["k1g_shape"] = label
+    rec["k1g_resources"] = m.build.kernel_attributes("fused_forward",
+                                                     m.fused._K1_GLOBAL)
     phase("parity", f"{label}: K1 global-memory instance "
           f"{m.fused.k1_shared_bytes(soa, tables)} bytes of tables (limit "
           f"{m.fused.shared_limit(o.device)}), launches {counts}; "
           f"{rec['k1g_ms']:.3f} ms, plain {rec['k1g_plain_ms']:.0f} ms; "
           f"{tally_text(tally)}; " + bound_text(rec["k1g_bound"])
+          + "; " + resources_text(rec["k1g_resources"])
           + f"; {time.perf_counter() - t0:.1f} s")
 
 
@@ -696,9 +763,12 @@ def phase_big_parity(m, rec):
             rec["big_bound"] = forward_bound(soa, accel, prepared.tables,
                                              o.shape[0], tally, 0)
             rec["big_shape"] = label
+            rec["big_resources"] = m.build.kernel_attributes(
+                "fused_forward", m.fused._K3)
             phase("big-parity", f"{label}: K3 {rec['big_ms']:.3f} ms, plain "
                   f"{plain_s * 1e3:.0f} ms; {tally_text(tally)}; "
-                  + bound_text(rec["big_bound"]))
+                  + bound_text(rec["big_bound"]) + "; "
+                  + resources_text(rec["big_resources"]))
         out[label] = prepared
         phase("big-parity", f"{label} done in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -881,7 +951,7 @@ def probe_split(m, prepared, o, d, row):
                        device=o.device)
     alone = m.pc.ClusterTables(
         tri=prepared.tables.tri[mi:mi + 1].contiguous(), aabb=box,
-        groups=box, tree=box)
+        tree=torch.cat([box, box]))
     _, one = m.pc.cast_clusters(alone, oc, d, md)
     return (f"node {cast_rows.index(row)}: the plain winner is triangle "
             f"{want} (smallest barycentric {min(u, v, 1 - u - v):.2e} in "
@@ -1135,8 +1205,14 @@ def phase_cast(m, big_prepared_256k, smi, rec):
                                                keepdims=True)).astype(
         np.float32))
     err = 0.0
+    rec["cast_resources"] = {}
     for label, prepared in (("bunny M=16", bunny),
                             ("bunny/256k M=1024", big_prepared_256k)):
+        code = m.pc.k4_instance(prepared.tables)
+        inst = "tree" if code == m.pc._K4_TREE else "flat"
+        res = m.build.kernel_attributes("cluster_cast", code)
+        rec["cast_resources"][inst] = res
+        phase("cast", f"{label}: instance {inst}; " + resources_text(res))
         soa = prepared.soa
         o, d, _ = m.block_rays(bunny.soa)
         o = o - soa.scene_center
@@ -1193,7 +1269,7 @@ def k4_in_frame(m, prepared, rec):
         def cutrace_cluster_cast(self, *args):
             t = torch.zeros(4, dtype=torch.int64, device="cuda")
             tallies.append((args[6], t))
-            args = (*args[:9], m.fused._ptr(t), args[10])
+            args = (*args[:11], m.fused._ptr(t), args[12])
             return lib.cutrace_cluster_cast(*args)
 
     m.render(prepared, bounces=5)  # warm-up
@@ -1220,7 +1296,8 @@ def k4_in_frame(m, prepared, rec):
     rec["cast_frame"] = {"launches": n, "ms": total, "bound": frame,
                          "rays": sum(r for r, _ in tallies)}
     phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame: "
-          f"{n} launches of at most 65536 rays ({rec['cast_frame']['rays']} "
+          f"{n} launches of 65536 or 262144 rays "
+          f"({rec['cast_frame']['rays']} "
           f"rays), {total:.3f} ms summed ({total / n:.4f} ms a launch); "
           f"{tally_text(tally)}; summed " + bound_text(frame)
           + f"; plain on one 65536-ray chunk "
@@ -1269,6 +1346,127 @@ def phase_pallas(m, smi, rec, launches):
         if off or on > EDGE_BUDGET * max(n_edges, 1):
             raise AssertionError(f"pallas {k}: the culling cast's render "
                                  f"departs from the dense cast's")
+
+
+def device_intervals(events):
+    """Sorted (start, end) µs of the device activities of a chrome trace:
+    kernels, copies and memsets."""
+    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in (
+                      "kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def trace_summary(events, key_averages, wall_ms):
+    """What one traced frame spent where: the device's busy time (the
+    union of its activities) and idle share over the traced wall time,
+    the gaps between device activities, kernel launches and copies by the
+    host, host ops by count and self time, and the device time of the
+    kernels by name."""
+    spans = device_intervals(events)
+    busy, gaps, end = 0.0, [], None
+    for a, b in spans:
+        if end is not None and a > end:
+            gaps.append(a - end)
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    runtime = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "cuda_runtime":
+            runtime[e["name"]] = runtime.get(e["name"], 0) + 1
+    kernels = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"][:60], [0, 0.0])
+            k[0] += 1
+            k[1] += e["dur"]
+    ops = sorted(((a.key, a.count, a.self_cpu_time_total)
+                  for a in key_averages), key=lambda x: -x[2])
+    # torch ops the Python code called: cpu_op events not nested in
+    # another one of their thread
+    top, ends = 0, {}
+    for e in sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "cpu_op"), key=lambda e: e["ts"]):
+        if e["ts"] >= ends.get(e["tid"], -1.0):
+            top += 1
+            ends[e["tid"]] = e["ts"] + e["dur"]
+    big_gaps = [g for g in gaps if g > 50.0]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
+        "device_activities": len(spans),
+        "gaps": len(gaps), "gaps_ms": sum(gaps) / 1e3,
+        "gaps_over_50us": len(big_gaps),
+        "gaps_over_50us_ms": sum(big_gaps) / 1e3,
+        "largest_gap_ms": max(gaps, default=0.0) / 1e3,
+        "runtime_calls": dict(sorted(runtime.items(),
+                                     key=lambda kv: -kv[1])[:8]),
+        "host_ops": top,
+        "host_ops_nested": sum(1 for e in events if e.get("ph") == "X"
+                               and e.get("cat") == "cpu_op"),
+        "top_host_ops": [(k, c, round(t / 1e3, 3)) for k, c, t in ops[:12]],
+        "top_kernels": sorted(
+            ([k, n, round(t / 1e3, 3)] for k, (n, t) in kernels.items()),
+            key=lambda x: -x[2])[:10],
+        "k4": [sum(n for k, (n, _) in kernels.items()
+                   if "cluster_cast" in k),
+               sum(t for k, (_, t) in kernels.items()
+                   if "cluster_cast" in k) / 1e3],
+    }
+
+
+def phase_trace(m, smi, rec, out_path=None):
+    """torch.profiler (host and device) over one warm --accel pallas bunny
+    1920x1080 b5 render: where the composable path's time goes."""
+    import gzip
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    prepared = m.prepare(m.load_scene(m.scenes / "bunny.json"),
+                         accel="pallas", device="cuda")
+    m.render(prepared, bounces=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        m.render(prepared, bounces=5)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        if out_path is not None:
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+            with open(path, "rb") as f, gzip.open(out_path, "wb") as g:
+                g.write(f.read())
+    summary = trace_summary(events, prof.key_averages(), wall_ms)
+    n_k4, k4_ms = summary["k4"]
+    if n_k4 < 1:
+        raise AssertionError("the traced pallas frame shows no K4 launch")
+    rec["pallas_trace"] = summary
+    phase("trace", f"--accel pallas bunny 1920x1080 b5, one traced render: "
+          f"{wall_ms:.1f} ms wall, device busy {summary['device_busy_ms']:.1f}"
+          f" ms (idle share {summary['device_idle_share']:.3f}) over "
+          f"{summary['device_activities']} activities; gaps "
+          f"{summary['gaps']} ({summary['gaps_ms']:.1f} ms; "
+          f"{summary['gaps_over_50us']} over 50 us, "
+          f"{summary['gaps_over_50us_ms']:.1f} ms; largest "
+          f"{summary['largest_gap_ms']:.3f} ms); torch ops called "
+          f"{summary['host_ops']} ({summary['host_ops_nested']} with "
+          f"nested ones); K4 {n_k4} launches, {k4_ms:.3f} ms of "
+          f"device time ({k4_ms / n_k4:.4f} ms a launch)")
+    phase("trace", "runtime calls " + json.dumps(summary["runtime_calls"]))
+    phase("trace", "host ops by self time (name, count, ms) "
+          + json.dumps(summary["top_host_ops"]))
+    phase("trace", "kernels by device time (name, count, ms) "
+          + json.dumps(summary["top_kernels"])
+          + f"; {time.perf_counter() - t0:.1f} s ({smi})")
 
 
 def transparent_bunny(m, w, h):
@@ -1359,6 +1557,9 @@ def phase_fallback(m, smi, rec):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--skip", nargs="*", default=[], choices=PHASES)
+    ap.add_argument("--trace-out", type=pathlib.Path,
+                    help="write the trace phase's chrome trace here "
+                         "(gzipped JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1467,6 +1668,8 @@ def main(argv=None) -> int:
         rec["bound"] = forward_bound(soa, accel, main_prepared.tables,
                                      o.shape[0], tally, 0)
         shared = fused.k1_instance(soa, main_prepared.tables)
+        rec["k1_resources"] = _build.kernel_attributes("fused_forward",
+                                                       shared)
         if shared != fused._K1_SHARED:
             raise AssertionError("bunny 1080p does not take K1's "
                                  "shared-memory instance")
@@ -1490,7 +1693,8 @@ def main(argv=None) -> int:
               f"global-memory instance {rec['kernel_global_ms']:.3f} ms "
               f"(max |difference| {diff:.2e}), plain {plain_ms[0]:.3f} / "
               f"{plain_ms[1]:.3f} ms; {tally_text(tally)}; "
-              + bound_text(rec["bound"]) + f" ({smi})")
+              + bound_text(rec["bound"]) + "; "
+              + resources_text(rec["k1_resources"]) + f" ({smi})")
 
     # 5. the main path through the CLI
     if "main" not in skip:
@@ -1647,6 +1851,8 @@ def main(argv=None) -> int:
     big.clear()
     if "pallas" not in skip:
         phase_pallas(m, smi, rec, launches)
+    if "trace" not in skip:
+        phase_trace(m, smi, rec, args.trace_out)
     if "fallback" not in skip:
         phase_fallback(m, smi, rec)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
@@ -1673,46 +1879,63 @@ def main(argv=None) -> int:
                 "library_ms": None, **extra}
 
     frame = rec["cast_frame"]
+    k4_dev_n, k4_dev_ms = rec["pallas_trace"]["k4"]
     kernels = [
         entry("fused_forward", fused_src, "cutrace_tpu/ops/fused.py:1734",
               launches["cli"]["fused_forward"], max_err, rec["kernel_ms"],
               rec["plain_ms"], rec["bound"],
-              instance="K1, shared memory",
+              instance="K1, shared memory", resources=rec["k1_resources"],
               global_instance_ms=rec["kernel_global_ms"]),
         entry("fused_forward_topo", fused_src,
               "cutrace_tpu/ops/fused.py:1734",
               launches["train"]["fused_forward_topo"], topo_err,
               rec["topo_ms"], rec["topo_plain_ms"], rec["topo_bound"],
-              instance="K1, shared memory"),
+              instance="K1, shared memory", resources=rec["k1_resources"]),
         entry("fused_forward_global", fused_src,
               "cutrace_tpu/ops/fused.py:1734",
               launches["k1_global"]["fused_forward_global"], rec["k1g_err"],
               rec["k1g_ms"], rec["k1g_plain_ms"], rec["k1g_bound"],
-              instance="K1, global memory", shape=rec["k1g_shape"]),
+              instance="K1, global memory", shape=rec["k1g_shape"],
+              resources=rec["k1g_resources"]),
         entry("replay_vjp", "cutrace_tpu_torch/ops/csrc/replay_vjp.cu",
               "cutrace_tpu/ops/replay_vjp.py:204",
               launches["train"]["replay_vjp"], vjp_err, rec["vjp_ms"],
-              rec["vjp_plain_ms"], rec["vjp_bound"]),
+              rec["vjp_plain_ms"], rec["vjp_bound"],
+              shape="bunny 1920x1080 b5; ms: the library call alone",
+              wrapper_ms=rec["vjp_wrapper_ms"],
+              instance=rec["vjp_instance"], resources=rec["vjp_resources"],
+              at_256k={k: rec["big_topo"][k] for k in (
+                  "vjp_ms", "vjp_wrapper_ms", "vjp_plain_ms", "vjp_bound",
+                  "vjp_instance", "vjp_resources")}),
         entry("fused_forward_big", fused_src, "cutrace_tpu/ops/fused.py:445",
               launches["big_frame"]["fused_forward_big"], rec["big_err"],
               rec["big_ms"], rec["big_plain_ms"], rec["big_bound"],
-              instance="K3, ordered tree walk", shape=rec["big_shape"]),
+              instance="K3, ordered tree walk", shape=rec["big_shape"],
+              resources=rec["big_resources"]),
         entry("fused_forward_big_topo", fused_src,
               "cutrace_tpu/ops/fused.py:445",
               launches["big_grad"]["fused_forward_big_topo"],
               rec["big_topo_err"], rec["big_topo"]["topo_ms"],
               rec["big_topo"]["topo_plain_ms"], rec["big_topo"]["topo_bound"],
-              instance="K3, ordered tree walk", shape=rec["big_shape"]),
+              instance="K3, ordered tree walk", shape=rec["big_shape"],
+              resources=rec["big_resources"]),
         entry("cluster_cast", "cutrace_tpu_torch/ops/csrc/cluster_cast.cu",
               "cutrace_tpu/ops/pallas_cast.py:81",
               launches["pallas"]["cluster_cast"], rec["cast_err"],
-              frame["ms"] / frame["launches"], rec["cast_chunk_plain_ms"],
+              k4_dev_ms / k4_dev_n, rec["cast_chunk_plain_ms"],
               {k: (v[0] / frame["launches"], v[1])
                for k, v in frame["bound"].items()},
               shape="one launch of an --accel pallas bunny 1920x1080 b5 "
-                    "frame (at most 65536 rays), M=16 C=64; the mean "
-                    "over the frame's launches",
-              frame_ms=frame["ms"], frame_launches=frame["launches"],
+                    "frame (65536 or 262144 rays), M=16 C=64; ms: the "
+                    "device time (torch.profiler, trace phase) over the "
+                    "frame's launches; ms_events: CUDA events around each "
+                    "library call (cast phase), which add the host's "
+                    "launch latency",
+              frame_ms=k4_dev_ms, frame_ms_events=frame["ms"],
+              ms_events=frame["ms"] / frame["launches"],
+              frame_launches=frame["launches"],
+              instance="flat (M <= 32; tree past it)",
+              resources=rec["cast_resources"],
               primary_1080p={"ms": rec["cast_ms"],
                              "plain_ms": rec["cast_plain_ms"],
                              "bound_ms": rec["cast_bound"]["bound"][0],
@@ -1728,9 +1951,10 @@ def main(argv=None) -> int:
         "big_grad_step_s": rec["big_step_ms"] / 1e3,
         "big_grad_step_parts_ms": rec["big_parts"],
         "replay_vjp_256k": {k: rec["big_topo"][k] for k in (
-            "vjp_ms", "vjp_plain_ms", "vjp_bound")},
+            "vjp_ms", "vjp_wrapper_ms", "vjp_plain_ms", "vjp_bound")},
         "bigscene": rec["bigscene"],
         "pallas_render_ms": rec["pallas_render_ms"],
+        "pallas_trace": rec["pallas_trace"],
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

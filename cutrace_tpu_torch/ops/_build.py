@@ -50,6 +50,7 @@ SIGNATURES = {
             + [_P, _P]  # next_chunk stream
         ),
         "cutrace_shared_limit": [_P],  # bytes (int *)
+        "cutrace_fused_forward_attributes": [_I, _P],  # instance out[4]
     },
     "replay_vjp": {
         "cutrace_replay_vjp": (
@@ -58,17 +59,28 @@ SIGNATURES = {
             + [_I] * 11  # n_rays n_pad k_rows n_tab t_cnt p_cnt n_lights
                          # bounces shadow_steps any_refl any_transp
             + [_F]  # fudge
+            + [_I, _I]  # instance shared_sums
             + [_P]  # stream
         ),
+        "cutrace_replay_vjp_attributes": [_I, _I, _P],  # instance nodes
+                                                        # out[4]
     },
     "cluster_cast": {
         "cutrace_cluster_cast": (
-            [_P] * 6  # rays tri aabb groups t_out ord_out
-            + [_I] * 3  # n_rays m c
+            [_P] * 6  # rays tri aabb tree t_out ord_out
+            + [_I] * 5  # n_rays m c leaves instance
             + [_P, _P]  # tally stream
         ),
+        "cutrace_cluster_cast_attributes": [_I, _P],  # instance out[4]
     },
 }
+# Each library's resource query: (instance[, nodes], int out[4]) ->
+# registers a thread, local memory bytes a thread, static shared bytes, max
+# threads a block, as cudaFuncGetAttributes reports them for the
+# instance's kernel.
+ATTRIBUTES = {name: f"cutrace_{name}_attributes" for name in SIGNATURES}
+ATTRIBUTE_NAMES = ("registers", "local_bytes", "static_shared_bytes",
+                   "max_threads")
 
 _libs: dict = {}
 
@@ -177,3 +189,14 @@ def load_library(name: str = "fused_forward") -> ctypes.CDLL:
             fn.argtypes = argtypes
         _libs[name] = lib
     return _libs[name]
+
+
+def kernel_attributes(name: str, *instance: int) -> dict:
+    """The compiled resources of one instance of a kernel library's
+    kernel (ATTRIBUTE_NAMES -> int): `instance` is the instance number
+    and, for replay_vjp, its node count. Raises on a CUDA error."""
+    out = (ctypes.c_int * 4)()
+    rc = getattr(load_library(name), ATTRIBUTES[name])(*instance, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} attribute query failed: CUDA error {rc}")
+    return dict(zip(ATTRIBUTE_NAMES, out))

@@ -14,12 +14,11 @@ gathered from the live scene tensors at render time
 `order` carries every triangle's original flat index, so nearest-hit ties
 keep the reference's scan-order winner.
 
-The cull kernels (csrc/cast.cuh) test cluster boxes through a hierarchy.
-Clusters are median-split leaves in tree order, so consecutive clusters
-are spatially compact and their union box is tight: `group_boxes` merges
-each run of GROUP consecutive clusters into one box (K4's two-level
-loop), and `tree_boxes` builds a complete binary tree of such unions
-(K3's ordered walk), widened by `widen_tree`.
+The cull kernels (csrc/cast.cuh) walk big partitions through a
+hierarchy. Clusters are median-split leaves in tree order, so consecutive
+clusters are spatially compact and their union box is tight: `tree_boxes`
+builds a complete binary tree of such unions (the ordered walk of K3 and
+of K4 past 32 clusters), widened by `widen_tree`.
 """
 
 from __future__ import annotations
@@ -34,8 +33,6 @@ from cutrace_tpu_torch.ops import intersect as I
 from cutrace_tpu_torch.scene.soa import resolve_device
 
 CLUSTER_SIZE = 64
-# Clusters per group box of the two-level cull (csrc/cast.cuh kGroup).
-GROUP = 32
 # Children per node of the cluster tree K3 walks (csrc/cast.cuh
 # kTreeArity). Binary: the median split is binary, so the unions of
 # sibling clusters are its own boxes; the walk orders two children with
@@ -189,31 +186,6 @@ def clusters_from_accel(soa, accel: Accel) -> TriClusters:
         bmin=bmin,
         bmax=bmax,
     )
-
-
-def group_boxes(bmin, bmax, live):
-    """(G, 8) rows [bmin xyz, bmax xyz, 0, 0] of the union box of each run
-    of GROUP consecutive clusters, G = ceil(M / GROUP), from (M, 3) cluster
-    boxes and the (M,) mask of clusters with a live slot. Empty clusters
-    stay out of the union (they can never win); a group without a live
-    cluster sits at the never-hit _FAR point, as an empty cluster does."""
-    m = bmin.shape[0]
-    g = -(-m // GROUP)
-    pad = g * GROUP - m
-    live3 = torch.nn.functional.pad(live, (0, pad))[:, None]
-
-    def masked(b, fill):
-        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
-        return torch.where(live3, b, fill).reshape(g, GROUP, 3)
-
-    gmin = masked(bmin, math.inf).amin(dim=1)
-    gmax = masked(bmax, -math.inf).amax(dim=1)
-    gmin = torch.where(torch.isfinite(gmin), gmin, _FAR)
-    gmax = torch.where(torch.isfinite(gmax), gmax, _FAR)
-    rows = torch.zeros((g, 8), dtype=torch.float32, device=bmin.device)
-    rows[:, 0:3] = gmin
-    rows[:, 3:6] = gmax
-    return rows
 
 
 def tree_leaves(m: int) -> int:

@@ -13,18 +13,13 @@
 // torch allocation). Every kernel runs the same tri_t, so K1, K3 and K4
 // round alike.
 //
-// Three cluster loops cull with a per-ray slab test against the ray's
-// best t so far (ties kept with <=):
-//   * the flat loop (K1) tests every cluster box in index order;
-//   * the grouped loop (K4) first tests the union box of each run of
-//     kGroup consecutive clusters and tests member boxes only inside an
-//     admitted group. A group box holds its members' boxes, and the slab
-//     test is monotone in the box bounds (a NaN bound takes the neutral
-//     interval), so a group's entry is never later than a member's: the
-//     grouped loop drops only clusters the flat loop would drop too;
-//   * the ordered tree walk (K3) descends a complete binary tree over the
-//     clusters (ops/bvh.py tree_boxes: node n's children are 2n and
-//     2n + 1, the leaves are the clusters), the lanes of a warp together,
+// Two cluster loops cull with a per-ray slab test against the ray's
+// best t so far (ties kept with <=), the lanes of a warp together:
+//   * the flat loop (K1, and K4 up to 32 clusters) tests every cluster box
+//     in index order;
+//   * the ordered tree walk (K3, and K4 past 32 clusters) descends a
+//     complete binary tree over the clusters (ops/bvh.py tree_boxes: node
+//     n's children are 2n and 2n + 1, the leaves are the clusters),
 //     entering the child nearer for most lanes first and deferring the
 //     other on a stack; a deferred node is dropped when popped past every
 //     lane's best t (walk_tree).
@@ -48,8 +43,7 @@ namespace cutrace {
 constexpr int kTriRows = 24;    // floats per triangle slot
 constexpr int kSlotRead = 20;   // rows a slot test reads: five float4s
 constexpr int kPsRows = 12;     // floats per plane / sphere row
-constexpr int kAabbRows = 8;    // floats per cluster, group or tree box row
-constexpr int kGroup = 32;      // clusters per group box (ops/bvh.py GROUP)
+constexpr int kAabbRows = 8;    // floats per cluster or tree box row
 constexpr int kTreeArity = 2;   // children per node (ops/bvh.py TREE_ARITY)
 constexpr int kTreeStack = 32;  // deferred nodes: one per tree level at most
 constexpr float kBig = 1073741824.0f;  // 2^30: key of "no winner"
@@ -79,8 +73,8 @@ __device__ __forceinline__ float norm3(V3 a) { return sqrtf(dot3(a, a)); }
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
 
 // Work counts of one thread: casts (nearest or any-hit queries), the
-// (ray, cluster) visits their culls admitted, the slab tests done (group,
-// member or tree boxes) and, when `count_needed`, the visits the casts
+// (ray, cluster) visits their culls admitted, the slab tests done (cluster
+// or tree boxes) and, when `count_needed`, the visits the casts
 // need whatever the traversal (needed_visits).
 struct Tally {
   unsigned long long casts = 0, visits = 0, slabs = 0, needed = 0;
@@ -188,15 +182,13 @@ __device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 nd,
 }
 
 // A cluster partition: (M, C, kTriRows) slot rows and (M, kAabbRows)
-// cluster boxes; (G, kAabbRows) group boxes, G = ceil(M / kGroup), for the
-// grouped loop; (2L, kAabbRows) widened tree boxes for the tree walk, L the
+// cluster boxes; (2L, kAabbRows) widened tree boxes for the tree walk, L the
 // power of two >= M, node n at row n (row 1 the root, rows L..L+M-1 the
-// clusters). Unused tables are null. Slot offsets are size_t: a
+// clusters), null for the flat loop. Slot offsets are size_t: a
 // 1M-triangle table holds 25M floats.
 struct Clusters {
   const float* tri;
   const float* aabb;
-  const float* groups;
   const float* tree;
   int m, c, leaves;
 };
@@ -213,7 +205,7 @@ __device__ __forceinline__ V3 cross_do(V3 d, V3 o) {
             d.x * o.y - d.y * o.x);
 }
 
-// ---- one lane a ray (K4; K1 and K3 when many lanes visit) -------------
+// ---- one lane a ray (a cluster that many lanes of a warp visit) --------
 
 __device__ __forceinline__ void visit_nearest(const Clusters& cl, int mi,
                                               V3 o, V3 d, V3 w, float mind,
@@ -241,35 +233,7 @@ __device__ __forceinline__ bool visit_any(const Clusters& cl, int mi, V3 o,
   return false;
 }
 
-// The nearest triangle with t > mind over the partition, into `b`, by the
-// grouped loop. `bound` also culls: a cluster entered beyond min(bound,
-// best t) cannot hold a (t, key)-better triangle; equality keeps it for
-// the tie-break.
-__device__ __forceinline__ void nearest_triangle_grouped(
-    const Clusters& cl, V3 o, V3 d, float mind, float bound, TriWinner& b,
-    Tally& tl) {
-  V3 w = cross_do(d, o);
-  V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
-  float entry;
-  const int n_groups = (cl.m + kGroup - 1) / kGroup;
-  for (int g = 0; g < n_groups; ++g) {
-    tl.slabs += 1;
-    if (!slab(cl.groups + (size_t)g * kAabbRows, o, inv, &entry) ||
-        !(entry <= fminf(bound, b.t)))
-      continue;
-    const int end = min(cl.m, (g + 1) * kGroup);
-    for (int mi = g * kGroup; mi < end; ++mi) {
-      tl.slabs += 1;
-      if (!slab(cl.aabb + (size_t)mi * kAabbRows, o, inv, &entry) ||
-          !(entry <= fminf(bound, b.t)))
-        continue;
-      tl.visits += 1;
-      visit_nearest(cl, mi, o, d, w, mind, b);
-    }
-  }
-}
-
-// ---- the lanes of a warp together (K1, K3) -----------------------------
+// ---- the lanes of a warp together (K1, K3, K4) -------------------------
 //
 // The lanes of `mask` (those that entered the loop together) walk the
 // same clusters at the same time, each with its own cull. A cluster that
@@ -285,7 +249,9 @@ __device__ __forceinline__ void nearest_triangle_grouped(
 // tables) favour the first; scattered secondary rays over tables in L2 or
 // HBM (one or two lanes a visit, where a lone lane's scan waits on C loads
 // in a row) the second. Either finds the winner a lane's own scan of the
-// C slots finds.
+// C slots finds. K1 and K3 choose per visit by that count; K4, whose
+// launches are mostly shadow and bounce rays, visits in turn always
+// (kInTurn).
 constexpr int kReduceSteps = 2;  // a visit's reductions, in slot-test steps
 
 // Visit in turn (true) or together (false)?
@@ -306,7 +272,8 @@ __device__ __forceinline__ V3 shfl3(unsigned mask, V3 a, int src) {
 }
 
 // The nearest triangle of cluster mi for each lane of `mask` with
-// `visit` set, merged into its `b`.
+// `visit` set, merged into its `b`; kInTurn: in turn whatever the count.
+template <bool kInTurn = false>
 __device__ __forceinline__ void visit_nearest_warp(
     const Clusters& cl, int mi, unsigned mask, bool visit, V3 o, V3 d, V3 w,
     float mind, TriWinner& b) {
@@ -315,7 +282,7 @@ __device__ __forceinline__ void visit_nearest_warp(
   const int n = __popc(mask);
   const float* base = cl.tri + (size_t)mi * cl.c * kTriRows;
   unsigned todo = __ballot_sync(mask, visit);
-  if (!visit_in_turn(cl, __popc(todo), n)) {
+  if (!kInTurn && !visit_in_turn(cl, __popc(todo), n)) {
     if (visit) visit_nearest(cl, mi, o, d, w, mind, b);
     return;
   }
@@ -397,6 +364,7 @@ __device__ __forceinline__ bool visit_any_warp(const Clusters& cl, int mi,
 
 // K1's flat loop: the nearest triangle with t > mind over every cluster
 // in index order, each lane culling against min(bound, its best t).
+template <bool kInTurn = false>
 __device__ __forceinline__ void nearest_triangle_flat(const Clusters& cl,
                                                       V3 o, V3 d, float mind,
                                                       float bound,
@@ -413,7 +381,7 @@ __device__ __forceinline__ void nearest_triangle_flat(const Clusters& cl,
                       entry <= fminf(bound, b.t);
     if (!__any_sync(mask, mine)) continue;
     if (mine) tl.visits += 1;
-    visit_nearest_warp(cl, mi, mask, mine, o, d, w, mind, b);
+    visit_nearest_warp<kInTurn>(cl, mi, mask, mine, o, d, w, mind, b);
   }
 }
 
@@ -460,7 +428,7 @@ __device__ __forceinline__ bool any_triangle_flat(const Clusters& cl, V3 o,
 // that admitted it. When a lane admits both children, the
 // nearer one is its preference, and the child most lanes prefer goes
 // first.
-template <bool kAny>
+template <bool kAny, bool kInTurn = false>
 __device__ __forceinline__ bool walk_tree(const Clusters& cl, V3 o, V3 d,
                                           float mind, float limit,
                                           TriWinner& b, Tally& tl) {
@@ -487,7 +455,7 @@ __device__ __forceinline__ bool walk_tree(const Clusters& cl, V3 o, V3 d,
         if (kAny)
           found |= visit_any_warp(cl, mi, mask, mine, o, d, w, mind, limit);
         else
-          visit_nearest_warp(cl, mi, mask, mine, o, d, w, mind, b);
+          visit_nearest_warp<kInTurn>(cl, mi, mask, mine, o, d, w, mind, b);
       }
     } else {
       const int c0 = kTreeArity * node;
@@ -551,6 +519,22 @@ __device__ __forceinline__ unsigned long long needed_visits(
         (strict ? entry < limit : entry <= limit))
       ++n;
   return n;
+}
+
+// A kernel's resources as compiled, into out[4]: registers a thread, local
+// memory bytes a thread (spills and arrays indexed at run time), static
+// shared bytes, the most threads a block may have. Returns the CUDA error
+// code.
+template <typename Kernel>
+inline int kernel_attributes(Kernel* kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // namespace cutrace

@@ -573,7 +573,7 @@ extern "C" int cutrace_fused_forward(
       (instance == kInstanceK1Shared && !next_chunk))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Scene s{Clusters{tri, aabb, nullptr, tree, m, c, leaves},
+  Scene s{Clusters{tri, aabb, tree, m, c, leaves},
           planes, spheres, mats, lights,
           n_planes, n_spheres, n_lights, n_mats};
   Topo tp{codes, n_rays, t_cnt, p_cnt};
@@ -615,4 +615,17 @@ extern "C" int cutrace_fused_forward(
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The resources of an instance's kernel as compiled (registers, local
+// bytes, static shared bytes, max threads a block) into out[4]; returns the
+// CUDA error code.
+extern "C" int cutrace_fused_forward_attributes(int instance, int* out) {
+  if (instance == kInstanceK1Global)
+    return kernel_attributes(fused_forward_kernel<false>, out);
+  if (instance == kInstanceK1Shared)
+    return kernel_attributes(fused_forward_shared_kernel, out);
+  if (instance == kInstanceK3)
+    return kernel_attributes(fused_forward_kernel<true>, out);
+  return (int)cudaErrorInvalidValue;
 }

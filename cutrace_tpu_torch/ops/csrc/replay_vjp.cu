@@ -8,7 +8,7 @@
 //   * forward sweep: the bounce tree is walked in preorder from the codes
 //     (reflection child first, parked transparency frames, a node of
 //     weight 0 skipped with its subtree, as the forward kernel walks it),
-//     storing each live node's (o, d, w) in per-thread arrays;
+//     keeping each live node's (o, d, w);
 //   * reverse sweep: nodes in reverse preorder, so children come before
 //     parents, with the hand-derived adjoints of hit_from_code and
 //     _phong_lights. Every guard of the replay is matched (where(x == 0,
@@ -28,23 +28,43 @@
 // Outputs: d_o and d_d per ray; the packed-table cotangent (N, 17), and
 // per light [0, d_vec, d_color, 0] plus d_ambient, summed over rays.
 //
-// Per-node storage: a per-thread array of 7 floats per node, sized by a
-// template for bunny-like chains (8 nodes) and two-branch trees (64). The
-// arrays spill to local memory (L1-cached, allocated only for resident
-// threads: at most 64 x 14 floats = 3.5 KB a thread), which was chosen
-// over a global scratch of nodes x rays (4.2 GB for sphere_plane 1080p b5)
-// because only the live nodes of a ray are ever touched.
+// Two instances, chosen by the caller before the launch from the tree's
+// shape (ops/replay_vjp.py vjp_instance):
+//   * chain, templated on the node count (1 to kMaxChain = 7: a scene that
+//     reflects or is transparent but not both, bounces <= 6; bunny, mirror
+//     and triangle at b5). Every per-node loop of the forward sweep is
+//     unrolled, so each live node's (o, d, w) sits in registers, and the
+//     reverse sweep carries only its child's 7-float cotangent. The reverse
+//     loop itself runs once per node and reads a node's state through a
+//     select over the unrolled array, so node_backward is inlined once;
+//   * tree, any shape of at most 63 nodes (sphere_plane's two-branch tree
+//     at b5, chains past 7 nodes). The forward sweep pushes the live nodes'
+//     (o, d, w, node, level) on a per-thread stack in preorder and the
+//     reverse sweep pops them, so it touches only live nodes; a node's
+//     children's cotangents wait on a second stack bounded by the tree's
+//     depth (pending cotangents: at most one per level plus two). Both
+//     stacks, and the parked transparency frames, are indexed at run time
+//     and live in local memory: at most 63 x 32 + 8 x 32 + 6 x 36 bytes a
+//     thread, of which a ray touches its live nodes' rows.
 //
 // What bounds it on this card: arithmetic and divergence per ray (about
-// 300 float operations per live node plus 180 per light, with branches
-// on kind, light and march), and the parameter cotangent sums. Blocks run in no order,
-// so the sums are atomics: each block accumulates the (N, 17) table
-// cotangent in shared memory when it fits (bunny: 1006 rows = 68 KB) and
-// flushes its nonzero entries once, after a grid-stride loop over ray
-// tiles; a warp whose rays share one winner (a wall plane) reduces with
-// shuffles before a single shared-memory atomic. Summation order varies
-// run to run, so results are allclose, not bitwise. IEEE division, sqrt,
-// powf and logf throughout (no fast math).
+// 300 float operations per live node plus 180 per light, with branches on
+// kind, light and march, IEEE division, sqrt, powf and logf throughout: no
+// fast math), and the parameter cotangent sums. Blocks run in no order, so
+// the sums are atomics:
+//   * blocks of kBlock = 256 threads, persistent (as many as fit on the
+//     card at once), each over a grid-stride loop of ray tiles; a ragged
+//     last tile (n_pad a multiple of 128) leaves its lanes idle;
+//   * the (N, 17) table cotangent: one shared-memory copy a block when the
+//     caller asks for it (bunny: 1006 rows = 68 KB, two blocks an SM),
+//     flushed once with global atomics of its nonzero entries, else global
+//     atomics throughout (the 256k step). Either way the lanes of a warp
+//     are grouped by winner code (__match_any_sync) and each group's sum is
+//     added once, by its lowest lane;
+//   * the light and ambient cotangents: one shared-memory column a thread
+//     ((6 L + 1) x 256 floats: 25 KB for bunny's 4 lights), summed over the
+//     block at the end, so no light index reaches local memory.
+// Summation order varies run to run, so results are allclose, not bitwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,13 +72,18 @@
 
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 256;      // threads a block (ops/replay_vjp.py _BLOCK)
+constexpr int kPad = 128;        // n_pad is a multiple (ops/replay_vjp.py _PAD)
 constexpr int kCols = 17;        // packed-table columns (replay._PK_*)
 constexpr int kLightRows = 8;    // floats per light row
 constexpr int kMaxLights = 8;
+constexpr int kMaxNodes = 63;    // bounce-tree nodes
+constexpr int kMaxChain = 7;     // nodes of the largest chain instance
 constexpr int kMaxParked = 6;    // parked transparency frames (bounces <= 5)
+constexpr int kCotStack = kMaxParked + 2;  // pending child cotangents
 constexpr float kEps = 1e-6f;    // material activity threshold
-constexpr int kSmemTableFloats = 40 * 1024;  // 160 KB of table cotangent
+// instances (ops/replay_vjp.py _CHAIN, _TREE)
+constexpr int kInstanceChain = 0, kInstanceTree = 1;
 // packed-table columns
 constexpr int PK_A = 0, PK_B = 3, PK_C = 6, PK_COL = 10, PK_SPEC = 13;
 constexpr int PK_REFL = 14, PK_PHONG = 15, PK_TRANSP = 16;
@@ -114,6 +139,21 @@ struct Args {
   int shadow_steps, n_nodes, node_rows;
   bool any_refl, any_transp, smem_table;
   float fudge;
+};
+
+// Where a block adds table cotangents: its shared-memory copy, or the
+// output in global memory. The branch is uniform, and each side keeps its
+// address space, so shared adds compile to shared-memory atomics.
+struct Sums {
+  float* shared;
+  float* global;
+  bool use_shared;
+  __device__ __forceinline__ void add(size_t off, float v) const {
+    if (use_shared)
+      atomicAdd(shared + off, v);
+    else
+      atomicAdd(global + off, v);
+  }
 };
 
 __device__ __forceinline__ int kind_of(const Args& a, int code) {
@@ -244,21 +284,16 @@ struct NodeCot {
   float w;
 };
 
-// Per-thread light cotangent accumulators: per light d_vec (3), d_color
-// (3); then d_ambient.
-struct LightAcc {
-  float v[kMaxLights * 6 + 1];
-};
-
 // The reverse sweep of one live, hit node. Child cotangents come in
 // (zero when the child is dead or missed); the node's packed-row
 // cotangent goes to g_row, march transparency cotangents straight to
-// `acc`, light and ambient cotangents to `la`.
-__device__ NodeCot node_backward(const Args& a, int k, int level, V3 o, V3 d,
-                                 float w, const NodeCot& cr, bool has_r,
-                                 const NodeCot& ct, bool has_t, V3 cot_c,
-                                 float cot_dep, V3 cot_n, float* g_row,
-                                 float* acc, LightAcc& la, int i) {
+// `sums`, light and ambient cotangents to the thread's shared column
+// `lcol` (row j at lcol[j * kBlock]: per light d_vec (3), d_color (3);
+// then d_ambient).
+__device__ __forceinline__ NodeCot node_backward(
+    const Args& a, int k, int level, V3 o, V3 d, float w, const NodeCot& cr,
+    bool has_r, const NodeCot& ct, bool has_t, V3 cot_c, float cot_dep,
+    V3 cot_n, float (&g_row)[kCols], const Sums& sums, float* lcol, int i) {
   const int cast_row = k * a.node_rows;
   const int code = a.codes[(size_t)cast_row * a.n_pad + i];
   const float mind = a.fudge;
@@ -312,7 +347,7 @@ __device__ NodeCot node_backward(const Args& a, int k, int level, V3 o, V3 d,
   const V3 md = -nd;
   V3 a_md = v3(0.f, 0.f, 0.f);
   V3 final = dif * ambient;
-  la.v[kMaxLights * 6] += dot(dif, g_final);
+  lcol[a.n_lights * 6 * kBlock] += dot(dif, g_final);
   V3 a_dif = g_final * ambient;
   float a_spec = 0.0f, a_phong = 0.0f;
   const int per_light = a.any_transp ? a.shadow_steps : 1;
@@ -389,7 +424,7 @@ __device__ NodeCot node_backward(const Args& a, int k, int level, V3 o, V3 d,
       const float g_wgt = dot(mul(contrib, lc), g_final);
       for (int si = 0; si < n_steps; ++si) {
         int cc = a.codes[(size_t)(sbase + si) * a.n_pad + i];
-        if (g_wgt != 0.0f) atomicAdd(acc + (size_t)cc * kCols + PK_TRANSP, g_wgt);
+        if (g_wgt != 0.0f) sums.add((size_t)cc * kCols + PK_TRANSP, g_wgt);
       }
     }
     const float dg = dot(dif, g_contrib);
@@ -420,13 +455,13 @@ __device__ NodeCot node_backward(const Args& a, int k, int level, V3 o, V3 d,
       g_vec = norm_vjp(dir_pt, inv_ds, dist_z, g_dir);
       a_pt = a_pt - g_vec;
     }
-    float* lv = la.v + li * 6;
+    float* lv = lcol + li * 6 * kBlock;
     lv[0] += g_vec.x;
-    lv[1] += g_vec.y;
-    lv[2] += g_vec.z;
-    lv[3] += g_lcol.x;
-    lv[4] += g_lcol.y;
-    lv[5] += g_lcol.z;
+    lv[kBlock] += g_vec.y;
+    lv[2 * kBlock] += g_vec.z;
+    lv[3 * kBlock] += g_lcol.x;
+    lv[4 * kBlock] += g_lcol.y;
+    lv[5 * kBlock] += g_lcol.z;
   }
 
   // color term and spawn weights
@@ -564,29 +599,155 @@ __device__ NodeCot node_backward(const Args& a, int k, int level, V3 o, V3 d,
   return NodeCot{a_o, a_d, a_w};
 }
 
-// Adds one packed-row cotangent per thread to acc[code]. Every lane of the
-// warp calls it (code < 0: nothing to add). A warp whose lanes share one
-// code reduces with shuffles first: rays of one wall would otherwise
-// serialize on the same addresses.
-__device__ __forceinline__ void scatter_row(float* acc, int code,
-                                            const float* g) {
+// Adds each lane's packed-row cotangent g to row `code` of the sums (code
+// < 0: nothing); g is consumed. Every lane of the warp calls it. Lanes are
+// grouped by code (__match_any_sync). Within a group each lane adds in the
+// partial sum of the next peer above it still taking part, then every
+// second one drops out, so after log2 of the group's size rounds its
+// lowest lane holds the group's sum and adds it alone: the rays of one
+// wall would otherwise serialize on the same 17 addresses.
+__device__ __forceinline__ void scatter_row(const Sums& sums, int code,
+                                            float (&g)[kCols]) {
   const unsigned full = 0xffffffffu;
-  const int c0 = __shfl_sync(full, code, 0);
-  if (__all_sync(full, code == c0)) {
-    if (c0 < 0) return;
-    const bool lane0 = (threadIdx.x & 31) == 0;
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(full, code);
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  const bool leader = rank == 0;
+  unsigned above = peers & ~((2u << lane) - 1u);
+  while (__any_sync(full, above != 0u)) {
+    const int next = __ffs(above) - 1;  // -1: no peer above
+    const int src = next < 0 ? (int)lane : next;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      float v = g[j];
-#pragma unroll
-      for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
-      if (lane0 && v != 0.0f) atomicAdd(acc + (size_t)c0 * kCols + j, v);
+      const float v = __shfl_sync(full, g[j], src);
+      if (next >= 0) g[j] += v;
     }
-  } else if (code >= 0) {
+    above &= __ballot_sync(full, (rank & 1) == 0);
+    rank >>= 1;
+  }
+  if (leader && code >= 0) {
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      if (g[j] != 0.0f) atomicAdd(acc + (size_t)code * kCols + j, g[j]);
+      if (g[j] != 0.0f) sums.add((size_t)code * kCols + j, g[j]);
   }
+}
+
+// What a live node that is not a leaf spawns (the forward kernel's rule):
+// both children start at o + t_safe d; the reflection child takes the
+// mirrored direction and weight w (1 - f) r, the transparency child keeps
+// d with weight w f.
+struct Spawn {
+  V3 o, d_refl;
+  float w_refl, w_transp;
+};
+
+__device__ __forceinline__ Spawn spawn(const Args& a, int node, V3 o, V3 d,
+                                       float w, int i) {
+  const int code = a.codes[(size_t)(node * a.node_rows) * a.n_pad + i];
+  const Node g = node_geom(a, code, o, d, a.fudge);
+  const bool hit = g.kind != kMiss;
+  const float tr = g.row[PK_TRANSP], rf = g.row[PK_REFL];
+  const float f = (a.any_transp && hit && tr >= kEps) ? tr : 0.0f;
+  const float weff = w * (1.0f - f);
+  const float rr = (hit && rf >= kEps) ? rf : 0.0f;
+  return Spawn{o + d * g.t_safe, g.nd - g.nn * (2.0f * dot(g.nd, g.nn)),
+               weff * rr, w * f};
+}
+
+// The output cotangents of ray i: color, depth, normal.
+struct RayCot {
+  V3 c, n;
+  float dep;
+};
+
+__device__ __forceinline__ RayCot ray_cot(const Args& a, int i, bool active) {
+  const float* cp = a.cot + (size_t)(active ? i : 0) * 8;
+  return RayCot{ld3(cp), ld3(cp + 4), cp[3]};
+}
+
+// d_o and d_d of ray i: the root's input cotangents, zero when the root
+// missed.
+__device__ __forceinline__ void write_ray(const Args& a, int i, bool root,
+                                          const NodeCot& c) {
+  float* q = a.d_rays + (size_t)i * 8;
+  const float v[6] = {c.o.x, c.o.y, c.o.z, c.d.x, c.d.y, c.d.z};
+#pragma unroll
+  for (int j = 0; j < 6; ++j) q[j] = root ? v[j] : 0.0f;
+  q[6] = 0.0f;
+  q[7] = 0.0f;
+}
+
+// The chain instance: ray i through a chain of N nodes (node k at level
+// k), every lane of the warp in the same reverse step.
+template <int N>
+__device__ __forceinline__ void chain_ray(const Args& a, const Sums& sums,
+                                          float* lcol, int i, bool active) {
+  V3 so[N], sd[N];
+  float sw[N];
+  int n_live = 0;
+  {
+    V3 o = v3(0.f, 0.f, 0.f), d = v3(0.f, 0.f, 1.f);
+    float w = 1.0f;
+    if (active) {
+      const float* ray = a.rays + (size_t)i * 8;
+      o = ld3(ray);
+      d = ld3(ray + 3);
+    }
+    bool go = active;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      so[k] = o;
+      sd[k] = d;
+      sw[k] = w;
+      go = go && (k == 0 || w != 0.0f);
+      if (go) {
+        n_live = k + 1;
+        if (k + 1 < N) {
+          const Spawn c = spawn(a, k, o, d, w, i);
+          if (a.any_refl) {
+            d = c.d_refl;
+            w = c.w_refl;
+          } else {
+            w = c.w_transp;
+          }
+          o = c.o;
+        }
+      }
+    }
+  }
+
+  const RayCot rc = ray_cot(a, i, active);
+  NodeCot child{};
+  bool has_child = false;
+#pragma unroll 1
+  for (int k = N - 1; k >= 0; --k) {
+    // node k's state: a select over the unrolled arrays keeps them in
+    // registers
+    V3 o = so[0], d = sd[0];
+    float w = sw[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      if (j == k) {
+        o = so[j];
+        d = sd[j];
+        w = sw[j];
+      }
+    }
+    const int code =
+        k < n_live ? a.codes[(size_t)(k * a.node_rows) * a.n_pad + i] : -1;
+    float g_row[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) g_row[j] = 0.0f;
+    NodeCot r{};
+    if (code >= 0)
+      r = node_backward(a, k, k, o, d, w, child, has_child && a.any_refl,
+                        child, has_child && a.any_transp, rc.c, rc.dep,
+                        rc.n, g_row, sums, lcol, i);
+    scatter_row(sums, code, g_row);
+    child = r;
+    has_child = code >= 0;
+  }
+  if (active) write_ray(a, i, has_child, child);
 }
 
 struct Frame {
@@ -595,172 +756,185 @@ struct Frame {
   int level, node;
 };
 
-template <int kMaxNodes>
-__global__ void __launch_bounds__(kBlock)
+// A live node's forward state (tree instance).
+struct LiveNode {
+  V3 o, d;
+  float w;
+  int node, level;
+};
+
+// A finished node's input cotangents, waiting for its parent.
+struct Pending {
+  NodeCot c;
+  int node;
+};
+
+// The tree instance: ray i through any tree of at most kMaxNodes nodes.
+// The forward sweep pushes the live nodes in preorder (reflection child
+// first, parked transparency frames); the reverse sweep pops them, so
+// children come before parents, each lane at its own live node.
+__device__ __forceinline__ void tree_ray(const Args& a, const Sums& sums,
+                                         float* lcol, int i, bool active) {
+  LiveNode live[kMaxNodes];
+  int n_live = 0;
+  if (active) {
+    const float* ray = a.rays + (size_t)i * 8;
+    V3 o = ld3(ray), d = ld3(ray + 3);
+    float w = 1.0f;
+    int level = 0, node = 0;
+    Frame parked[kMaxParked];
+    int n_parked = 0;
+    while (true) {
+      bool descend = false;
+      if (node == 0 || w != 0.0f) {
+        live[n_live++] = LiveNode{o, d, w, node, level};
+        if (!is_leaf(a, level)) {
+          const Spawn c = spawn(a, node, o, d, w, i);
+          if (a.any_refl) {
+            if (a.any_transp)
+              parked[n_parked++] =
+                  Frame{c.o, d, c.w_transp, level + 1,
+                        node + 1 + subtree_nodes(a, level + 1)};
+            d = c.d_refl;
+            w = c.w_refl;
+          } else {
+            w = c.w_transp;
+          }
+          o = c.o;
+          level += 1;
+          node += 1;
+          descend = true;
+        }
+      }
+      if (!descend) {
+        if (n_parked == 0) break;
+        const Frame fr = parked[--n_parked];
+        o = fr.o;
+        d = fr.d;
+        w = fr.w;
+        level = fr.level;
+        node = fr.node;
+      }
+    }
+  }
+
+  // Reverse preorder: a node's transparency subtree, then its reflection
+  // subtree, then the node; so its finished children sit on top of the
+  // pending stack, reflection child first.
+  const RayCot rc = ray_cot(a, i, active);
+  Pending pending[kCotStack];
+  int sp = 0;
+  const int rounds = __reduce_max_sync(0xffffffffu, n_live);
+  for (int q = rounds - 1; q >= 0; --q) {
+    float g_row[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) g_row[j] = 0.0f;
+    int code = -1;
+    if (q < n_live) {
+      const LiveNode s = live[q];
+      const int c = a.codes[(size_t)(s.node * a.node_rows) * a.n_pad + i];
+      if (c >= 0) {
+        const bool inner = !is_leaf(a, s.level);
+        const int kr = s.node + 1;
+        const int kt =
+            s.node + 1 + (a.any_refl ? subtree_nodes(a, s.level + 1) : 0);
+        NodeCot cr{}, ct{};
+        const bool has_r = inner && a.any_refl && sp > 0 &&
+                           pending[sp - 1].node == kr;
+        if (has_r) cr = pending[--sp].c;
+        const bool has_t = inner && a.any_transp && sp > 0 &&
+                           pending[sp - 1].node == kt;
+        if (has_t) ct = pending[--sp].c;
+        const NodeCot r =
+            node_backward(a, s.node, s.level, s.o, s.d, s.w, cr, has_r, ct,
+                          has_t, rc.c, rc.dep, rc.n, g_row, sums, lcol, i);
+        pending[sp++] = Pending{r, s.node};
+        code = c;
+      }
+    }
+    scatter_row(sums, code, g_row);
+  }
+  if (active) {
+    const bool root = sp > 0 && pending[sp - 1].node == 0;
+    write_ray(a, i, root, root ? pending[sp - 1].c : NodeCot{});
+  }
+}
+
+// Blocks a multiprocessor should hold at once: the register cap the
+// compiler is held to (65,536 / (256 x 2) = 128 a thread).
+constexpr int kMinBlocks = 2;
+
+// kChain > 0: the chain instance of that many nodes; 0: the tree instance.
+template <int kChain>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 replay_vjp_kernel(Args a) {
   extern __shared__ float smem[];
   const int n_misc = a.n_lights * 6 + 1;
-  float* s_misc = smem;
-  float* s_tbl = smem + n_misc;
+  float* s_light = smem;  // n_misc rows of kBlock columns
+  float* s_tbl = smem + n_misc * kBlock;
   const int n_tbl = a.smem_table ? a.n_tab * kCols : 0;
-  for (int j = threadIdx.x; j < n_misc + n_tbl; j += blockDim.x) smem[j] = 0.0f;
+  for (int j = threadIdx.x; j < n_misc * kBlock + n_tbl; j += kBlock)
+    smem[j] = 0.0f;
   __syncthreads();
-  float* acc = a.smem_table ? s_tbl : a.d_tbl;
+  const Sums sums{s_tbl, a.d_tbl, a.smem_table};
+  float* lcol = s_light + threadIdx.x;
 
-  LightAcc la;
-  for (int j = 0; j < kMaxLights * 6 + 1; ++j) la.v[j] = 0.0f;
-
-  float so[kMaxNodes][3], sdir[kMaxNodes][3], sw[kMaxNodes];
-  unsigned char slevel[kMaxNodes];
-  float co[kMaxNodes][7];
-
-  const int n_tiles = a.n_pad / kBlock;
+  const int n_tiles = (a.n_pad + kBlock - 1) / kBlock;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int i = tile * kBlock + threadIdx.x;
     const bool active = i < a.n_rays;
-    uint64_t alive = 0, done = 0;
-
-    // ---- forward sweep: the live nodes' (o, d, w) ----
-    if (active) {
-      const float* ray = a.rays + (size_t)i * 8;
-      V3 o = ld3(ray), d = ld3(ray + 3);
-      float w = 1.0f;
-      int level = 0, node = 0;
-      Frame parked[kMaxParked];
-      int n_parked = 0;
-      while (true) {
-        bool descend = false;
-        if (node == 0 || w != 0.0f) {
-          alive |= 1ull << node;
-          so[node][0] = o.x; so[node][1] = o.y; so[node][2] = o.z;
-          sdir[node][0] = d.x; sdir[node][1] = d.y; sdir[node][2] = d.z;
-          sw[node] = w;
-          slevel[node] = (unsigned char)level;
-          if (!is_leaf(a, level)) {
-            const int code =
-                a.codes[(size_t)(node * a.node_rows) * a.n_pad + i];
-            Node g = node_geom(a, code, o, d, a.fudge);
-            const bool hit = g.kind != kMiss;
-            const float tr = g.row[PK_TRANSP], rf = g.row[PK_REFL];
-            const float f =
-                (a.any_transp && hit && tr >= kEps) ? tr : 0.0f;
-            const float weff = w * (1.0f - f);
-            const V3 ch = o + d * g.t_safe;
-            if (a.any_refl) {
-              if (a.any_transp)
-                parked[n_parked++] = Frame{
-                    ch, d, w * f, level + 1,
-                    node + 1 + subtree_nodes(a, level + 1)};
-              const float rr = (hit && rf >= kEps) ? rf : 0.0f;
-              d = g.nd - g.nn * (2.0f * dot(g.nd, g.nn));
-              w = weff * rr;
-            } else {
-              w = w * f;
-            }
-            o = ch;
-            level += 1;
-            node += 1;
-            descend = true;
-          }
-        }
-        if (!descend) {
-          if (n_parked == 0) break;
-          const Frame fr = parked[--n_parked];
-          o = fr.o;
-          d = fr.d;
-          w = fr.w;
-          level = fr.level;
-          node = fr.node;
-        }
-      }
-    }
-
-    // ---- reverse sweep, children before parents ----
-    const float* cp = a.cot + (size_t)(active ? i : 0) * 8;
-    const V3 cot_c = ld3(cp), cot_n = ld3(cp + 4);
-    const float cot_dep = cp[3];
-    for (int k = a.n_nodes - 1; k >= 0; --k) {
-      float g_row[kCols];
-      int code = -1;
-      if (active && ((alive >> k) & 1ull)) {
-        const int c = a.codes[(size_t)(k * a.node_rows) * a.n_pad + i];
-        if (c >= 0) {
-          const int level = slevel[k];
-          const bool leaf = is_leaf(a, level);
-          const int kr = k + 1;
-          const int kt = k + 1 + (a.any_refl ? subtree_nodes(a, level + 1) : 0);
-          const bool has_r = !leaf && a.any_refl && ((done >> kr) & 1ull);
-          const bool has_t = !leaf && a.any_transp && ((done >> kt) & 1ull);
-          NodeCot cr{}, ct{};
-          if (has_r)
-            cr = NodeCot{v3(co[kr][0], co[kr][1], co[kr][2]),
-                         v3(co[kr][3], co[kr][4], co[kr][5]), co[kr][6]};
-          if (has_t)
-            ct = NodeCot{v3(co[kt][0], co[kt][1], co[kt][2]),
-                         v3(co[kt][3], co[kt][4], co[kt][5]), co[kt][6]};
-          const NodeCot r = node_backward(
-              a, k, level, v3(so[k][0], so[k][1], so[k][2]),
-              v3(sdir[k][0], sdir[k][1], sdir[k][2]), sw[k], cr, has_r, ct,
-              has_t, cot_c, cot_dep, cot_n, g_row, acc, la, i);
-          co[k][0] = r.o.x; co[k][1] = r.o.y; co[k][2] = r.o.z;
-          co[k][3] = r.d.x; co[k][4] = r.d.y; co[k][5] = r.d.z;
-          co[k][6] = r.w;
-          done |= 1ull << k;
-          code = c;
-        }
-      }
-      if (code < 0)
-        for (int j = 0; j < kCols; ++j) g_row[j] = 0.0f;
-      __syncwarp();
-      scatter_row(acc, code, g_row);
-    }
-    if (active) {
-      float* q = a.d_rays + (size_t)i * 8;
-      const bool root = done & 1ull;
-      for (int j = 0; j < 6; ++j) q[j] = root ? co[0][j] : 0.0f;
-      q[6] = 0.0f;
-      q[7] = 0.0f;
-    }
-  }
-
-  // ---- light and ambient sums: warp shuffles, then the block's misc ----
-  const unsigned full = 0xffffffffu;
-  for (int li = 0; li < a.n_lights; ++li) {
-    for (int j = 0; j < 6; ++j) {
-      float v = la.v[li * 6 + j];
-      for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
-      if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(s_misc + li * 6 + j, v);
-    }
-  }
-  {
-    float v = la.v[kMaxLights * 6];
-    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
-    if ((threadIdx.x & 31) == 0 && v != 0.0f)
-      atomicAdd(s_misc + a.n_lights * 6, v);
+    if constexpr (kChain > 0)
+      chain_ray<kChain>(a, sums, lcol, i, active);
+    else
+      tree_ray(a, sums, lcol, i, active);
   }
   __syncthreads();
-  // flush: misc rows mirror the light-table columns [kind, vec, color, 0]
-  for (int j = threadIdx.x; j < n_misc; j += blockDim.x) {
-    const float v = s_misc[j];
-    if (v == 0.0f) continue;
-    int dst = j < a.n_lights * 6 ? (j / 6) * kLightRows + 1 + j % 6
-                                 : a.n_lights * kLightRows;
-    atomicAdd(a.d_misc + dst, v);
+
+  // flush: each warp sums whole rows of the light columns; misc rows
+  // mirror the light-table columns [kind, vec, color, 0], then ambient
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < n_misc; j += kBlock / 32) {
+    float v = 0.0f;
+    for (int t = lane; t < kBlock; t += 32) v += s_light[j * kBlock + t];
+    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
+    if (lane == 0 && v != 0.0f) {
+      const int dst = j < a.n_lights * 6 ? (j / 6) * kLightRows + 1 + j % 6
+                                         : a.n_lights * kLightRows;
+      atomicAdd(a.d_misc + dst, v);
+    }
   }
-  for (int j = threadIdx.x; j < n_tbl; j += blockDim.x) {
+  for (int j = threadIdx.x; j < n_tbl; j += kBlock) {
     const float v = s_tbl[j];
     if (v != 0.0f) atomicAdd(a.d_tbl + j, v);
   }
 }
 
-template <int kMaxNodes>
-int launch(const Args& a, cudaStream_t stream) {
+using Kernel = void (*)(Args);
+
+// The kernel of an instance, or null when there is none.
+Kernel kernel_for(int instance, int n_nodes) {
+  if (instance == kInstanceTree) return replay_vjp_kernel<0>;
+  if (instance != kInstanceChain) return nullptr;
+  switch (n_nodes) {
+    case 1: return replay_vjp_kernel<1>;
+    case 2: return replay_vjp_kernel<2>;
+    case 3: return replay_vjp_kernel<3>;
+    case 4: return replay_vjp_kernel<4>;
+    case 5: return replay_vjp_kernel<5>;
+    case 6: return replay_vjp_kernel<6>;
+    case 7: return replay_vjp_kernel<7>;
+    default: return nullptr;
+  }
+}
+static_assert(kMaxChain == 7, "kernel_for has one case per chain length");
+
+int launch(Kernel kernel, const Args& a, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)a.n_lights * 6 + 1 +
+      sizeof(float) * ((size_t)(a.n_lights * 6 + 1) * kBlock +
                        (a.smem_table ? (size_t)a.n_tab * kCols : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      replay_vjp_kernel<kMaxNodes>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -768,14 +942,21 @@ int launch(const Args& a, cudaStream_t stream) {
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, replay_vjp_kernel<kMaxNodes>, kBlock, smem)) !=
-      cudaSuccess)
+           &per_sm, kernel, kBlock, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tiles = a.n_pad / kBlock;
+  const int tiles = (a.n_pad + kBlock - 1) / kBlock;
   const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
-  replay_vjp_kernel<kMaxNodes><<<grid, kBlock, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  Args arg = a;
+  void* args[] = {&arg};
+  err = cudaLaunchKernel((const void*)kernel, dim3(grid), dim3(kBlock), args,
+                         smem, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+int tree_nodes(int bounces, bool refl, bool transp) {
+  if (refl && transp) return bounces < 30 ? (1 << (bounces + 1)) - 1 : 1 << 30;
+  return (refl || transp) ? bounces + 1 : 1;
 }
 
 }  // namespace
@@ -783,31 +964,54 @@ int launch(const Args& a, cudaStream_t stream) {
 // Launches the replay backward on `stream`; returns a CUDA error code (0
 // on success). n_pad (a multiple of 128, >= n_rays) is the row count of
 // rays, cot and d_rays and the ray stride of codes; rays past n_rays are
-// ignored. d_tbl and d_misc must be zeroed by the caller. Refuses
+// ignored. d_tbl and d_misc must be zeroed by the caller. `instance` is
+// kInstanceChain (a one-branch tree of at most kMaxChain nodes) or
+// kInstanceTree; `shared_sums` keeps a block's table cotangent in shared
+// memory (ops/replay_vjp.py vjp_instance picks both). Refuses
 // (cudaErrorInvalidValue) more than 8 lights, more than 63 tree nodes, a
-// two-branch tree deeper than the parked-frame stack, or a ragged n_pad.
+// two-branch tree deeper than the parked-frame stack, a ragged n_pad or
+// an instance that does not cover the tree; a shared-memory request past
+// the card's limit fails in the launch.
 extern "C" int cutrace_replay_vjp(
     const float* rays, const int* codes, const float* cot,
     const float* table, const float* lights, const float* ambient,
     float* d_rays, float* d_tbl, float* d_misc, int n_rays, int n_pad,
     int k_rows, int n_tab, int t_cnt, int p_cnt, int n_lights, int bounces,
     int shadow_steps, int any_refl, int any_transp, float fudge,
-    void* stream) {
+    int instance, int shared_sums, void* stream) {
   const bool refl = any_refl != 0, transp = any_transp != 0;
-  int n_nodes = 1;
-  if (refl && transp) n_nodes = (1 << (bounces + 1)) - 1;
-  else if (refl || transp) n_nodes = bounces + 1;
-  if (n_lights < 0 || n_lights > kMaxLights || n_nodes > 63 ||
-      (refl && transp && bounces >= kMaxParked) || n_pad % kBlock != 0 ||
+  const int n_nodes = tree_nodes(bounces, refl, transp);
+  if (n_lights < 0 || n_lights > kMaxLights || n_nodes > kMaxNodes ||
+      (refl && transp && bounces >= kMaxParked) || n_pad % kPad != 0 ||
       n_rays > n_pad)
     return (int)cudaErrorInvalidValue;
+  if (instance == kInstanceChain && refl && transp)
+    return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_for(instance, n_nodes);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   const int node_rows = 1 + n_lights * (transp ? shadow_steps : 1);
   if (n_nodes * node_rows != k_rows) return (int)cudaErrorInvalidValue;
   Args a{rays, codes, cot, table, lights, ambient, d_rays, d_tbl, d_misc,
          n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights, bounces,
-         shadow_steps, n_nodes, node_rows, refl, transp,
-         (size_t)n_tab * kCols <= (size_t)kSmemTableFloats, fudge};
-  cudaStream_t s = (cudaStream_t)stream;
-  return n_nodes <= 8 ? launch<8>(a, s) : launch<64>(a, s);
+         shadow_steps, n_nodes, node_rows, refl, transp, shared_sums != 0,
+         fudge};
+  return launch(kernel, a, (cudaStream_t)stream);
+}
+
+// The resources of an instance's kernel as compiled (registers, local
+// bytes, static shared bytes, max threads a block) into out[4], for a tree
+// of n_nodes nodes; returns the CUDA error code.
+extern "C" int cutrace_replay_vjp_attributes(int instance, int n_nodes,
+                                             int* out) {
+  const Kernel kernel = kernel_for(instance, n_nodes);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = attr.maxThreadsPerBlock;
+  return 0;
 }

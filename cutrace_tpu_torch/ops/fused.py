@@ -117,7 +117,7 @@ def check_scope(soa, accel, bounces):
 @dataclasses.dataclass(frozen=True)
 class KernelTables(pc.ClusterTables):
     """The kernels' scene operands: the partition's ClusterTables (slot
-    rows, cluster, group and tree boxes) and the rows below, contiguous float32
+    rows, cluster and tree boxes) and the rows below, contiguous float32
     tensors on the scene's device, positions recentered by the scene
     center."""
 
@@ -143,8 +143,8 @@ def _light_table(soa, o0):
 def kernel_tables(soa, accel) -> KernelTables:
     """The kernels' tables for a scene and its cluster partition (the
     counterpart of cutrace_tpu.ops.fused._tables and _light_table, holding
-    only the rows the kernels read; the group and tree boxes take the
-    place of its supercluster rows `aabb2`). The tree is built here from
+    only the rows the kernels read; the tree boxes take the place of its
+    supercluster rows `aabb2`). The tree is built here from
     the live leaves on every call, as the rest."""
     o0 = soa.scene_center
     dev = o0.device

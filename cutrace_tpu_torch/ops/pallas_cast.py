@@ -3,10 +3,12 @@ cutrace_tpu.ops.pallas_cast).
 
 `cast_clusters` returns, per ray, the (t, original index) nearest triangle
 with t > min_dist over a cluster partition: on CUDA tensors through the
-hand-written Hopper kernel in `csrc/cluster_cast.cu` (K4), which culls
-clusters two levels deep against each ray's best t; on CPU tensors through
-`cast_clusters_plain`, the dense cast over every slot. Ties go to the
-smallest original index, as the reference's scan order does.
+hand-written Hopper kernel in `csrc/cluster_cast.cu` (K4), whose warps walk
+the clusters together, each ray culling against its own best t (the flat
+loop over at most FLAT_MAX_M clusters, the ordered walk over the cluster
+tree past that: `k4_instance` decides before the launch); on CPU tensors
+through `cast_clusters_plain`, the dense cast over every slot. Ties go to
+the smallest original index, as the reference's scan order does.
 
 `pallas_candidates` is the ray_cast triangle query built on it: the kernel
 picks only the winner (no gradient), then the winner's vertices are
@@ -15,10 +17,9 @@ ops, so autograd reaches the vertices with no custom backward.
 
 Both read the per-slot rows `cluster_tables` builds from the scene and its
 partition (the (M, C, 24) triangle table of the fused kernels, whose first
-18 rows are the cast constants of `_cluster_constants`, the cluster boxes,
-the group boxes of ops.bvh.group_boxes and the widened tree boxes of
-ops.bvh.tree_boxes, which K3 walks), all positions recentered by the
-scene center.
+18 rows are the cast constants of `_cluster_constants`, the cluster boxes
+and the widened tree boxes of ops.bvh.tree_boxes, which K3 and K4 walk),
+all positions recentered by the scene center.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ from cutrace_tpu_torch.ops import intersect as I
 # Kernel launches on CUDA tensors since import, or since a caller last
 # reset it.
 LAUNCHES = 0
+# Partitions of at most this many clusters take the kernel's flat loop
+# (ops.fused.LANES_MAX_M, K1's bound), bigger ones its tree walk.
+FLAT_MAX_M = 32
+# The kernel's instances (csrc/cluster_cast.cu kInstance*).
+_K4_FLAT, _K4_TREE = 0, 1
 
 _BIG = 2**30
 # per-slot rows of the (M, C, _TRI_ROWS) triangle table; row 23 is zero.
@@ -46,8 +52,7 @@ _TRI_NAMES = (
 _TRI_ROWS = 24
 # the rows the query reads
 _CONST_NAMES = _TRI_NAMES[:18]
-# (M, 8) cluster boxes, (G, 8) group boxes and (2L, 8) tree boxes: bmin
-# xyz, bmax xyz, 0, 0
+# (M, 8) cluster boxes and (2L, 8) tree boxes: bmin xyz, bmax xyz, 0, 0
 _AABB_ROWS = 8
 # (rays x slots) elements per batch of the plain version
 _PLAIN_ELEMS = 1 << 22
@@ -82,7 +87,6 @@ class ClusterTables:
 
     tri: torch.Tensor  # (M, C, _TRI_ROWS) per-slot rows
     aabb: torch.Tensor  # (M, _AABB_ROWS) cluster boxes
-    groups: torch.Tensor  # (ceil(M / bvh.GROUP), _AABB_ROWS) group boxes
     tree: torch.Tensor  # (2 * bvh.tree_leaves(M), _AABB_ROWS) widened tree
 
 
@@ -108,9 +112,8 @@ def cluster_tables(soa, accel) -> ClusterTables:
     aabb[:, 0:3] = bmin
     aabb[:, 3:6] = bmax
     live = clusters.valid.any(dim=1)
-    groups = bvh.group_boxes(bmin, bmax, live)
     tree = bvh.widen_tree(bvh.tree_boxes(bmin, bmax, live))
-    return ClusterTables(tri=tri, aabb=aabb, groups=groups, tree=tree)
+    return ClusterTables(tri=tri, aabb=aabb, tree=tree)
 
 
 @torch.no_grad()
@@ -161,6 +164,12 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def k4_instance(tables) -> int:
+    """Which instance runs a partition, decided before the launch: the
+    flat loop over at most FLAT_MAX_M clusters, the tree walk past it."""
+    return _K4_TREE if tables.tri.shape[0] > FLAT_MAX_M else _K4_FLAT
+
+
 @torch.no_grad()
 def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
     """Launch the kernel; `tally`, a zeroed (4,) int64 CUDA tensor,
@@ -182,7 +191,12 @@ def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
                               or tuple(tally.shape) != (4,)
                               or tally.device != dev):
         raise ValueError("tally: expected a (4,) int64 tensor on the card")
+    for f in ("tri", "aabb", "tree"):
+        if getattr(tables, f).data_ptr() % 16:
+            raise ValueError(f"tables.{f}: the kernel reads 16-byte rows; "
+                             f"the tensor must start on a 16-byte boundary")
     m, c = tables.tri.shape[:2]
+    instance = k4_instance(tables)
     rays = torch.zeros((r, 8), dtype=torch.float32, device=dev)
     rays[:, 0:3] = o
     rays[:, 3:6] = d
@@ -191,9 +205,9 @@ def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
     ord_out = torch.empty((r,), dtype=torch.int32, device=dev)
     lib = _build.load_library("cluster_cast")
     rc = lib.cutrace_cluster_cast(
-        _ptr(rays), _ptr(tables.tri), _ptr(tables.aabb), _ptr(tables.groups),
-        _ptr(t_out), _ptr(ord_out), r, m, c,
-        None if tally is None else _ptr(tally),
+        _ptr(rays), _ptr(tables.tri), _ptr(tables.aabb), _ptr(tables.tree),
+        _ptr(t_out), _ptr(ord_out), r, m, c, tables.tree.shape[0] // 2,
+        instance, None if tally is None else _ptr(tally),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"cluster cast kernel launch failed: CUDA error "

@@ -3,8 +3,11 @@
 
 The vector-Jacobian product of ops.replay.replay_render_rays for given
 codes and output cotangents. On CUDA tensors it launches the hand-written
-Hopper kernel in `csrc/replay_vjp.cu`; on CPU tensors it runs the plain
-version, torch autograd of the replay. Both consume the small tensors the
+Hopper kernel in `csrc/replay_vjp.cu`, in the instance `vjp_instance`
+picks before the launch (a chain of at most MAX_CHAIN nodes with its state
+in registers, or any tree of at most MAX_NODES; the table cotangent summed
+in shared or global memory); on CPU tensors it runs the plain version,
+torch autograd of the replay. Both consume the small tensors the
 backward differentiates: the packed table recentered by the scene center
 (`_recentered_table`, (N, 17)), the light table (`_light_table_diff`,
 (L, 8)) and the ambient term. Their cotangents reach the scene leaves by
@@ -27,7 +30,18 @@ LAUNCHES = 0
 # The kernel's scope: lights and bounce-tree nodes.
 MAX_LIGHTS = 8
 MAX_NODES = 63
-_BLOCK = 128  # the kernel's block; rays are padded to a multiple of it
+# The longest chain (one-branch tree) with an instance of its own.
+MAX_CHAIN = 7
+_BLOCK = 256  # the kernel's threads a block
+# Rays are padded to a multiple of this: the fused forward's own padding
+# (ops.fused._BLOCK), so its code buffer is taken as it is.
+_PAD = 128
+# The kernel's instances (csrc/replay_vjp.cu kInstance*).
+_CHAIN, _TREE = 0, 1
+# Shared-memory bytes a block may take for its sums and still share an
+# H100 multiprocessor (228 KB, 1 KB reserved a block) with a second one;
+# past it the table cotangent is summed in global memory.
+SHARED_SUMS_MAX = 112 * 1024
 
 # The scene leaves the backward's tables are built from: every
 # differentiable field but the camera's, which reach the rays instead.
@@ -47,6 +61,50 @@ def replay_vjp_supported(soa, bounces: int) -> bool:
                                  soa.shadow_steps)
     return (soa.n_lights <= MAX_LIGHTS and len(nodes) <= MAX_NODES
             and rows <= rp.REPLAY_MAX_ROWS)
+
+
+@dataclasses.dataclass(frozen=True)
+class VjpInstance:
+    """The kernel's instance for a scene and bounce depth."""
+
+    shape: str  # "chain" (state in registers) or "tree" (stacks)
+    nodes: int  # bounce-tree nodes
+    sums: str  # table cotangent summed in "shared" or "global" memory
+    block: int  # threads a block
+    shared_bytes: int  # dynamic shared memory a block
+
+    @property
+    def code(self) -> int:
+        """The instance number the kernel takes."""
+        return _CHAIN if self.shape == "chain" else _TREE
+
+
+def vjp_instance(soa, bounces: int) -> VjpInstance:
+    """Which instance runs the backward, decided before the launch: a
+    chain when the tree has one branch (reflective or transparent
+    materials, not both) and at most MAX_CHAIN nodes, else the tree
+    instance; the table cotangent in shared memory when the block's
+    shared bytes (one light column a thread, the (N, 17) table) are at
+    most SHARED_SUMS_MAX, else global atomics. Raises NotImplementedError
+    past the kernel's scope; nothing falls back to the plain version."""
+    if not replay_vjp_supported(soa, bounces):
+        raise NotImplementedError(
+            f"replay backward of {soa.n_lights} lights at bounce depth "
+            f"{bounces}: the kernel covers at most {MAX_LIGHTS} lights and "
+            f"{MAX_NODES} tree nodes; ROADMAP item A.8")
+    _, nodes = rp.topo_layout(bounces, soa.any_reflective,
+                              soa.any_transparent, soa.n_lights,
+                              soa.shadow_steps)
+    one_branch = not (soa.any_reflective and soa.any_transparent)
+    shape = "chain" if one_branch and len(nodes) <= MAX_CHAIN else "tree"
+    n_tab = (soa.tri_p1.shape[0] + soa.pl_point.shape[0]
+             + soa.sp_center.shape[0])
+    columns = 4 * (6 * soa.n_lights + 1) * _BLOCK
+    shared = columns + 4 * n_tab * 17 <= SHARED_SUMS_MAX
+    return VjpInstance(shape=shape, nodes=len(nodes),
+                       sums="shared" if shared else "global", block=_BLOCK,
+                       shared_bytes=columns + (4 * n_tab * 17 if shared
+                                               else 0))
 
 
 def _recentered_table(soa, o0):
@@ -131,16 +189,17 @@ def _ptr(t):
 
 def _codes_by_row(codes):
     """(buffer, n_pad): the codes as a (K, n_pad) int32 buffer, rays
-    contiguous, n_pad a multiple of the kernel's block. It is the fused
-    forward's own buffer when `codes` is its (R, K) view, else a copy."""
+    contiguous, n_pad a multiple of _PAD (the kernel's last block of rays
+    may be ragged). It is the fused forward's own buffer when `codes` is
+    its (R, K) view, else a copy."""
     r, k = codes.shape
     n_pad = codes.stride(1)
     if (codes.dtype == torch.int32 and codes.stride(0) == 1
-            and n_pad % _BLOCK == 0 and n_pad >= r
+            and n_pad % _PAD == 0 and n_pad >= r
             and codes.storage_offset() == 0
             and codes.untyped_storage().nbytes() >= k * n_pad * 4):
         return torch.as_strided(codes, (k, n_pad), (n_pad, 1)), n_pad
-    n_pad = -(-r // _BLOCK) * _BLOCK
+    n_pad = -(-r // _PAD) * _PAD
     out = torch.full((k, n_pad), -1, dtype=torch.int32, device=codes.device)
     out[:, :r] = codes.T
     return out, n_pad
@@ -152,11 +211,7 @@ def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
     from cutrace_tpu_torch.ops import _build
 
     global LAUNCHES
-    if not replay_vjp_supported(soa, bounces):
-        raise NotImplementedError(
-            f"replay backward of {soa.n_lights} lights at bounce depth "
-            f"{bounces}: the kernel covers at most {MAX_LIGHTS} lights and "
-            f"{MAX_NODES} tree nodes; ROADMAP item A.8")
+    instance = vjp_instance(soa, bounces)
     dev = table.device
     r = o.shape[0]
     rows = rp.replay_rows(soa, bounces)
@@ -194,7 +249,8 @@ def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
         _ptr(ambient), _ptr(d_rays), _ptr(d_tbl), _ptr(d_misc),
         r, n_pad, rows, n_tab, soa.tri_p1.shape[0], soa.pl_point.shape[0],
         n_lights, bounces, soa.shadow_steps, int(soa.any_reflective),
-        int(soa.any_transparent), float(fudge),
+        int(soa.any_transparent), float(fudge), instance.code,
+        int(instance.sums == "shared"),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:

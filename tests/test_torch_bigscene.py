@@ -59,54 +59,6 @@ def test_prepare_policy_matches_jax(scenes_dir, levels, shape):
     assert np.array_equal(got.valid.numpy(), np.asarray(want.valid))
 
 
-def test_group_boxes_match_jax_superclusters(scenes_dir):
-    """With no empty cluster, the group boxes are the JAX kernel's
-    32-cluster supercluster rows (`aabb2`)."""
-    from cutrace_tpu.ops import fused as jfused
-
-    sc = _bunny(scenes_dir, 2, 8, 8)
-    js = jax_soa(sc)
-    ja = jbvh.build_accel(js, 64, kind="fused", interpret=True)
-    _, _, aabb2, _, _, _, _ = jfused._tables(js, ja, js.scene_center)
-    ts = scene_to_soa(port_scene(sc), device="cpu")
-    kt = tfused.kernel_tables(ts, tbvh.accel_from_numpy(
-        np.asarray(ja.order), np.asarray(ja.valid), device="cpu"))
-    assert kt.groups.shape == (8, 8)
-    assert np.array_equal(kt.groups[:, :6].numpy(), np.asarray(aabb2)[:6].T)
-    assert not kt.groups[:, 6:].any()
-
-
-def test_group_boxes_skip_empty_clusters():
-    """Empty clusters stay out of the union; an all-empty group sits at
-    the never-hit sentinel."""
-    bmin = torch.tensor([[0.0, 0, 0], [1e8, 1e8, 1e8], [2.0, -1, 0]])
-    bmax = torch.tensor([[1.0, 1, 1], [1e8, 1e8, 1e8], [3.0, 0, 1]])
-    rows = tbvh.group_boxes(bmin, bmax, torch.tensor([True, False, True]))
-    assert rows.tolist() == [[0.0, -1.0, 0.0, 3.0, 1.0, 1.0, 0.0, 0.0]]
-    empty = tbvh.group_boxes(bmin[1:2], bmax[1:2], torch.tensor([False]))
-    assert empty[0, :6].tolist() == [1e8] * 6
-
-
-def test_group_entry_never_after_member_entry(scenes_dir):
-    """The two-level cull's premise, with bvh.slab_entry (the plain form
-    of the kernels' slab test) on the 16k bunny's partition: a ray that
-    enters a live cluster's box enters its group's box, no later. So the
-    group test drops only clusters the member test drops too."""
-    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 2, 8, 8)), device="cpu")
-    kt = tfused.kernel_tables(ts, tbvh.build_accel(ts, 256))
-    rng = np.random.default_rng(3)
-    o = torch.from_numpy(rng.normal(0.0, 1.0, (4096, 3)).astype(np.float32))
-    d = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32))
-    d[:64, 0] = 0.0  # axis-parallel rays: 0 * inf bounds
-    m_lo, m_hi = tbvh.slab_entry(kt.aabb[:, 0:3], kt.aabb[:, 3:6], o, d)
-    g_lo, g_hi = tbvh.slab_entry(kt.groups[:, 0:3], kt.groups[:, 3:6], o, d)
-    group = torch.arange(kt.aabb.shape[0]) // tbvh.GROUP
-    member_hit = m_lo <= m_hi
-    assert member_hit.sum() > 1000
-    assert (g_lo[:, group] <= g_hi[:, group])[member_hit].all()
-    assert (g_lo[:, group] <= m_lo)[member_hit].all()
-
-
 def _numpy_tree(bmin, bmax, live):
     """The tree of ops.bvh.tree_boxes, by a numpy bottom-up union: (2L, 6)
     node boxes in heap order (row 0 unused), empty clusters left out."""

@@ -192,7 +192,7 @@ def test_scope_is_enforced(scenes_dir):
 def test_kernel_row_layout_matches_source():
     """The (M, C, 24) triangle rows the wrapper packs are the rows the
     CUDA sources read (their T_* constants, in the shared header), and
-    the group size is ops.bvh's."""
+    the cluster tree the walks read is ops.bvh's."""
     src = "\n".join(p.read_text() for p in (
         _build.SOURCES["fused_forward"],
         *_build.included_headers(_build.SOURCES["fused_forward"])))
@@ -217,7 +217,7 @@ def test_kernel_row_layout_matches_source():
     }
     assert f"kPsRows = {tfused._PS_ROWS};" in src
     assert f"kAabbRows = {tpc._AABB_ROWS};" in src
-    assert f"kGroup = {tbvh.GROUP};" in src
+    assert "kGroup" not in src and not hasattr(tbvh, "GROUP")
     # the tree K3 walks is ops.bvh's
     assert f"kTreeArity = {tbvh.TREE_ARITY};" in src
     assert f"kTreeStack = 32;" in src
