@@ -79,25 +79,21 @@ line) if any phase fails:
              most 0.1 % of rays), t within isclose(rtol 1e-5, atol
              1e-5 |o - o0|), each partition's instance (flat or tree)
              and its compiled resources; K4's time and bounds on the
-             1080p primary rays in one launch, and summed over its
+             1080p primary rays in one launch, and its device time
+             (torch.profiler, CUDA only) and bounds summed over its
              launches (65,536 rays for a nearest cast, 262,144 for the
              four lights' shadow casts) inside one --accel pallas bunny
              1080p b5 frame
  15. pallas  the CLI with --accel pallas at bunny 1920x1080 b5: three
              JPEGs, K4 launched, K1/K3 not; the pallas render at 480x270
              b5 against the dense cast under the forward gate
- 16. trace   torch.profiler over one warm --accel pallas bunny 1920x1080
-             b5 render: host ops by count and time, kernel launches, the
-             device's busy time and idle share, the gaps between device
-             activities, and K4's device time a launch (`--trace-out
-             PATH.json.gz` keeps the chrome trace)
- 17. fallback  a transparent bunny (mesh transparency 0.5): at 160x90 b6
+ 16. fallback  a transparent bunny (mesh transparency 0.5): at 160x90 b6
              (127 nodes) render takes the composable culling cast and
              matches brute force; at b5 (567 code rows, past the replay's
              512) a gradient step runs K1 forward and the composable
              backward through K4, within rtol 2e-3 of autograd of brute
              force
- 18. result  a JSON line of per-kernel numbers, then the contract line
+ 17. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
@@ -140,7 +136,7 @@ PARITY = (
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
-          "cast", "pallas", "trace", "fallback")
+          "cast", "pallas", "fallback")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -1246,24 +1242,34 @@ def phase_cast(m, big_prepared_256k, smi, rec):
     phase("cast", f"done in {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+def kernel_device_ms(fn, kernel):
+    """(device ms, launches) of the kernels whose names hold `kernel` in
+    one call of fn(), from a CUDA-only torch.profiler trace: their time
+    on the card alone, with no host latency between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "t.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = [e["dur"] for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel" and kernel in e["name"]]
+    return sum(durs) / 1e3, len(durs)
+
+
 def k4_in_frame(m, prepared, rec):
     """K4 at the shape its path launches it: one bunny 1920x1080 b5
     render with accel="pallas" (the CLI's --accel pallas frame), K4's
-    launches timed one by one with CUDA events around the library call
-    and summed; then the same frame again with a tally per launch, whose
-    bounds are summed over the same launches."""
+    device time summed over its launches (kernel_device_ms); then the
+    same frame again with a tally per launch, whose bounds are summed
+    over the same launches."""
     lib = m.build.load_library("cluster_cast")
     load = m.build.load_library
-    events, tallies = [], []
-
-    class Timed:
-        def cutrace_cluster_cast(self, *args):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            rc = lib.cutrace_cluster_cast(*args)
-            ev[1].record()
-            events.append(ev)
-            return rc
+    tallies = []
 
     class Tallied:
         def cutrace_cluster_cast(self, *args):
@@ -1274,20 +1280,18 @@ def k4_in_frame(m, prepared, rec):
 
     m.render(prepared, bounces=5)  # warm-up
     torch.cuda.synchronize()
+    total, n = kernel_device_ms(lambda: m.render(prepared, bounces=5),
+                                "cluster_cast_kernel")
+    m.build.load_library = (lambda name: Tallied() if name == "cluster_cast"
+                            else load(name))
     try:
-        for stand_in in (Timed(), Tallied()):
-            m.build.load_library = (
-                lambda name, s=stand_in: s if name == "cluster_cast"
-                else load(name))
-            m.render(prepared, bounces=5)
-            torch.cuda.synchronize()
+        m.render(prepared, bounces=5)
+        torch.cuda.synchronize()
     finally:
         m.build.load_library = load
-    n = len(events)
     if n == 0 or n != len(tallies):
-        raise AssertionError(f"K4 in the pallas frame: {n} timed launches, "
+        raise AssertionError(f"K4 in the pallas frame: {n} traced launches, "
                              f"{len(tallies)} tallied")
-    total = sum(a.elapsed_time(b) for a, b in events)
     bounds = [cast_bound(prepared.tables, r, t) for r, t in tallies]
     tally = sum(t for _, t in tallies)
     frame = {k: (sum(b[k][0] for b in bounds),
@@ -1298,8 +1302,8 @@ def k4_in_frame(m, prepared, rec):
     phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame: "
           f"{n} launches of 65536 or 262144 rays "
           f"({rec['cast_frame']['rays']} "
-          f"rays), {total:.3f} ms summed ({total / n:.4f} ms a launch); "
-          f"{tally_text(tally)}; summed " + bound_text(frame)
+          f"rays), {total:.3f} ms of device time summed ({total / n:.4f} "
+          f"ms a launch); {tally_text(tally)}; summed " + bound_text(frame)
           + f"; plain on one 65536-ray chunk "
           f"{rec['cast_chunk_plain_ms']:.1f} ms")
 
@@ -1346,127 +1350,6 @@ def phase_pallas(m, smi, rec, launches):
         if off or on > EDGE_BUDGET * max(n_edges, 1):
             raise AssertionError(f"pallas {k}: the culling cast's render "
                                  f"departs from the dense cast's")
-
-
-def device_intervals(events):
-    """Sorted (start, end) µs of the device activities of a chrome trace:
-    kernels, copies and memsets."""
-    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e.get("ph") == "X" and e.get("cat") in (
-                      "kernel", "gpu_memcpy", "gpu_memset"))
-
-
-def trace_summary(events, key_averages, wall_ms):
-    """What one traced frame spent where: the device's busy time (the
-    union of its activities) and idle share over the traced wall time,
-    the gaps between device activities, kernel launches and copies by the
-    host, host ops by count and self time, and the device time of the
-    kernels by name."""
-    spans = device_intervals(events)
-    busy, gaps, end = 0.0, [], None
-    for a, b in spans:
-        if end is not None and a > end:
-            gaps.append(a - end)
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    runtime = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "cuda_runtime":
-            runtime[e["name"]] = runtime.get(e["name"], 0) + 1
-    kernels = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            k = kernels.setdefault(e["name"][:60], [0, 0.0])
-            k[0] += 1
-            k[1] += e["dur"]
-    ops = sorted(((a.key, a.count, a.self_cpu_time_total)
-                  for a in key_averages), key=lambda x: -x[2])
-    # torch ops the Python code called: cpu_op events not nested in
-    # another one of their thread
-    top, ends = 0, {}
-    for e in sorted((e for e in events if e.get("ph") == "X"
-                     and e.get("cat") == "cpu_op"), key=lambda e: e["ts"]):
-        if e["ts"] >= ends.get(e["tid"], -1.0):
-            top += 1
-            ends[e["tid"]] = e["ts"] + e["dur"]
-    big_gaps = [g for g in gaps if g > 50.0]
-    return {
-        "wall_ms": wall_ms,
-        "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
-        "device_activities": len(spans),
-        "gaps": len(gaps), "gaps_ms": sum(gaps) / 1e3,
-        "gaps_over_50us": len(big_gaps),
-        "gaps_over_50us_ms": sum(big_gaps) / 1e3,
-        "largest_gap_ms": max(gaps, default=0.0) / 1e3,
-        "runtime_calls": dict(sorted(runtime.items(),
-                                     key=lambda kv: -kv[1])[:8]),
-        "host_ops": top,
-        "host_ops_nested": sum(1 for e in events if e.get("ph") == "X"
-                               and e.get("cat") == "cpu_op"),
-        "top_host_ops": [(k, c, round(t / 1e3, 3)) for k, c, t in ops[:12]],
-        "top_kernels": sorted(
-            ([k, n, round(t / 1e3, 3)] for k, (n, t) in kernels.items()),
-            key=lambda x: -x[2])[:10],
-        "k4": [sum(n for k, (n, _) in kernels.items()
-                   if "cluster_cast" in k),
-               sum(t for k, (_, t) in kernels.items()
-                   if "cluster_cast" in k) / 1e3],
-    }
-
-
-def phase_trace(m, smi, rec, out_path=None):
-    """torch.profiler (host and device) over one warm --accel pallas bunny
-    1920x1080 b5 render: where the composable path's time goes."""
-    import gzip
-    from torch.profiler import ProfilerActivity, profile
-
-    t0 = time.perf_counter()
-    prepared = m.prepare(m.load_scene(m.scenes / "bunny.json"),
-                         accel="pallas", device="cuda")
-    m.render(prepared, bounces=5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        m.render(prepared, bounces=5)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        if out_path is not None:
-            out_path.parent.mkdir(parents=True, exist_ok=True)
-            with open(path, "rb") as f, gzip.open(out_path, "wb") as g:
-                g.write(f.read())
-    summary = trace_summary(events, prof.key_averages(), wall_ms)
-    n_k4, k4_ms = summary["k4"]
-    if n_k4 < 1:
-        raise AssertionError("the traced pallas frame shows no K4 launch")
-    rec["pallas_trace"] = summary
-    phase("trace", f"--accel pallas bunny 1920x1080 b5, one traced render: "
-          f"{wall_ms:.1f} ms wall, device busy {summary['device_busy_ms']:.1f}"
-          f" ms (idle share {summary['device_idle_share']:.3f}) over "
-          f"{summary['device_activities']} activities; gaps "
-          f"{summary['gaps']} ({summary['gaps_ms']:.1f} ms; "
-          f"{summary['gaps_over_50us']} over 50 us, "
-          f"{summary['gaps_over_50us_ms']:.1f} ms; largest "
-          f"{summary['largest_gap_ms']:.3f} ms); torch ops called "
-          f"{summary['host_ops']} ({summary['host_ops_nested']} with "
-          f"nested ones); K4 {n_k4} launches, {k4_ms:.3f} ms of "
-          f"device time ({k4_ms / n_k4:.4f} ms a launch)")
-    phase("trace", "runtime calls " + json.dumps(summary["runtime_calls"]))
-    phase("trace", "host ops by self time (name, count, ms) "
-          + json.dumps(summary["top_host_ops"]))
-    phase("trace", "kernels by device time (name, count, ms) "
-          + json.dumps(summary["top_kernels"])
-          + f"; {time.perf_counter() - t0:.1f} s ({smi})")
 
 
 def transparent_bunny(m, w, h):
@@ -1557,9 +1440,6 @@ def phase_fallback(m, smi, rec):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--skip", nargs="*", default=[], choices=PHASES)
-    ap.add_argument("--trace-out", type=pathlib.Path,
-                    help="write the trace phase's chrome trace here "
-                         "(gzipped JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1851,8 +1731,6 @@ def main(argv=None) -> int:
     big.clear()
     if "pallas" not in skip:
         phase_pallas(m, smi, rec, launches)
-    if "trace" not in skip:
-        phase_trace(m, smi, rec, args.trace_out)
     if "fallback" not in skip:
         phase_fallback(m, smi, rec)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
@@ -1879,7 +1757,6 @@ def main(argv=None) -> int:
                 "library_ms": None, **extra}
 
     frame = rec["cast_frame"]
-    k4_dev_n, k4_dev_ms = rec["pallas_trace"]["k4"]
     kernels = [
         entry("fused_forward", fused_src, "cutrace_tpu/ops/fused.py:1734",
               launches["cli"]["fused_forward"], max_err, rec["kernel_ms"],
@@ -1922,17 +1799,14 @@ def main(argv=None) -> int:
         entry("cluster_cast", "cutrace_tpu_torch/ops/csrc/cluster_cast.cu",
               "cutrace_tpu/ops/pallas_cast.py:81",
               launches["pallas"]["cluster_cast"], rec["cast_err"],
-              k4_dev_ms / k4_dev_n, rec["cast_chunk_plain_ms"],
+              frame["ms"] / frame["launches"], rec["cast_chunk_plain_ms"],
               {k: (v[0] / frame["launches"], v[1])
                for k, v in frame["bound"].items()},
               shape="one launch of an --accel pallas bunny 1920x1080 b5 "
                     "frame (65536 or 262144 rays), M=16 C=64; ms: the "
-                    "device time (torch.profiler, trace phase) over the "
-                    "frame's launches; ms_events: CUDA events around each "
-                    "library call (cast phase), which add the host's "
-                    "launch latency",
-              frame_ms=k4_dev_ms, frame_ms_events=frame["ms"],
-              ms_events=frame["ms"] / frame["launches"],
+                    "device time (torch.profiler) over the frame's "
+                    "launches, a launch",
+              frame_ms=frame["ms"],
               frame_launches=frame["launches"],
               instance="flat (M <= 32; tree past it)",
               resources=rec["cast_resources"],
@@ -1954,7 +1828,6 @@ def main(argv=None) -> int:
             "vjp_ms", "vjp_wrapper_ms", "vjp_plain_ms", "vjp_bound")},
         "bigscene": rec["bigscene"],
         "pallas_render_ms": rec["pallas_render_ms"],
-        "pallas_trace": rec["pallas_trace"],
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attributes.cuh"
+
 namespace cutrace {
 
 constexpr int kTriRows = 24;    // floats per triangle slot
@@ -519,22 +521,6 @@ __device__ __forceinline__ unsigned long long needed_visits(
         (strict ? entry < limit : entry <= limit))
       ++n;
   return n;
-}
-
-// A kernel's resources as compiled, into out[4]: registers a thread, local
-// memory bytes a thread (spills and arrays indexed at run time), static
-// shared bytes, the most threads a block may have. Returns the CUDA error
-// code.
-template <typename Kernel>
-inline int kernel_attributes(Kernel* kernel, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = a.maxThreadsPerBlock;
-  return 0;
 }
 
 }  // namespace cutrace

@@ -70,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attributes.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;      // threads a block (ops/replay_vjp.py _BLOCK)
@@ -1006,12 +1008,5 @@ extern "C" int cutrace_replay_vjp_attributes(int instance, int n_nodes,
                                              int* out) {
   const Kernel kernel = kernel_for(instance, n_nodes);
   if (!kernel) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)attr.sharedSizeBytes;
-  out[3] = attr.maxThreadsPerBlock;
-  return 0;
+  return cutrace::kernel_attributes(kernel, out);
 }

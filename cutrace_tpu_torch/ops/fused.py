@@ -50,8 +50,9 @@ from cutrace_tpu_torch.render import shading as sh
 from cutrace_tpu_torch.render.renderer import default_chunk, render_rays
 
 # Partitions of at most this many clusters run K1 (the JAX lanes kernel's
-# bound); bigger ones run K3.
-LANES_MAX_M = 32
+# bound); bigger ones run K3. The culling cast (K4) splits its flat loop
+# from its tree walk at the same count.
+LANES_MAX_M = pc.FLAT_MAX_M
 # Bounce-tree nodes in the kernels' scope (a two-branch tree at bounce
 # depth 5); render and the gradient take the composable culling cast past
 # it.

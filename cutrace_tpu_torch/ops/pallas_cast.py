@@ -35,8 +35,9 @@ from cutrace_tpu_torch.ops import intersect as I
 # Kernel launches on CUDA tensors since import, or since a caller last
 # reset it.
 LAUNCHES = 0
-# Partitions of at most this many clusters take the kernel's flat loop
-# (ops.fused.LANES_MAX_M, K1's bound), bigger ones its tree walk.
+# Partitions of at most this many clusters take the kernel's flat loop,
+# bigger ones its tree walk; the fused kernels split K1 from K3 here too
+# (ops.fused.LANES_MAX_M).
 FLAT_MAX_M = 32
 # The kernel's instances (csrc/cluster_cast.cu kInstance*).
 _K4_FLAT, _K4_TREE = 0, 1

@@ -59,6 +59,78 @@ def test_prepare_policy_matches_jax(scenes_dir, levels, shape):
     assert np.array_equal(got.valid.numpy(), np.asarray(want.valid))
 
 
+def _live(accel):
+    return accel.valid.to(torch.bool).any(dim=1)
+
+
+def test_group_boxes_match_jax_superclusters(scenes_dir):
+    """With no empty cluster, the unwidened tree level whose nodes cover
+    32 clusters each is the JAX kernel's 32-cluster supercluster rows
+    (`aabb2`): the tree takes the place of the port's group boxes."""
+    from cutrace_tpu.ops import fused as jfused
+
+    sc = _bunny(scenes_dir, 2, 8, 8)
+    js = jax_soa(sc)
+    ja = jbvh.build_accel(js, 64, kind="fused", interpret=True)
+    _, _, aabb2, _, _, _, _ = jfused._tables(js, ja, js.scene_center)
+    ts = scene_to_soa(port_scene(sc), device="cpu")
+    accel = tbvh.accel_from_numpy(np.asarray(ja.order), np.asarray(ja.valid),
+                                  device="cpu")
+    kt = tfused.kernel_tables(ts, accel)
+    assert kt.aabb.shape[0] == 256 and _live(accel).all()
+    tree = tbvh.tree_boxes(kt.aabb[:, 0:3], kt.aabb[:, 3:6], _live(accel))
+    leaves = tree.shape[0] // 2
+    level = tree[leaves // 32:2 * leaves // 32]
+    assert level.shape == (8, 8)
+    assert np.array_equal(level[:, :6].numpy(), np.asarray(aabb2)[:6].T)
+    assert not level[:, 6:].any()
+
+
+def test_group_boxes_skip_empty_clusters():
+    """Empty clusters stay out of a 32-cluster node's union; a node whose
+    32 clusters are all empty sits at the never-hit sentinel."""
+    rng = np.random.default_rng(5)
+    bmin = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
+    bmax = bmin + torch.from_numpy(rng.uniform(0.1, 1.0, (64, 3))
+                                   .astype(np.float32))
+    live = torch.zeros(64, dtype=torch.bool)
+    live[[0, 5, 31]] = True
+    bmin[~live] = 1e8
+    bmax[~live] = 1e8
+    rows = tbvh.tree_boxes(bmin, bmax, live)
+    assert rows.shape == (128, 8)
+    want = torch.cat([bmin[live].amin(dim=0), bmax[live].amax(dim=0)])
+    assert torch.equal(rows[2, :6], want)
+    assert rows[3, :6].tolist() == [1e8] * 6
+    assert torch.equal(rows[1, :6], want)
+
+
+def test_group_entry_never_after_member_entry(scenes_dir):
+    """The tree walk's premise, with bvh.slab_entry (the plain form of the
+    kernels' slab test) on the 16k bunny's partition: a ray that enters a
+    live cluster's unwidened box enters every node above it on the
+    kernels' widened tree (its own leaf too), no later; axis-parallel
+    rays (0 * inf bounds) included. So a node the walk drops holds no
+    cluster the needed-visit count includes."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 2, 8, 8)), device="cpu")
+    kt = tfused.kernel_tables(ts, tbvh.build_accel(ts, 256))
+    m = kt.aabb.shape[0]
+    leaves = kt.tree.shape[0] // 2
+    rng = np.random.default_rng(3)
+    o = torch.from_numpy(rng.normal(0.0, 1.0, (4096, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32))
+    d[:64, 0] = 0.0  # axis-parallel rays: 0 * inf bounds
+    m_lo, m_hi = tbvh.slab_entry(kt.aabb[:, 0:3], kt.aabb[:, 3:6], o, d)
+    n_lo, n_hi = tbvh.slab_entry(kt.tree[:, 0:3], kt.tree[:, 3:6], o, d)
+    member_hit = m_lo <= m_hi
+    assert member_hit.sum() > 1000 and member_hit[:64].any()
+    node = torch.arange(m) + leaves
+    while (node > 0).all():
+        assert (n_lo[:, node] <= n_hi[:, node])[member_hit].all()
+        assert (n_lo[:, node] <= m_lo)[member_hit].all()
+        node = node // tbvh.TREE_ARITY
+
+
 def _numpy_tree(bmin, bmax, live):
     """The tree of ops.bvh.tree_boxes, by a numpy bottom-up union: (2L, 6)
     node boxes in heap order (row 0 unused), empty clusters left out."""

@@ -239,7 +239,10 @@ def test_kernel_row_layout_matches_source():
     assert f"kLightRows = {tfused._LIGHT_ROWS};" in src
     for name in ("fused_forward", "cluster_cast"):
         assert [p.name for p in _build.included_headers(
-            _build.SOURCES[name])] == ["cast.cuh"]
+            _build.SOURCES[name])] == ["cast.cuh", "attributes.cuh"]
+    # every library's resource query is the shared header's
+    assert [p.name for p in _build.included_headers(
+        _build.SOURCES["replay_vjp"])] == ["attributes.cuh"]
 
 
 def test_build_needs_nvcc(tmp_path, monkeypatch):
