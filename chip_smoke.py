@@ -576,10 +576,10 @@ def run_vjp(label, soa, o, d, codes, bounces, rp, rv, seed, rec):
                 f"|diff| {np.abs(a - b).max():.3e} at scale {scale:.3e}")
         worst = max(worst, float(np.abs(a - b).max() / scale))
     inst = rv.vjp_instance(soa, bounces)
-    res = _build.kernel_attributes("replay_vjp", inst.code, inst.nodes)
+    res = _build.kernel_attributes("replay_vjp")
     phase("vjp", f"{label}: 15 groups + d_o, d_d within the gate; max "
-          f"relative error {worst:.2e}; instance {inst.shape} of "
-          f"{inst.nodes} nodes, {inst.sums} sums, {inst.block} threads, "
+          f"relative error {worst:.2e}; {inst.nodes} nodes, {inst.sums} "
+          f"sums, {inst.block} threads, "
           f"{inst.shared_bytes} shared bytes a block; "
           + resources_text(res))
     if rec is not None:

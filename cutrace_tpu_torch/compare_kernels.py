@@ -18,10 +18,6 @@ started in that root builds its kernels and times them by CUDA events
   vjp/bunny   K2 on bunny 1920x1080 b5, codes from that checkout's own
               forward, numpy-seeded color, depth and normal cotangents
   vjp/256k    K2 on the 256k bunny at 160x90 b5 (global-memory sums)
-  vjp/bunny/tree, vjp/256k/tree
-              the same two with the tree instance forced in place of the
-              one `ops.replay_vjp.vjp_instance` picks (checkouts that have
-              it: the redesigned K2)
   cast/bunny  K4 on one 65,536-ray chunk of bunny 1920x1080 b5 primary
               rays (a chunk of the `--accel pallas` frame's primary cast)
   cast/frame  K4 summed over one `--accel pallas` bunny 1920x1080 b5
@@ -55,14 +51,12 @@ CASES = {"bunny": ("forward", 0, 1920, 1080),
          "bunny/1M": ("forward", 5, 960, 540),
          "vjp/bunny": ("vjp", 0, 1920, 1080),
          "vjp/256k": ("vjp", 4, 160, 90),
-         "vjp/bunny/tree": ("vjp-tree", 0, 1920, 1080),
-         "vjp/256k/tree": ("vjp-tree", 4, 160, 90),
          "cast/bunny": ("cast", 0, 1920, 1080),
          "cast/frame": ("frame", 0, 1920, 1080)}
 
 # what a run does in its root: build, prepare each case, time its kernel
 _CHILD = r"""
-import dataclasses, json, os, subprocess, sys, tempfile
+import json, os, subprocess, sys, tempfile
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -100,11 +94,6 @@ def device_ms(fn, reps, kernel):
     return sum(durs) / 1e3 / reps, len(durs) / reps
 
 torch.backends.cuda.matmul.allow_tf32 = False
-chosen = getattr(rv, "vjp_instance", None)
-
-def tree_instance(soa, bounces):
-    return dataclasses.replace(chosen(soa, bounces), shape="tree")
-
 out = {}
 for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
     if levels == 0:
@@ -118,9 +107,7 @@ for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
     if what == "forward":
         fn = lambda: fused.fused_render_rays(p.soa, p.accel, o, d, 1e-3, 5,
                                              tables=p.tables)
-    elif what in ("vjp", "vjp-tree"):
-        if chosen is not None:
-            rv.vjp_instance = tree_instance if what == "vjp-tree" else chosen
+    elif what == "vjp":
         *_, codes = fused.fused_render_rays(p.soa, p.accel, o, d, 1e-3, 5,
                                             emit_topo=True, tables=p.tables)
         rng = np.random.default_rng(0)
@@ -143,11 +130,9 @@ for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
     if what == "forward":
         rec["ms"] = event_ms(fn, 10)
     else:
-        kernel = "replay_vjp" if what.startswith("vjp") else "cluster_cast"
+        kernel = "replay_vjp" if what == "vjp" else "cluster_cast"
         rec["ms"], rec["launches"] = device_ms(
             fn, 2 if what == "frame" else 10, kernel + "_kernel")
-    if what == "vjp-tree":
-        rec["instance"] = dataclasses.asdict(rv.vjp_instance(p.soa, 5))
     out[name] = rec
     del p, o, d, fn
     torch.cuda.empty_cache()

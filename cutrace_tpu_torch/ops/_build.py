@@ -59,11 +59,10 @@ SIGNATURES = {
             + [_I] * 11  # n_rays n_pad k_rows n_tab t_cnt p_cnt n_lights
                          # bounces shadow_steps any_refl any_transp
             + [_F]  # fudge
-            + [_I, _I]  # instance shared_sums
+            + [_I]  # shared_sums
             + [_P]  # stream
         ),
-        "cutrace_replay_vjp_attributes": [_I, _I, _P],  # instance nodes
-                                                        # out[4]
+        "cutrace_replay_vjp_attributes": [_P],  # out[4]
     },
     "cluster_cast": {
         "cutrace_cluster_cast": (
@@ -194,7 +193,8 @@ def load_library(name: str = "fused_forward") -> ctypes.CDLL:
 def kernel_attributes(name: str, *instance: int) -> dict:
     """The compiled resources of one instance of a kernel library's
     kernel (ATTRIBUTE_NAMES -> int): `instance` is the instance number
-    and, for replay_vjp, its node count. Raises on a CUDA error."""
+    (none for replay_vjp, which has one kernel). Raises on a CUDA
+    error."""
     out = (ctypes.c_int * 4)()
     rc = getattr(load_library(name), ATTRIBUTES[name])(*instance, out)
     if rc != 0:

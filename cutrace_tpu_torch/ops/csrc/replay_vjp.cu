@@ -28,24 +28,18 @@
 // Outputs: d_o and d_d per ray; the packed-table cotangent (N, 17), and
 // per light [0, d_vec, d_color, 0] plus d_ambient, summed over rays.
 //
-// Two instances, chosen by the caller before the launch from the tree's
-// shape (ops/replay_vjp.py vjp_instance):
-//   * chain, templated on the node count (1 to kMaxChain = 7: a scene that
-//     reflects or is transparent but not both, bounces <= 6; bunny, mirror
-//     and triangle at b5). Every per-node loop of the forward sweep is
-//     unrolled, so each live node's (o, d, w) sits in registers, and the
-//     reverse sweep carries only its child's 7-float cotangent. The reverse
-//     loop itself runs once per node and reads a node's state through a
-//     select over the unrolled array, so node_backward is inlined once;
-//   * tree, any shape of at most 63 nodes (sphere_plane's two-branch tree
-//     at b5, chains past 7 nodes). The forward sweep pushes the live nodes'
-//     (o, d, w, node, level) on a per-thread stack in preorder and the
-//     reverse sweep pops them, so it touches only live nodes; a node's
-//     children's cotangents wait on a second stack bounded by the tree's
-//     depth (pending cotangents: at most one per level plus two). Both
-//     stacks, and the parked transparency frames, are indexed at run time
-//     and live in local memory: at most 63 x 32 + 8 x 32 + 6 x 36 bytes a
-//     thread, of which a ray touches its live nodes' rows.
+// Node state: one kernel covers every tree shape of at most 63 nodes
+// (chains such as bunny's, sphere_plane's two-branch tree). The forward
+// sweep pushes the live nodes' (o, d, w, node, level) on a per-thread
+// stack in preorder and the reverse sweep pops them, so it touches only
+// live nodes; a node's children's cotangents wait on a second stack
+// bounded by the tree's depth (pending cotangents: at most one per level
+// plus two). Both stacks, and the parked transparency frames, are indexed
+// at run time and live in local memory: at most 63 x 32 + 8 x 32 + 6 x 36
+// bytes a thread, of which a ray touches its live nodes' rows. (A kernel
+// for chains alone, templated on the node count with each node's state in
+// registers, ran bunny's 6-node chain about 9 % slower: at the register
+// cap it spills too, and it reads node state through selects.)
 //
 // What bounds it on this card: arithmetic and divergence per ray (about
 // 300 float operations per live node plus 180 per light, with branches on
@@ -80,12 +74,9 @@ constexpr int kCols = 17;        // packed-table columns (replay._PK_*)
 constexpr int kLightRows = 8;    // floats per light row
 constexpr int kMaxLights = 8;
 constexpr int kMaxNodes = 63;    // bounce-tree nodes
-constexpr int kMaxChain = 7;     // nodes of the largest chain instance
 constexpr int kMaxParked = 6;    // parked transparency frames (bounces <= 5)
 constexpr int kCotStack = kMaxParked + 2;  // pending child cotangents
 constexpr float kEps = 1e-6f;    // material activity threshold
-// instances (ops/replay_vjp.py _CHAIN, _TREE)
-constexpr int kInstanceChain = 0, kInstanceTree = 1;
 // packed-table columns
 constexpr int PK_A = 0, PK_B = 3, PK_C = 6, PK_COL = 10, PK_SPEC = 13;
 constexpr int PK_REFL = 14, PK_PHONG = 15, PK_TRANSP = 16;
@@ -679,86 +670,13 @@ __device__ __forceinline__ void write_ray(const Args& a, int i, bool root,
   q[7] = 0.0f;
 }
 
-// The chain instance: ray i through a chain of N nodes (node k at level
-// k), every lane of the warp in the same reverse step.
-template <int N>
-__device__ __forceinline__ void chain_ray(const Args& a, const Sums& sums,
-                                          float* lcol, int i, bool active) {
-  V3 so[N], sd[N];
-  float sw[N];
-  int n_live = 0;
-  {
-    V3 o = v3(0.f, 0.f, 0.f), d = v3(0.f, 0.f, 1.f);
-    float w = 1.0f;
-    if (active) {
-      const float* ray = a.rays + (size_t)i * 8;
-      o = ld3(ray);
-      d = ld3(ray + 3);
-    }
-    bool go = active;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      so[k] = o;
-      sd[k] = d;
-      sw[k] = w;
-      go = go && (k == 0 || w != 0.0f);
-      if (go) {
-        n_live = k + 1;
-        if (k + 1 < N) {
-          const Spawn c = spawn(a, k, o, d, w, i);
-          if (a.any_refl) {
-            d = c.d_refl;
-            w = c.w_refl;
-          } else {
-            w = c.w_transp;
-          }
-          o = c.o;
-        }
-      }
-    }
-  }
-
-  const RayCot rc = ray_cot(a, i, active);
-  NodeCot child{};
-  bool has_child = false;
-#pragma unroll 1
-  for (int k = N - 1; k >= 0; --k) {
-    // node k's state: a select over the unrolled arrays keeps them in
-    // registers
-    V3 o = so[0], d = sd[0];
-    float w = sw[0];
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      if (j == k) {
-        o = so[j];
-        d = sd[j];
-        w = sw[j];
-      }
-    }
-    const int code =
-        k < n_live ? a.codes[(size_t)(k * a.node_rows) * a.n_pad + i] : -1;
-    float g_row[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) g_row[j] = 0.0f;
-    NodeCot r{};
-    if (code >= 0)
-      r = node_backward(a, k, k, o, d, w, child, has_child && a.any_refl,
-                        child, has_child && a.any_transp, rc.c, rc.dep,
-                        rc.n, g_row, sums, lcol, i);
-    scatter_row(sums, code, g_row);
-    child = r;
-    has_child = code >= 0;
-  }
-  if (active) write_ray(a, i, has_child, child);
-}
-
 struct Frame {
   V3 o, d;
   float w;
   int level, node;
 };
 
-// A live node's forward state (tree instance).
+// A live node's forward state.
 struct LiveNode {
   V3 o, d;
   float w;
@@ -771,7 +689,7 @@ struct Pending {
   int node;
 };
 
-// The tree instance: ray i through any tree of at most kMaxNodes nodes.
+// Ray i through any tree of at most kMaxNodes nodes.
 // The forward sweep pushes the live nodes in preorder (reflection child
 // first, parked transparency frames); the reverse sweep pops them, so
 // children come before parents, each lane at its own live node.
@@ -866,8 +784,6 @@ __device__ __forceinline__ void tree_ray(const Args& a, const Sums& sums,
 // compiler is held to (65,536 / (256 x 2) = 128 a thread).
 constexpr int kMinBlocks = 2;
 
-// kChain > 0: the chain instance of that many nodes; 0: the tree instance.
-template <int kChain>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 replay_vjp_kernel(Args a) {
   extern __shared__ float smem[];
@@ -885,10 +801,7 @@ replay_vjp_kernel(Args a) {
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int i = tile * kBlock + threadIdx.x;
     const bool active = i < a.n_rays;
-    if constexpr (kChain > 0)
-      chain_ray<kChain>(a, sums, lcol, i, active);
-    else
-      tree_ray(a, sums, lcol, i, active);
+    tree_ray(a, sums, lcol, i, active);
   }
   __syncthreads();
 
@@ -912,31 +825,13 @@ replay_vjp_kernel(Args a) {
   }
 }
 
-using Kernel = void (*)(Args);
-
-// The kernel of an instance, or null when there is none.
-Kernel kernel_for(int instance, int n_nodes) {
-  if (instance == kInstanceTree) return replay_vjp_kernel<0>;
-  if (instance != kInstanceChain) return nullptr;
-  switch (n_nodes) {
-    case 1: return replay_vjp_kernel<1>;
-    case 2: return replay_vjp_kernel<2>;
-    case 3: return replay_vjp_kernel<3>;
-    case 4: return replay_vjp_kernel<4>;
-    case 5: return replay_vjp_kernel<5>;
-    case 6: return replay_vjp_kernel<6>;
-    case 7: return replay_vjp_kernel<7>;
-    default: return nullptr;
-  }
-}
-static_assert(kMaxChain == 7, "kernel_for has one case per chain length");
-
-int launch(Kernel kernel, const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(a.n_lights * 6 + 1) * kBlock +
                        (a.smem_table ? (size_t)a.n_tab * kCols : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      replay_vjp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -944,15 +839,15 @@ int launch(Kernel kernel, const Args& a, cudaStream_t stream) {
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kBlock, smem)) != cudaSuccess)
+           &per_sm, replay_vjp_kernel, kBlock, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int tiles = (a.n_pad + kBlock - 1) / kBlock;
   const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
   Args arg = a;
   void* args[] = {&arg};
-  err = cudaLaunchKernel((const void*)kernel, dim3(grid), dim3(kBlock), args,
-                         smem, stream);
+  err = cudaLaunchKernel((const void*)replay_vjp_kernel, dim3(grid),
+                         dim3(kBlock), args, smem, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -966,31 +861,25 @@ int tree_nodes(int bounces, bool refl, bool transp) {
 // Launches the replay backward on `stream`; returns a CUDA error code (0
 // on success). n_pad (a multiple of 128, >= n_rays) is the row count of
 // rays, cot and d_rays and the ray stride of codes; rays past n_rays are
-// ignored. d_tbl and d_misc must be zeroed by the caller. `instance` is
-// kInstanceChain (a one-branch tree of at most kMaxChain nodes) or
-// kInstanceTree; `shared_sums` keeps a block's table cotangent in shared
-// memory (ops/replay_vjp.py vjp_instance picks both). Refuses
-// (cudaErrorInvalidValue) more than 8 lights, more than 63 tree nodes, a
-// two-branch tree deeper than the parked-frame stack, a ragged n_pad or
-// an instance that does not cover the tree; a shared-memory request past
-// the card's limit fails in the launch.
+// ignored. d_tbl and d_misc must be zeroed by the caller. `shared_sums`
+// keeps a block's table cotangent in shared memory (ops/replay_vjp.py
+// vjp_instance picks it). Refuses (cudaErrorInvalidValue) more than 8
+// lights, more than 63 tree nodes, a two-branch tree deeper than the
+// parked-frame stack or a ragged n_pad; a shared-memory request past the
+// card's limit fails in the launch.
 extern "C" int cutrace_replay_vjp(
     const float* rays, const int* codes, const float* cot,
     const float* table, const float* lights, const float* ambient,
     float* d_rays, float* d_tbl, float* d_misc, int n_rays, int n_pad,
     int k_rows, int n_tab, int t_cnt, int p_cnt, int n_lights, int bounces,
     int shadow_steps, int any_refl, int any_transp, float fudge,
-    int instance, int shared_sums, void* stream) {
+    int shared_sums, void* stream) {
   const bool refl = any_refl != 0, transp = any_transp != 0;
   const int n_nodes = tree_nodes(bounces, refl, transp);
   if (n_lights < 0 || n_lights > kMaxLights || n_nodes > kMaxNodes ||
       (refl && transp && bounces >= kMaxParked) || n_pad % kPad != 0 ||
       n_rays > n_pad)
     return (int)cudaErrorInvalidValue;
-  if (instance == kInstanceChain && refl && transp)
-    return (int)cudaErrorInvalidValue;
-  const Kernel kernel = kernel_for(instance, n_nodes);
-  if (!kernel) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   const int node_rows = 1 + n_lights * (transp ? shadow_steps : 1);
   if (n_nodes * node_rows != k_rows) return (int)cudaErrorInvalidValue;
@@ -998,15 +887,12 @@ extern "C" int cutrace_replay_vjp(
          n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights, bounces,
          shadow_steps, n_nodes, node_rows, refl, transp, shared_sums != 0,
          fudge};
-  return launch(kernel, a, (cudaStream_t)stream);
+  return launch(a, (cudaStream_t)stream);
 }
 
-// The resources of an instance's kernel as compiled (registers, local
-// bytes, static shared bytes, max threads a block) into out[4], for a tree
-// of n_nodes nodes; returns the CUDA error code.
-extern "C" int cutrace_replay_vjp_attributes(int instance, int n_nodes,
-                                             int* out) {
-  const Kernel kernel = kernel_for(instance, n_nodes);
-  if (!kernel) return (int)cudaErrorInvalidValue;
-  return cutrace::kernel_attributes(kernel, out);
+// The kernel's resources as compiled (registers, local bytes, static
+// shared bytes, max threads a block) into out[4]; returns the CUDA error
+// code.
+extern "C" int cutrace_replay_vjp_attributes(int* out) {
+  return cutrace::kernel_attributes(replay_vjp_kernel, out);
 }

@@ -3,10 +3,10 @@
 
 The vector-Jacobian product of ops.replay.replay_render_rays for given
 codes and output cotangents. On CUDA tensors it launches the hand-written
-Hopper kernel in `csrc/replay_vjp.cu`, in the instance `vjp_instance`
-picks before the launch (a chain of at most MAX_CHAIN nodes with its state
-in registers, or any tree of at most MAX_NODES; the table cotangent summed
-in shared or global memory); on CPU tensors it runs the plain version,
+Hopper kernel in `csrc/replay_vjp.cu` (any bounce tree of at most
+MAX_NODES nodes), in the instance `vjp_instance` picks before the launch
+(the table cotangent summed in shared or global memory); on CPU tensors it
+runs the plain version,
 torch autograd of the replay. Both consume the small tensors the
 backward differentiates: the packed table recentered by the scene center
 (`_recentered_table`, (N, 17)), the light table (`_light_table_diff`,
@@ -30,14 +30,10 @@ LAUNCHES = 0
 # The kernel's scope: lights and bounce-tree nodes.
 MAX_LIGHTS = 8
 MAX_NODES = 63
-# The longest chain (one-branch tree) with an instance of its own.
-MAX_CHAIN = 7
 _BLOCK = 256  # the kernel's threads a block
 # Rays are padded to a multiple of this: the fused forward's own padding
 # (ops.fused._BLOCK), so its code buffer is taken as it is.
 _PAD = 128
-# The kernel's instances (csrc/replay_vjp.cu kInstance*).
-_CHAIN, _TREE = 0, 1
 # Shared-memory bytes a block may take for its sums and still share an
 # H100 multiprocessor (228 KB, 1 KB reserved a block) with a second one;
 # past it the table cotangent is summed in global memory.
@@ -67,26 +63,18 @@ def replay_vjp_supported(soa, bounces: int) -> bool:
 class VjpInstance:
     """The kernel's instance for a scene and bounce depth."""
 
-    shape: str  # "chain" (state in registers) or "tree" (stacks)
     nodes: int  # bounce-tree nodes
     sums: str  # table cotangent summed in "shared" or "global" memory
     block: int  # threads a block
     shared_bytes: int  # dynamic shared memory a block
 
-    @property
-    def code(self) -> int:
-        """The instance number the kernel takes."""
-        return _CHAIN if self.shape == "chain" else _TREE
-
 
 def vjp_instance(soa, bounces: int) -> VjpInstance:
-    """Which instance runs the backward, decided before the launch: a
-    chain when the tree has one branch (reflective or transparent
-    materials, not both) and at most MAX_CHAIN nodes, else the tree
-    instance; the table cotangent in shared memory when the block's
-    shared bytes (one light column a thread, the (N, 17) table) are at
-    most SHARED_SUMS_MAX, else global atomics. Raises NotImplementedError
-    past the kernel's scope; nothing falls back to the plain version."""
+    """Which instance runs the backward, decided before the launch: the
+    table cotangent in shared memory when the block's shared bytes (one
+    light column a thread, the (N, 17) table) are at most
+    SHARED_SUMS_MAX, else global atomics. Raises NotImplementedError past
+    the kernel's scope; nothing falls back to the plain version."""
     if not replay_vjp_supported(soa, bounces):
         raise NotImplementedError(
             f"replay backward of {soa.n_lights} lights at bounce depth "
@@ -95,13 +83,11 @@ def vjp_instance(soa, bounces: int) -> VjpInstance:
     _, nodes = rp.topo_layout(bounces, soa.any_reflective,
                               soa.any_transparent, soa.n_lights,
                               soa.shadow_steps)
-    one_branch = not (soa.any_reflective and soa.any_transparent)
-    shape = "chain" if one_branch and len(nodes) <= MAX_CHAIN else "tree"
     n_tab = (soa.tri_p1.shape[0] + soa.pl_point.shape[0]
              + soa.sp_center.shape[0])
     columns = 4 * (6 * soa.n_lights + 1) * _BLOCK
     shared = columns + 4 * n_tab * 17 <= SHARED_SUMS_MAX
-    return VjpInstance(shape=shape, nodes=len(nodes),
+    return VjpInstance(nodes=len(nodes),
                        sums="shared" if shared else "global", block=_BLOCK,
                        shared_bytes=columns + (4 * n_tab * 17 if shared
                                                else 0))
@@ -249,7 +235,7 @@ def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
         _ptr(ambient), _ptr(d_rays), _ptr(d_tbl), _ptr(d_misc),
         r, n_pad, rows, n_tab, soa.tri_p1.shape[0], soa.pl_point.shape[0],
         n_lights, bounces, soa.shadow_steps, int(soa.any_reflective),
-        int(soa.any_transparent), float(fudge), instance.code,
+        int(soa.any_transparent), float(fudge),
         int(instance.sums == "shared"),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )

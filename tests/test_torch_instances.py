@@ -1,7 +1,7 @@
 """Which instance of the replay backward (K2) and of the culling cast
 (K4) runs, decided on the host before the launch, and the host side of
-their wrappers: instance choice, shared or global sums and block size for
-K2 (`ops.replay_vjp.vjp_instance`), the flat loop or the tree walk for K4
+their wrappers: shared or global sums and block size for K2
+(`ops.replay_vjp.vjp_instance`), the flat loop or the tree walk for K4
 (`ops.pallas_cast.k4_instance`), the code buffer's no-copy contract, the
 arguments that reach each launch (stand-in libraries), the constants the
 CUDA sources share with the wrappers, and the resource query.
@@ -9,7 +9,7 @@ CUDA sources share with the wrappers, and the resource query.
 The kernels run only on the card (chip_smoke.py holds them against their
 plain versions there). Two premises of K2's design are held here by
 emulating its warp-level steps in Python: the grouped sums of
-`scatter_row` equal one add per lane, and the tree instance's stack of
+`scatter_row` equal one add per lane, and the kernel's stack of
 pending child cotangents hands each node the children the old per-node
 arrays did."""
 
@@ -52,27 +52,24 @@ def _column_bytes(soa):
     return 4 * (6 * soa.n_lights + 1) * 256
 
 
-# the five bundled scenes at bounce depth 5: (tree shape, nodes, sums)
+# the five bundled scenes at bounce depth 5: (tree nodes, sums)
 BUNDLED = [
-    ("triangle.json", "chain", 1, "shared"),
-    ("bunny.json", "chain", 6, "shared"),
-    ("bunny_small.json", "chain", 6, "shared"),
-    ("mirror.json", "chain", 6, "shared"),
-    ("sphere_plane.json", "tree", 63, "shared"),
+    ("triangle.json", 1, "shared"),
+    ("bunny.json", 6, "shared"),
+    ("bunny_small.json", 6, "shared"),
+    ("mirror.json", 6, "shared"),
+    ("sphere_plane.json", 63, "shared"),
 ]
 
 
-@pytest.mark.parametrize("name,shape,nodes,sums", BUNDLED)
-def test_vjp_instance_bundled_scenes(scenes_dir, name, shape, nodes, sums):
-    """Every bundled scene at b5: a one-branch tree of at most 7 nodes
-    runs the chain instance (state in registers), sphere_plane's
-    63-node two-branch tree the tree instance; all keep the table
-    cotangent in shared memory, 256 threads a block."""
+@pytest.mark.parametrize("name,nodes,sums", BUNDLED)
+def test_vjp_instance_bundled_scenes(scenes_dir, name, nodes, sums):
+    """Every bundled scene at b5, from the 1-node chain to sphere_plane's
+    63-node two-branch tree, keeps the table cotangent in shared memory,
+    256 threads a block."""
     soa = _soa(scenes_dir, name)
     inst = tvjp.vjp_instance(soa, 5)
-    assert (inst.shape, inst.nodes, inst.sums, inst.block) == (
-        shape, nodes, sums, 256)
-    assert inst.code == (tvjp._CHAIN if shape == "chain" else tvjp._TREE)
+    assert (inst.nodes, inst.sums, inst.block) == (nodes, sums, 256)
     assert inst.shared_bytes == _column_bytes(soa) + _table_bytes(soa)
     assert inst.shared_bytes <= tvjp.SHARED_SUMS_MAX
     if name == "bunny.json":
@@ -87,7 +84,7 @@ def test_vjp_instance_256k_global_sums(scenes_dir):
     soa = _soa(scenes_dir, "bunny.json")
     big = dataclasses.replace(soa, tri_p1=torch.empty((256000, 3)))
     inst = tvjp.vjp_instance(big, 5)
-    assert (inst.shape, inst.nodes, inst.sums) == ("chain", 6, "global")
+    assert (inst.nodes, inst.sums) == (6, "global")
     assert inst.shared_bytes == _column_bytes(soa) == 25600
 
 
@@ -96,17 +93,18 @@ def test_vjp_instance_zero_lights(tmp_path):
     soa = scene_to_soa(load_scene(_no_lights_scene(tmp_path)), device="cpu")
     assert soa.n_lights == 0
     inst = tvjp.vjp_instance(soa, 5)
-    assert (inst.shape, inst.nodes, inst.sums) == ("chain", 6, "shared")
+    assert (inst.nodes, inst.sums) == (6, "shared")
     assert inst.shared_bytes == 4 * 256 + _table_bytes(soa)
 
 
-def test_vjp_instance_long_chain_takes_the_tree(scenes_dir):
-    """A chain past MAX_CHAIN nodes (mirror at b7: 8 nodes) runs the tree
-    instance, which takes any shape up to 63 nodes."""
+def test_vjp_instance_long_chain(scenes_dir):
+    """The kernel takes any shape up to 63 nodes: a mirror chain at b7 (8
+    nodes) and at b62 (63 nodes) run; b63 (64 nodes) raises."""
     soa = _soa(scenes_dir, "mirror.json")
-    assert tvjp.vjp_instance(soa, 6).shape == "chain"
-    inst = tvjp.vjp_instance(soa, 7)
-    assert (inst.shape, inst.nodes) == ("tree", 8)
+    assert tvjp.vjp_instance(soa, 7).nodes == 8
+    assert tvjp.vjp_instance(soa, 62).nodes == 63
+    with pytest.raises(NotImplementedError, match="63 tree nodes"):
+        tvjp.vjp_instance(soa, 63)
 
 
 @pytest.mark.parametrize("case", ["9 lights", "127 nodes"])
@@ -142,7 +140,7 @@ def _fake_vjp_library(monkeypatch, rc=0):
 def test_vjp_wrapper_launch_contract(scenes_dir, monkeypatch, name,
                                      bounces):
     """The K2 wrapper's host side with a stand-in library: the launch gets
-    vjp_instance's instance number and sums, rays padded to a multiple of
+    vjp_instance's sums, rays padded to a multiple of
     128; LAUNCHES counts successful launches only and a CUDA error code
     raises."""
     case = _case(scenes_dir, name, 8, 4, bounces)
@@ -158,9 +156,8 @@ def test_vjp_wrapper_launch_contract(scenes_dir, monkeypatch, name,
     n_rays, n_pad = args[9], args[10]
     assert (n_rays, n_pad) == (32, 128)
     assert args[12] == table.shape[0] and args[15] == case.soa.n_lights
-    assert (args[21], args[22]) == (inst.code, 1)
-    want = "chain" if name == "bunny.json" else "tree"
-    assert inst.shape == want
+    assert args[21] == (inst.sums == "shared") == 1
+    assert inst.nodes == (3 if name == "bunny.json" else 7)
     monkeypatch.setattr(_build, "load_library", lambda name: type(
         "L", (), {"cutrace_replay_vjp": lambda self, *a: 700})())
     with pytest.raises(RuntimeError, match="CUDA error 700"):
@@ -269,19 +266,25 @@ def test_kernel_attributes_query(monkeypatch):
     seen = []
 
     class FakeLib:
-        def cutrace_replay_vjp_attributes(self, instance, nodes, out):
-            seen.append((instance, nodes))
-            for i, v in enumerate((128, 0, 0, 256)):
+        def cutrace_cluster_cast_attributes(self, instance, out):
+            seen.append(instance)
+            for i, v in enumerate((64, 256, 0, 128)):
                 out[i] = v
-            return 0 if nodes <= 63 else 1
+            return 0 if instance in (tpc._K4_FLAT, tpc._K4_TREE) else 1
+
+        def cutrace_replay_vjp_attributes(self, out):
+            for i, v in enumerate((119, 2752, 0, 256)):
+                out[i] = v
+            return 0
 
     monkeypatch.setattr(_build, "load_library", lambda name: FakeLib())
-    got = _build.kernel_attributes("replay_vjp", tvjp._CHAIN, 6)
-    assert got == {"registers": 128, "local_bytes": 0,
-                   "static_shared_bytes": 0, "max_threads": 256}
-    assert seen == [(tvjp._CHAIN, 6)]
+    got = _build.kernel_attributes("cluster_cast", tpc._K4_TREE)
+    assert got == {"registers": 64, "local_bytes": 256,
+                   "static_shared_bytes": 0, "max_threads": 128}
+    assert seen == [tpc._K4_TREE]
+    assert _build.kernel_attributes("replay_vjp")["local_bytes"] == 2752
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        _build.kernel_attributes("replay_vjp", tvjp._TREE, 127)
+        _build.kernel_attributes("cluster_cast", 7)
     assert set(_build.ATTRIBUTES) == set(_build.SOURCES)
     for name, fn in _build.ATTRIBUTES.items():
         assert fn in _build.SIGNATURES[name]
@@ -289,8 +292,8 @@ def test_kernel_attributes_query(monkeypatch):
 
 def test_instance_constants_match_sources():
     """The constants the wrappers share with the CUDA sources: K2's block,
-    padding, scope, longest chain and instance numbers; K4's instance
-    numbers; every library exports its resource query."""
+    padding and scope; K4's instance numbers; every library exports its
+    resource query."""
     src = _build.SOURCES["replay_vjp"].read_text()
     consts = dict((k, int(v)) for k, v in re.findall(
         r"constexpr int (k\w+) = (\d+);", src))
@@ -298,10 +301,7 @@ def test_instance_constants_match_sources():
     assert consts["kPad"] == tvjp._PAD
     assert consts["kMaxLights"] == tvjp.MAX_LIGHTS
     assert consts["kMaxNodes"] == tvjp.MAX_NODES
-    assert consts["kMaxChain"] == tvjp.MAX_CHAIN
-    inst = dict(re.findall(r"\b(kInstance\w+) = (\d+)", src))
-    assert inst == {"kInstanceChain": str(tvjp._CHAIN),
-                    "kInstanceTree": str(tvjp._TREE)}
+    assert "kInstance" not in src  # one kernel for every tree shape
     cast = _build.SOURCES["cluster_cast"].read_text()
     inst = dict(re.findall(r"\b(kInstance\w+) = (\d+)", cast))
     assert inst == {"kInstanceFlat": str(tpc._K4_FLAT),
@@ -433,7 +433,7 @@ def _children_two_ways(bounces, refl, transp, rng):
 @pytest.mark.parametrize("shape", ["two-branch", "reflective chain",
                                    "transparent chain"])
 def test_pending_stack_hands_each_node_its_children(shape):
-    """K2's tree instance: popping the live nodes in reverse preorder, a
+    """K2: popping the live nodes in reverse preorder, a
     node's finished children are on top of the pending stack (reflection
     child first), exactly the children the per-node arrays gave it; the
     root's cotangent is the one entry left, and the stack never holds
