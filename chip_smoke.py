@@ -93,11 +93,28 @@ line) if any phase fails:
              512) a gradient step runs K1 forward and the composable
              backward through K4, within rtol 2e-3 of autograd of brute
              force
- 17. result  a JSON line of per-kernel numbers, then the contract line
+ 17. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
+             rank over NCCL (multihost.initialize, make_mesh(1, 1)):
+             render_sharded of bunny 1920x1080 b5 bit-identical to render,
+             K1 launched; fit(mesh=...) 3 steps at the train phase's
+             settings, losses within 1e-6 relative of the one-device fit,
+             K1 with codes and K2 launched. (b) two ranks on the one card
+             over gloo (CUDA tensors go through the host for the
+             collectives), each spawned with a deadline: the (2, 1) mesh
+             on bunny 1920x1080 b5 (K1) and on the 16k subdivided bunny
+             480x270 b5 (K3), bit-identical to render; the (1, 2) mesh on
+             bunny 480x270 b5 with accel="pallas", K4 on each triangle
+             shard, under the forward gate against the one-rank pallas
+             render; one (2, 1) gradient step on bunny 480x270 b5 (K1
+             codes, K2) within the vjp gate of the one-device step. Each
+             rank's launch counts are reset before each run and must grow.
+             The sharded frames' CUDA-event times beside render's
+ 18. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
-fit, the 256k bigscene run, the 256k step, the --accel pallas CLI) runs
+fit, the 256k bigscene run, the 256k step, the --accel pallas CLI, the
+sharded render and fit) runs
 with every kernel's launch count set to 0 just before it and read just
 after; the counts of the result line come from those runs. Each bound is
 given twice: the work these inputs need whatever the traversal ("bound":
@@ -111,8 +128,10 @@ import argparse
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -136,7 +155,7 @@ PARITY = (
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
-          "cast", "pallas", "fallback")
+          "cast", "pallas", "fallback", "multi")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -161,6 +180,8 @@ K1_GLOBAL_PARITY = (480, 270)
 CAST_RANDOM_RAYS = 65536
 CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
 FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
+MULTI_DEADLINE_S = 240  # the two spawned ranks of the multi phase, together
+FIT_RTOL = 1e-6  # fit(mesh=...) losses against the one-device fit
 PLAIN_CHUNK = 262144  # rays per plain-replay chunk on the card
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # float32 FLOP/s outside the tensor cores.
@@ -1217,6 +1238,23 @@ def phase_cast(m, big_prepared_256k, smi, rec):
         err = max(err, cast_case(m, label + f" {n} seeded",
                                  prepared.tables, ro.cuda(), rd.cuda()))
     rec["cast_err"] = err
+    tree = big_prepared_256k.tables
+    if m.pc.k4_instance(tree) != m.pc._K4_TREE:
+        raise AssertionError("the 256k partition does not take K4's tree "
+                             "instance")
+    ro, rd = ro.cuda(), rd.cuda()
+    md = torch.full((n,), 1e-3, dtype=torch.float32, device="cuda")
+    fn = lambda: m.pc.cast_clusters(tree, ro, rd, md)  # noqa: E731
+    fn()
+    total, launched = kernel_device_ms(lambda: [fn() for _ in range(10)],
+                                       "cluster_cast_kernel")
+    tally = tally_of(lambda t: m.pc.cast_clusters(tree, ro, rd, md, tally=t))
+    rec["cast_tree"] = {"ms": total / launched,
+                        "bound": cast_bound(tree, n, tally)}
+    phase("cast", f"bunny/256k M=1024, {n} seeded rays, tree instance: K4 "
+          f"{rec['cast_tree']['ms']:.4f} ms of device time a launch (mean "
+          f"of {launched}); {tally_text(tally)}; "
+          + bound_text(rec["cast_tree"]["bound"]) + f" ({smi})")
     sc = m.load_scene(m.scenes / "bunny.json")
     main = m.prepare(sc, accel="pallas", device="cuda")
     o, d, _ = m.block_rays(main.soa)
@@ -1435,6 +1473,264 @@ def phase_fallback(m, smi, rec):
           f"rtol {VJP_RTOL} of autograd of brute force, max relative error "
           f"{worst:.2e}; {time.perf_counter() - t0:.1f} s ({smi})")
 
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def image_diff(a, b):
+    """(pixels that differ in any bit, max |difference| over finite
+    values) of two image tuples; +inf equals +inf."""
+    n, worst = 0, 0.0
+    for x, y in zip(a, b):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        same = (x == y) | (np.isinf(x) & np.isinf(y))
+        n += int((~same.reshape(x.shape[0], x.shape[1], -1).all(-1)).sum())
+        both = np.isfinite(x) & np.isfinite(y)
+        worst = max(worst, float(np.abs(np.where(both, x - y, 0.0)).max()))
+    return n, worst
+
+
+def grad_gate(label, got, want):
+    """The vjp gate (isclose rtol VJP_RTOL, atol VJP_RTOL * scale) on every
+    gradient group; returns the largest relative error."""
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k].double().cpu().numpy()
+        b = b.double().cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{label} grad[{k}] not finite")
+        scale = max(np.abs(a).max(), np.abs(b).max(), 1e-12)
+        ok = np.isclose(a, b, rtol=VJP_RTOL, atol=VJP_RTOL * scale)
+        if not ok.all():
+            raise AssertionError(
+                f"{label} grad[{k}]: {(~ok).sum()}/{a.size} mismatch, max "
+                f"|diff| {np.abs(a - b).max():.3e} at scale {scale:.3e}")
+        worst = max(worst, float(np.abs(a - b).max() / scale))
+    return worst
+
+
+def fit_start(soa, accel, tgrad):
+    """The train phase's fit inputs: the target render and the scene with
+    mat_color perturbed by seeded noise."""
+    with torch.no_grad():
+        target, _, _ = tgrad.render_image_flat(soa, 5, 1e-3, accel)
+    rng = np.random.default_rng(7)
+    color = soa.mat_color.cpu().numpy()
+    start = np.clip(color + rng.normal(0.0, 0.15, color.shape), 0.0,
+                    1.0).astype(np.float32)
+    return target, dataclasses.replace(
+        soa, mat_color=torch.from_numpy(start).to(soa.device))
+
+
+def multi_rank(rank, port, out_dir, root):
+    """One of the multi phase's two ranks on cuda:0 over gloo (NCCL takes
+    one rank a device). Writes its results to out_dir/rank{rank}.json and
+    raises on a failed gate."""
+    sys.path.insert(0, root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    from cutrace_tpu_torch import bigscene, load_scene
+    from cutrace_tpu_torch.diff import grad as tgrad
+    from cutrace_tpu_torch.ops import fused, pallas_cast as pc
+    from cutrace_tpu_torch.ops import replay_vjp as rv
+    from cutrace_tpu_torch.parallel import multihost
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.parallel import train
+    from cutrace_tpu_torch.render.renderer import prepare, render
+
+    dev = torch.device("cuda:0")
+    multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo",
+                         device=dev)
+    res = {"backend": dist.get_backend()}
+    scenes = pathlib.Path(root) / "scenes"
+    mesh21 = sh.make_mesh(2, 1, device=dev)
+    mesh12 = sh.make_mesh(1, 2, device=dev)
+
+    def sharded(label, prepared, mesh, count):
+        ref = render(prepared, bounces=5)
+        reset_launches(fused, rv, pc)
+        out = sh.render_sharded(prepared, mesh, bounces=5)
+        torch.cuda.synchronize()
+        counts = read_launches(fused, rv, pc)
+        if counts[count] < 1:
+            raise AssertionError(f"rank {rank} {label}: {count} not "
+                                 f"launched: {counts}")
+        res[label] = {"launches": counts, "diff": image_diff(ref, out)}
+        return ref, out
+
+    def bunny(w, h, accel):
+        sc = load_scene(scenes / "bunny.json")
+        sc.camera.width, sc.camera.height = w, h
+        return prepare(sc, accel=accel, device=dev, bounces=5)
+
+    main = bunny(1920, 1080, "fused")
+    sharded("k1", main, mesh21, "fused_forward")
+    dist.barrier()
+    res["k1"]["ms"] = cuda_ms(
+        lambda: sh.render_sharded(main, mesh21, bounces=5), 3)
+    res["k1"]["render_ms"] = cuda_ms(lambda: render(main, bounces=5), 3)
+    sc, _ = bigscene.subdivided_bunny(2, 480, 270)
+    sharded("k3", prepare(sc, accel="fused", device=dev, bounces=5),
+            mesh21, "fused_forward_big")
+    ref, out = sharded("k4", bunny(480, 270, "pallas"), mesh12,
+                       "cluster_cast")
+    res["k4"]["gate"] = gate([x.cpu().numpy() for x in ref],
+                             [x.cpu().numpy() for x in out])
+
+    small = bunny(480, 270, "fused")
+    soa, accel = small.soa, small.accel
+    with torch.no_grad():
+        c0, _, _ = tgrad.render_image_flat(soa, 5, 1e-3, accel)
+    target = 0.9 * c0
+    _, want = tgrad.grad_render_loss(soa, target, 5, 1e-3, accel)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in tgrad.extract_params(soa).items()}
+    reset_launches(fused, rv, pc)
+    loss = train.sharded_loss(params, soa, mesh21, target, 5, 1e-3, accel)
+    loss.backward()
+    train._all_reduce_grads(params, loss, mesh21)
+    torch.cuda.synchronize()
+    counts = read_launches(fused, rv, pc)
+    if counts["fused_forward_topo"] < 1 or counts["replay_vjp"] < 1:
+        raise AssertionError(f"rank {rank} grad: launches {counts}")
+    res["grad"] = {"launches": counts, "err": grad_gate(
+        f"rank {rank} (2, 1)", {k: p.grad for k, p in params.items()},
+        want)}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_multi(m, main_prepared, root, smi, rec, launches):
+    """(a) one NCCL rank in this process; (b) two gloo ranks spawned on
+    the same card (multi_rank), joined within MULTI_DEADLINE_S."""
+    import torch.distributed as dist
+
+    from cutrace_tpu_torch.parallel import multihost
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.parallel.train import fit
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        mesh = sh.make_mesh(1, 1, device=dev)
+        ref = m.render(main_prepared, bounces=5)
+        m.reset()
+        out = sh.render_sharded(main_prepared, mesh, bounces=5)
+        torch.cuda.synchronize()
+        launches["multi"] = m.read()
+        if launches["multi"]["fused_forward"] < 1:
+            raise AssertionError(f"render_sharded launches "
+                                 f"{launches['multi']}")
+        n_diff, worst = image_diff(ref, out)
+        if n_diff:
+            raise AssertionError(f"render_sharded at world 1: {n_diff} "
+                                 f"pixels differ from render (max "
+                                 f"{worst:.3e})")
+        rec["multi_world1_ms"] = cuda_ms(
+            lambda: sh.render_sharded(main_prepared, mesh, bounces=5), 5)
+        rec["multi_render_ms"] = cuda_ms(
+            lambda: m.render(main_prepared, bounces=5), 5)
+        soa, accel = main_prepared.soa, main_prepared.accel
+        target, start = fit_start(soa, accel, m.tgrad)
+        kw = dict(steps=3, lr=5e-2, bounces=5, param_filter=("mat_color",),
+                  accel=accel, device=dev)
+        m.reset()
+        _, losses = fit(start, target, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        launches["multi_fit"] = m.read()
+        _, ref_losses = fit(start, target, **kw)
+        if (launches["multi_fit"]["fused_forward_topo"] < 3
+                or launches["multi_fit"]["replay_vjp"] < 3):
+            raise AssertionError(f"fit(mesh=...) launches "
+                                 f"{launches['multi_fit']}")
+        rel = np.abs(np.subtract(losses, ref_losses)) / np.abs(ref_losses)
+        if not (np.isfinite(losses).all() and (rel <= FIT_RTOL).all()):
+            raise AssertionError(f"fit(mesh=...) losses {losses} against "
+                                 f"{ref_losses}")
+    finally:
+        dist.destroy_process_group()
+    phase("multi", f"(a) NCCL, world 1, mesh (1, 1): render_sharded bunny "
+          f"1920x1080 b5 bit-identical to render, launches "
+          f"{launches['multi']}; fit(mesh=...) 3 steps: losses "
+          + " ".join(f"{x:.8f}" for x in losses) + " against "
+          + " ".join(f"{x:.8f}" for x in ref_losses)
+          + f" (max relative {rel.max():.2e}, gate {FIT_RTOL}), launches "
+          f"{launches['multi_fit']}")
+
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=multi_rank, args=(r, port, tmp,
+                                                      str(root)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MULTI_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            raise AssertionError(f"multi ranks {hung} still running after "
+                                 f"{MULTI_DEADLINE_S} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"multi ranks exited with {codes}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        for key, label in (("k1", "(2, 1) bunny 1920x1080 b5, K1"),
+                           ("k3", "(2, 1) bunny/16k 480x270 b5, K3")):
+            n_diff, worst = res[key]["diff"]
+            phase("multi", f"(b) rank {r}, {res['backend']} (collectives "
+                  f"of CUDA tensors staged through the host): {label}: "
+                  f"{n_diff} pixels differ from render (max {worst:.3e}); "
+                  f"launches {res[key]['launches']}")
+            if n_diff:
+                raise AssertionError(f"rank {r} {label}: not bit-identical")
+        stats = res["k4"]["gate"]
+        phase("multi", f"(b) rank {r}: (1, 2) bunny 480x270 b5 pallas, K4 "
+              f"on each shard: vs the one-rank pallas render "
+              + " ".join(f"{k}: off-edge {v[0]} edge {v[1]}/{v[2]}"
+                         for k, v in stats.items())
+              + f" ({res['k4']['diff'][0]} pixels not bit-identical); "
+              f"launches {res['k4']['launches']}")
+        for k, (off, on, n_edges, _) in stats.items():
+            if off or on > EDGE_BUDGET * max(n_edges, 1):
+                raise AssertionError(f"rank {r} (1, 2) pallas {k}: departs "
+                                     f"from the one-rank render")
+        phase("multi", f"(b) rank {r}: (2, 1) gradient step bunny 480x270 "
+              f"b5: 19 groups within rtol {VJP_RTOL} of the one-device "
+              f"step, max relative error {res['grad']['err']:.2e}; "
+              f"launches {res['grad']['launches']}")
+    rec["multi_world2_ms"] = max(res["k1"]["ms"] for res in ranks)
+    rec["multi_world2_render_ms"] = max(res["k1"]["render_ms"]
+                                        for res in ranks)
+    rec["multi_grad_err"] = max(res["grad"]["err"] for res in ranks)
+    phase("multi", f"bunny 1920x1080 b5 frame by CUDA events (mean of 5; "
+          f"3 on each of the two ranks, the larger): render "
+          f"{rec['multi_render_ms']:.3f} ms, render_sharded world 1 (NCCL) "
+          f"{rec['multi_world1_ms']:.3f} ms; two gloo ranks sharing the "
+          f"card: render_sharded {rec['multi_world2_ms']:.3f} ms, render "
+          f"{rec['multi_world2_render_ms']:.3f} ms; overhead, not scaling "
+          f"({smi})")
+    phase("multi", f"done in {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1733,6 +2029,8 @@ def main(argv=None) -> int:
         phase_pallas(m, smi, rec, launches)
     if "fallback" not in skip:
         phase_fallback(m, smi, rec)
+    if "multi" not in skip:
+        phase_multi(m, main_prepared, root, smi, rec, launches)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
 
     if skip:
@@ -1814,7 +2112,13 @@ def main(argv=None) -> int:
                              "plain_ms": rec["cast_plain_ms"],
                              "bound_ms": rec["cast_bound"]["bound"][0],
                              "bound_ms_admitted":
-                                 rec["cast_bound"]["bound_admitted"][0]}),
+                                 rec["cast_bound"]["bound_admitted"][0]},
+              tree_256k={"rays": CAST_RANDOM_RAYS,
+                         "ms": rec["cast_tree"]["ms"],
+                         "bound_ms": rec["cast_tree"]["bound"]["bound"][0],
+                         "bound_by": rec["cast_tree"]["bound"]["bound"][1],
+                         "bound_ms_admitted":
+                             rec["cast_tree"]["bound"]["bound_admitted"][0]}),
     ]
     print(smi, flush=True)
     print(json.dumps({
@@ -1828,6 +2132,13 @@ def main(argv=None) -> int:
             "vjp_ms", "vjp_wrapper_ms", "vjp_plain_ms", "vjp_bound")},
         "bigscene": rec["bigscene"],
         "pallas_render_ms": rec["pallas_render_ms"],
+        "multi": {"render_ms": rec["multi_render_ms"],
+                  "sharded_world1_nccl_ms": rec["multi_world1_ms"],
+                  "sharded_world2_gloo_ms": rec["multi_world2_ms"],
+                  "render_beside_world2_ms": rec["multi_world2_render_ms"],
+                  "grad_err": rec["multi_grad_err"],
+                  "launches": {k: launches[k]
+                               for k in ("multi", "multi_fit")}},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

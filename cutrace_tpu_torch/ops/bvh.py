@@ -116,11 +116,14 @@ def accel_from_numpy(order, valid, device="cuda", kind="fused") -> Accel:
 
 
 def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
-                host_tris=None, kind: str = "fused") -> Accel:
+                host_tris=None, kind: str = "fused",
+                min_clusters: int = 0) -> Accel:
     """Partition the scene's triangles into an Accel on the scene's device.
     `host_tris` is an optional numpy `(p1, p2, p3, valid)` tuple
     (scene.soa.host_triangle_soup) that skips reading the triangles back
-    from the device."""
+    from the device. `min_clusters` pads the cluster axis with empty
+    clusters, so the partitions of equal triangle shards share one M
+    (parallel.sharding.build_sharded_accel)."""
     if host_tris is not None:
         p1, p2, p3, valid = (np.asarray(a) for a in host_tris)
     else:
@@ -129,7 +132,7 @@ def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
             for t in (soa.tri_p1, soa.tri_p2, soa.tri_p3, soa.tri_valid)
         )
     leaves = build_partition((p1 + p2 + p3) / 3.0, cluster_size)
-    m = max(len(leaves), 1)
+    m = max(len(leaves), min_clusters, 1)
     order = np.full((m, cluster_size), _BIG, np.int32)
     vmask = np.zeros((m, cluster_size), bool)
     for mi, idx in enumerate(leaves):
@@ -268,10 +271,19 @@ class _FlatView:
     scene_center: torch.Tensor
 
 
-def cluster_candidates(soa, accel: Accel, o, d, min_dist, o0):
+def _offset_order(order, order_base):
+    """Offset live order keys by a shard's base, keeping the miss sentinel
+    at _BIG."""
+    if isinstance(order_base, int) and order_base == 0:
+        return order
+    return torch.where(order >= _BIG, _BIG, order + order_base)
+
+
+def cluster_candidates(soa, accel: Accel, o, d, min_dist, o0, order_base=0):
     """Dense masked cast over the clustered buffers, with no culling: the
     plain reference for the fused kernel, restricted to the same
-    partition."""
+    partition. `order_base` offsets the winner's order key (a triangle
+    shard's first global index)."""
     clusters = clusters_from_accel(soa, accel)
     m, c = clusters.mat.shape
     flat = _FlatView(
@@ -286,7 +298,7 @@ def cluster_candidates(soa, accel: Accel, o, d, min_dist, o0):
     return I.TriCandidate(
         t=t,
         obj=clusters.obj.reshape(m * c)[idx],
-        order=clusters.order.reshape(m * c)[idx],
+        order=_offset_order(clusters.order.reshape(m * c)[idx], order_base),
         mat=clusters.mat.reshape(m * c)[idx],
         is_mesh=clusters.is_mesh.reshape(m * c)[idx],
         p1=flat.tri_p1[idx],
@@ -305,18 +317,41 @@ def dense_candidates_fn(accel):
     return provider
 
 
-def candidates_fn(accel, tables=None):
-    """A ray_cast `tri_candidates` callable bound to `accel` (None -> None,
-    the brute-force scan): the dense cast for a "clusters" partition, the
-    culling cast (ops.pallas_cast.pallas_candidates, K4 on CUDA tensors)
-    for "pallas" and "fused" ones. `tables`, the scene's cached
-    ops.pallas_cast.ClusterTables, serves casts that need no gradient."""
-    if accel is None:
-        return None
+def accel_candidates(soa, accel: Accel, o, d, min_dist, o0, order_base=0,
+                     tables=None):
+    """The triangle query of an Accel for one cast, by kind: the dense
+    cast for "clusters", the culling cast (K4 on CUDA tensors) for
+    "pallas" and "fused" (the same partition when the fused kernels do not
+    apply). `order_base` offsets the winner's order key; `tables`, the
+    partition's ClusterTables, are built from the live leaves when None."""
     if accel.kind == "clusters":
-        return dense_candidates_fn(accel)
+        return cluster_candidates(soa, accel, o, d, min_dist, o0, order_base)
     if accel.kind not in KINDS:
         raise ValueError(f"unknown accel kind {accel.kind!r}")
-    from cutrace_tpu_torch.ops.pallas_cast import culling_provider
+    from cutrace_tpu_torch.ops.pallas_cast import pallas_candidates
 
-    return culling_provider(accel, tables)
+    return pallas_candidates(soa, accel, o, d, min_dist, o0, tables,
+                             order_base)
+
+
+def candidates_fn(accel, tables=None, order_base=0):
+    """A ray_cast `tri_candidates` callable bound to `accel` (None -> None,
+    the brute-force scan): the dense cast for a "clusters" partition, the
+    culling cast (ops.pallas_cast.culling_provider, K4 on CUDA tensors)
+    for "pallas" and "fused" ones. `tables`, the scene's cached
+    ops.pallas_cast.ClusterTables, serves casts that need no gradient;
+    `order_base` offsets the winners' order keys (a triangle shard's
+    first global index)."""
+    if accel is None:
+        return None
+    if accel.kind not in KINDS:
+        raise ValueError(f"unknown accel kind {accel.kind!r}")
+    if accel.kind != "clusters":
+        from cutrace_tpu_torch.ops.pallas_cast import culling_provider
+
+        return culling_provider(accel, tables, order_base)
+
+    def provider(soa, o, d, min_dist, o0):
+        return accel_candidates(soa, accel, o, d, min_dist, o0, order_base)
+
+    return provider

@@ -141,19 +141,39 @@ class TriCandidate:
     p3: torch.Tensor  # (R,3) f32
 
 
-def local_tri_candidates(soa, o, d, min_dist, o0=None):
-    """Brute-force best triangle over the whole triangle buffer."""
+def local_tri_candidates(soa, o, d, min_dist, o0=None, order_base=0):
+    """Brute-force best triangle over the whole triangle buffer.
+    `order_base` offsets the tie-break key when the buffer is a shard of a
+    larger scene-ordered buffer (parallel.sharding)."""
     t, idx = cast_triangles(soa, o, d, min_dist, o0)
     return TriCandidate(
         t=t,
         obj=soa.tri_obj[idx].to(torch.int64),
-        order=idx,
+        order=idx + order_base,
         mat=soa.tri_mat[idx].to(torch.int64),
         is_mesh=soa.tri_mesh[idx] >= 0,
         p1=soa.tri_p1[idx],
         p2=soa.tri_p2[idx],
         p3=soa.tri_p3[idx],
     )
+
+
+def combine_tri_candidates(stacked: TriCandidate) -> TriCandidate:
+    """Reduce a (K, R, ...) stack of candidates (e.g. gathered from K
+    triangle shards) to the per-ray winner: the smallest t, ties to the
+    smallest global `order`, which is scene order, so the reference's scan
+    winner survives the split."""
+    t = stacked.t  # (K, R)
+    tmin = t.min(dim=0, keepdim=True).values
+    key = torch.where(t == tmin, stacked.order, _BIG_I32)
+    k = torch.argmin(key, dim=0)  # (R,), the first shard on equal keys
+
+    def pick(x):
+        idx = k.reshape((1,) + k.shape + (1,) * (x.dim() - 2))
+        return torch.gather(x, 0, idx.expand((1,) + x.shape[1:]))[0]
+
+    return TriCandidate(**{f.name: pick(getattr(stacked, f.name))
+                           for f in dataclasses.fields(stacked)})
 
 
 def triangle_attrs_from_verts(p1, p2, p3, is_mesh, o, d, t, need_uv=True):

@@ -229,13 +229,16 @@ def cast_clusters(tables, o, d, min_dist, tally=None):
     return cast_clusters_plain(tables, o, d, min_dist)
 
 
-def pallas_candidates(soa, accel, o, d, min_dist, o0, tables=None):
+def pallas_candidates(soa, accel, o, d, min_dist, o0, tables=None,
+                      order_base=0):
     """ray_cast triangle query backed by the culling cast over `accel`.
     `tables` (the partition's ClusterTables, or KernelTables) are built
     from the live leaves when None. The kernel picks only the winner's
     original index; its vertices are then gathered from soa.tri_p1/p2/p3
     and t re-derived differentiably, so gradients reach the vertices as in
-    the brute-force path."""
+    the brute-force path. The kernel returns shard-local orders;
+    `order_base` (a triangle shard's first global index) is added after
+    the launch, the miss sentinel kept."""
     if tables is None:
         tables = cluster_tables(soa, accel)
     with torch.no_grad():
@@ -257,7 +260,8 @@ def pallas_candidates(soa, accel, o, d, min_dist, o0, tables=None):
     return I.TriCandidate(
         t=t,
         obj=torch.where(miss, _BIG, soa.tri_obj[safe].to(i64)),
-        order=torch.where(miss, _BIG, order.to(i64)),
+        order=bvh._offset_order(torch.where(miss, _BIG, order.to(i64)),
+                                order_base),
         mat=torch.where(miss, 0, soa.tri_mat[safe].to(i64)),
         is_mesh=(soa.tri_mesh[safe] >= 0) & ~miss,
         p1=p1,
@@ -266,11 +270,11 @@ def pallas_candidates(soa, accel, o, d, min_dist, o0, tables=None):
     )
 
 
-def culling_provider(accel, tables=None):
+def culling_provider(accel, tables=None, order_base=0):
     """A ray_cast `tri_candidates` callable over `accel` through
-    pallas_candidates. Without `tables` it builds them from the live
-    leaves of the scene it is handed, once per scene object: one render
-    hands every cast the same scene."""
+    pallas_candidates (`order_base` as there). Without `tables` it builds
+    them from the live leaves of the scene it is handed, once per scene
+    object: one render hands every cast the same scene."""
     cache = {}
 
     def provider(soa, o, d, min_dist, o0):
@@ -279,6 +283,7 @@ def culling_provider(accel, tables=None):
             if cache.get("soa") is not soa:
                 cache.update(soa=soa, tables=cluster_tables(soa, accel))
             tabs = cache["tables"]
-        return pallas_candidates(soa, accel, o, d, min_dist, o0, tabs)
+        return pallas_candidates(soa, accel, o, d, min_dist, o0, tabs,
+                                 order_base)
 
     return provider

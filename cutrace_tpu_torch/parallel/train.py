@@ -1,12 +1,17 @@
-"""The inverse-rendering training loop on one device (counterpart of
+"""The inverse-rendering training loop (counterpart of
 cutrace_tpu.parallel.train).
 
 Scene parameters are optimized with torch.optim.Adam (eps 1e-8, the same
 update as optax.adam) against an image loss. With a "fused" partition the
 forward emits topology codes and the backward replays them: on the card
 through the hand-written kernels, on the CPU through their plain
-versions. Image-tile data parallelism over several devices is ROADMAP
-item A.12.
+versions.
+
+With a parallel.sharding.Mesh the loss is split over its ranks: each tile
+rank renders its run of pixels and takes its part of the global mean, and
+the gradients are all-reduced over the tiles group, so every rank applies
+the same update; with PRIM_AXIS > 1 each rank holds and updates its
+triangle shard.
 """
 
 from __future__ import annotations
@@ -15,14 +20,52 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from cutrace_tpu_torch.diff.grad import extract_params, render_loss
+from cutrace_tpu_torch.diff.grad import extract_params, render_loss, with_params
+from cutrace_tpu_torch.parallel import sharding as sh
 from cutrace_tpu_torch.scene.soa import SceneArrays, resolve_device, soa_to
+
+
+def sharded_loss(params, soa, mesh, target_flat, bounces: int,
+                 fudge: float = 1e-3, accel=None):
+    """This rank's part of the mean squared error between the render and
+    `target_flat` ((H*W, 3), the whole target): the sum over the pixels of
+    its tile, a contiguous scanline run, divided by 3·H·W, so the tile
+    ranks' parts add up to the global mean. `soa` and `params` are the
+    scene as the rank holds it (sharding.shard_scene, its triangle shard);
+    `accel` is its partition (for PRIM_AXIS > 1 its own shard's, local
+    orders). On a tiles-only mesh a "fused" partition runs the fused
+    kernels with the replay backward (ops.fused.fused_render_rays)."""
+    s = with_params(soa, params)
+    n = s.width * s.height
+    run = sh._ceil_to(n, mesh.n_tiles) // mesh.n_tiles
+    start = mesh.tile * run
+    idx = torch.arange(start, start + run, device=s.device)
+    color, _, _ = sh.render_pixels_sharded(s, mesh, idx, bounces, fudge,
+                                           accel)
+    k = max(0, min(run, n - start))  # pixels past the image are padding
+    diff = color[:k] - target_flat.reshape(-1, 3)[idx[:k]]
+    return (diff ** 2).sum() / (3 * n)
+
+
+def _all_reduce_grads(params, loss, mesh):
+    """Sum the gradients of the trainable parameters and the loss over the
+    tiles group, in one all-reduce; returns the global loss."""
+    live = [p for p in params.values() if p.requires_grad]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in live]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.detach().reshape(1)])
+    flat = sh.all_reduce_sum(flat, mesh.tiles_group)
+    at = 0
+    for p in live:
+        p.grad = flat[at:at + p.numel()].view_as(p).clone()
+        at += p.numel()
+    return flat[-1]
 
 
 def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
                     fudge: float = 1e-3,
                     param_filter: Optional[Tuple[str, ...]] = None,
-                    accel=None) -> Callable:
+                    accel=None, mesh=None) -> Callable:
     """An Adam (or any optimizer) step over scene parameters.
 
     Returns step(params, soa, target) -> loss, a device scalar; `params`
@@ -31,12 +74,21 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
     values, as zero gradients leave them under Adam. `accel` (an
     ops.bvh.Accel) routes the render through the fused kernels; the
     partition stays fixed across steps, which is correct for any vertex
-    positions, merely less tight as geometry drifts."""
+    positions, merely less tight as geometry drifts. With a `mesh`
+    (parallel.sharding) `soa`, `params` and `accel` are the rank's own
+    (sharded_loss), the gradients are all-reduced over the tiles group
+    before the update, and the loss returned is the global one."""
 
     def step(params, soa, target):
         optimizer.zero_grad(set_to_none=True)
-        loss = render_loss(params, soa, target, bounces, fudge, accel)
-        loss.backward()
+        if mesh is None:
+            loss = render_loss(params, soa, target, bounces, fudge, accel)
+            loss.backward()
+        else:
+            loss = sharded_loss(params, soa, mesh, target, bounces, fudge,
+                                accel)
+            loss.backward()
+            loss = _all_reduce_grads(params, loss, mesh)
         if param_filter is not None:
             for k, v in params.items():
                 if k not in param_filter:
@@ -45,6 +97,39 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
         return loss.detach()
 
     return step
+
+
+def _map_tri_state(opt_state, trainable, fn):
+    """The optimizer state dict with fn applied to the per-row state
+    tensors of the triangle parameters (a new dict; the optimizer's own
+    state is not touched)."""
+    state = dict(opt_state, state=dict(opt_state["state"]))
+    for i, k in enumerate(trainable):
+        if k in sh._TRI_FIELDS and i in state["state"]:
+            state["state"][i] = {
+                name: fn(v) if torch.is_tensor(v) and v.dim() > 0 else v
+                for name, v in state["state"][i].items()}
+    return state
+
+
+def _save_checkpoint(path, params, opt, trainable, mesh, n_tris, step):
+    """Save a checkpoint of the whole parameters: on a mesh the triangle
+    shards (and their optimizer state) are gathered, the lowest rank
+    writes, and every rank waits for it at a barrier."""
+    from cutrace_tpu_torch.diff import checkpoint as ckpt
+
+    state = opt.state_dict()
+    if mesh is not None:
+        def whole(x):
+            return sh.unshard_rows(x, mesh, n_tris)
+
+        params = {k: whole(v.detach()) if k in sh._TRI_FIELDS else v
+                  for k, v in params.items()}
+        state = _map_tri_state(state, trainable, whole)
+    if mesh is None or (mesh.tile, mesh.prim) == (0, 0):
+        ckpt.save_checkpoint(path, params, state, step)
+    if mesh is not None:
+        sh.barrier(mesh)
 
 
 def fit(
@@ -60,6 +145,7 @@ def fit(
     accel="auto",
     camera: str = "raw",
     device="cuda",
+    mesh=None,
 ):
     """Optimize scene parameters to match a target image. Returns (params,
     losses). With `checkpoint_dir`, parameters, optimizer state and step
@@ -70,18 +156,36 @@ def fit(
     (the fused forward with the replay backward), "auto" ("fused" on the
     card, "none" on the CPU), or a prebuilt ops.bvh.Accel. `camera`: "raw"
     or "look_at" (diff.camera), as in diff.grad.extract_params. `device`:
-    the card unless the caller passes "cpu"; the scene moves there."""
+    the card unless the caller passes "cpu"; the scene moves there.
+
+    `mesh` (parallel.sharding.make_mesh) trains over its ranks, on its
+    device: pixels split over the tiles, the triangle buffer over the
+    prims (a partition built per shard), the gradients all-reduced over
+    the tiles group (make_train_step). Every rank calls fit with the same
+    arguments and gets the same losses and the whole parameters (the
+    triangle shards gathered, the padding dropped); a checkpoint holds the
+    whole parameters, written by the lowest rank, and every rank resumes
+    from it."""
     from cutrace_tpu_torch.diff import checkpoint as ckpt
     from cutrace_tpu_torch.render.renderer import prepare
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     if soa.device != dev:
         soa = soa_to(soa, dev)
+    sharded = mesh is not None and mesh.n_prims > 1
     if isinstance(accel, str):
         if accel == "auto":
             accel = "fused" if dev.type == "cuda" else "none"
-        accel = (None if accel == "none"
-                 else prepare(soa, accel=accel, bounces=bounces).accel)
+        if accel == "none":
+            accel = None
+        elif not sharded:
+            accel = prepare(soa, accel=accel, bounces=bounces).accel
+    if sharded and accel is not None:
+        kind = accel if isinstance(accel, str) else accel.kind
+        accel = sh.local_accel(sh.build_sharded_accel(soa, mesh, kind), mesh)
+    n_tris = soa.tri_p1.shape[0]
+    if mesh is not None:
+        soa = sh.shard_scene(soa, mesh)
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=dev).reshape(-1, 3)
     params = {k: v.detach().clone()
@@ -96,6 +200,14 @@ def fit(
         restored = ckpt.restore_checkpoint(checkpoint_dir, params)
         if restored is not None:
             saved, opt_state, last = restored
+            if mesh is not None:
+                saved = {k: sh.shard_padded(v.to(dev), mesh,
+                                            sh._PAD_ROWS[k])
+                         if k in sh._TRI_FIELDS else v
+                         for k, v in saved.items()}
+                opt_state = _map_tri_state(
+                    opt_state, trainable,
+                    lambda x: sh.shard_padded(x, mesh, 0.0))
             with torch.no_grad():
                 for k, v in params.items():
                     v.copy_(saved[k])
@@ -104,7 +216,7 @@ def fit(
             if verbose:
                 print(f"resumed from step {last}")
     step = make_train_step(opt, bounces, param_filter=param_filter,
-                           accel=accel)
+                           accel=accel, mesh=mesh)
     # losses stay device scalars during the loop: a per-step readback
     # would wait for every step's kernels; they are fetched once at the end
     losses = []
@@ -114,6 +226,10 @@ def fit(
             print(f"step {i}: loss {float(losses[-1]):.6f}")
         if checkpoint_dir is not None and (
                 (i + 1) % checkpoint_every == 0 or i == steps - 1):
-            ckpt.save_checkpoint(checkpoint_dir, params, opt.state_dict(), i)
+            _save_checkpoint(checkpoint_dir, params, opt, trainable, mesh,
+                             n_tris, i)
     out = {k: v.detach() for k, v in params.items()}
+    if mesh is not None:
+        out = {k: sh.unshard_rows(v, mesh, n_tris) if k in sh._TRI_FIELDS
+               else v for k, v in out.items()}
     return out, (torch.stack(losses).cpu().tolist() if losses else [])

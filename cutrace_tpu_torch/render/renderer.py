@@ -233,10 +233,17 @@ def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
         chunk = default_chunk(soa, bounces, lights=not culls)
     chunk = max(8, min(chunk, _ceil_to(n, 8)))
     o, d, inverse = block_rays(soa, _ceil_to(n, chunk))
-    tc = bvh.candidates_fn(accel, tables)
+    color, depth, normal = render_chunks(soa, o, d, bounces, fudge,
+                                         bvh.candidates_fn(accel, tables),
+                                         chunk)
+    return to_image(soa, inverse, color, depth, normal)
+
+
+def render_chunks(soa, o, d, bounces: int, fudge, tri_candidates, chunk):
+    """render_rays over the rays in batches of `chunk`, concatenated."""
     outs = [
-        render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge, tc)
+        render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge,
+                    tri_candidates)
         for s in range(0, o.shape[0], chunk)
     ]
-    color, depth, normal = (torch.cat(x) for x in zip(*outs))
-    return to_image(soa, inverse, color, depth, normal)
+    return tuple(torch.cat(x) for x in zip(*outs))

@@ -61,15 +61,17 @@ def test_render_outputs(tmp_path):
 
 
 def test_port_never_loads_jax():
-    """Importing the port, rendering with it (fused and pallas) and taking
-    one fit step on the CPU never loads jax or the JAX package
-    (cutrace_tpu)."""
+    """Importing the port (its parallel package too), rendering with it
+    (fused, pallas, and over a one-rank mesh) and taking one fit step on
+    the CPU never loads jax or the JAX package (cutrace_tpu)."""
     code = (
         "import sys\n"
         "import cutrace_tpu_torch, cutrace_tpu_torch.perf_probe\n"
         "import cutrace_tpu_torch.cli, cutrace_tpu_torch.diff.checkpoint\n"
         "import cutrace_tpu_torch.bigscene, cutrace_tpu_torch.utils.profiling\n"
         "import cutrace_tpu_torch.ops.pallas_cast\n"
+        "import cutrace_tpu_torch.parallel\n"
+        "import cutrace_tpu_torch.parallel.multihost\n"
         "from cutrace_tpu_torch.render.renderer import prepare, render\n"
         "from cutrace_tpu_torch.parallel.train import fit\n"
         "sc = cutrace_tpu_torch.load_scene('scenes/triangle.json')\n"
@@ -78,6 +80,8 @@ def test_port_never_loads_jax():
         "p = prepare(sc, accel='fused', device='cpu')\n"
         "c, d, n = render(p, bounces=2)\n"
         "assert tuple(c.shape) == (8, 8, 3)\n"
+        "from cutrace_tpu_torch.parallel import make_mesh, render_sharded\n"
+        "c, d, n = render_sharded(p, make_mesh(1, 1, device='cpu'), 2)\n"
         "params, losses = fit(p.soa, c, steps=1, bounces=1, "
         "param_filter=('mat_color',), accel='fused', device='cpu')\n"
         "assert len(losses) == 1\n"
@@ -105,6 +109,8 @@ def test_no_jax_import_in_the_port():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
     files = sorted((REPO / "cutrace_tpu_torch").rglob("*.py"))
     assert len(files) >= 10
+    for name in ("sharding.py", "multihost.py"):
+        assert REPO / "cutrace_tpu_torch" / "parallel" / name in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
     assert not pattern.search((REPO / "chip_smoke.py").read_text())

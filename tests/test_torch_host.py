@@ -129,17 +129,21 @@ def test_no_cutrace_tpu_import_in_the_port():
     files = sorted((REPO / "cutrace_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 20
+    for name in ("sharding.py", "multihost.py", "train.py"):
+        assert REPO / "cutrace_tpu_torch" / "parallel" / name in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
 
 
 @pytest.mark.parametrize("entry", ["scene_to_soa", "soa_from_numpy",
                                    "params_from_numpy", "accel_from_numpy",
-                                   "prepare", "render"])
+                                   "prepare", "render", "make_mesh",
+                                   "initialize"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without device=, the entry points ask for the card: with no card
     they raise and never run on the CPU."""
     from cutrace_tpu_torch.ops import bvh as tbvh
+    from cutrace_tpu_torch.parallel import multihost, sharding
     from cutrace_tpu_torch.render import renderer
     from cutrace_tpu_torch.scene import soa as tsoa
 
@@ -155,6 +159,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
             np.zeros((1, 64), np.int32), np.ones((1, 64), bool)),
         "prepare": lambda: renderer.prepare(sc, accel="fused"),
         "render": lambda: renderer.render(sc, bounces=1),
+        "make_mesh": lambda: sharding.make_mesh(1, 1),
+        "initialize": lambda: multihost.initialize("localhost:1", 1, 0),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
