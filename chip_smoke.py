@@ -106,8 +106,11 @@ line) if any phase fails:
              bunny 480x270 b5 with accel="pallas", K4 on each triangle
              shard, under the forward gate against the one-rank pallas
              render; one (2, 1) gradient step on bunny 480x270 b5 (K1
-             codes, K2) within the vjp gate of the one-device step. Each
-             rank's launch counts are reset before each run and must grow.
+             codes, K2) within the vjp gate of the one-device step; one
+             (1, 2) gradient step there with accel="pallas" (K4 on each
+             shard under autograd) within the vjp gate of the one-device
+             culling-cast step. Each rank's launch counts are reset
+             before each run and must grow.
              The sharded frames' CUDA-event times beside render's
  18. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
@@ -1553,15 +1556,16 @@ def multi_rank(rank, port, out_dir, root):
 
     def sharded(label, prepared, mesh, count):
         ref = render(prepared, bounces=5)
+        ready = sh.prepare_sharded(prepared, mesh)
         reset_launches(fused, rv, pc)
-        out = sh.render_sharded(prepared, mesh, bounces=5)
+        out = sh.render_sharded(ready, mesh, bounces=5)
         torch.cuda.synchronize()
         counts = read_launches(fused, rv, pc)
         if counts[count] < 1:
             raise AssertionError(f"rank {rank} {label}: {count} not "
                                  f"launched: {counts}")
         res[label] = {"launches": counts, "diff": image_diff(ref, out)}
-        return ref, out
+        return ref, out, ready
 
     def bunny(w, h, accel):
         sc = load_scene(scenes / "bunny.json")
@@ -1569,16 +1573,16 @@ def multi_rank(rank, port, out_dir, root):
         return prepare(sc, accel=accel, device=dev, bounces=5)
 
     main = bunny(1920, 1080, "fused")
-    sharded("k1", main, mesh21, "fused_forward")
+    _, _, ready = sharded("k1", main, mesh21, "fused_forward")
     dist.barrier()
     res["k1"]["ms"] = cuda_ms(
-        lambda: sh.render_sharded(main, mesh21, bounces=5), 3)
+        lambda: sh.render_sharded(ready, mesh21, bounces=5), 3)
     res["k1"]["render_ms"] = cuda_ms(lambda: render(main, bounces=5), 3)
     sc, _ = bigscene.subdivided_bunny(2, 480, 270)
     sharded("k3", prepare(sc, accel="fused", device=dev, bounces=5),
             mesh21, "fused_forward_big")
-    ref, out = sharded("k4", bunny(480, 270, "pallas"), mesh12,
-                       "cluster_cast")
+    culled = bunny(480, 270, "pallas")
+    ref, out, _ = sharded("k4", culled, mesh12, "cluster_cast")
     res["k4"]["gate"] = gate([x.cpu().numpy() for x in ref],
                              [x.cpu().numpy() for x in out])
 
@@ -1601,6 +1605,29 @@ def multi_rank(rank, port, out_dir, root):
     res["grad"] = {"launches": counts, "err": grad_gate(
         f"rank {rank} (2, 1)", {k: p.grad for k, p in params.items()},
         want)}
+
+    # (1, 2): each rank differentiates through K4 over its own triangle
+    # shard; the triangle gradients gathered back, held to one device's
+    soa, accel = culled.soa, culled.accel
+    _, want = tgrad.grad_render_loss(soa, target, 5, 1e-3, accel)
+    local = sh.shard_scene(soa, mesh12)
+    accel_local = sh.shard_accel(soa, mesh12, accel.kind)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in tgrad.extract_params(local).items()}
+    reset_launches(fused, rv, pc)
+    loss = train.sharded_loss(params, local, mesh12, target, 5, 1e-3,
+                              accel_local)
+    loss.backward()
+    train._all_reduce_grads(params, loss, mesh12)
+    torch.cuda.synchronize()
+    counts = read_launches(fused, rv, pc)
+    if counts["cluster_cast"] < 1:
+        raise AssertionError(f"rank {rank} (1, 2) grad: launches {counts}")
+    n_tris = soa.tri_p1.shape[0]
+    got = {k: sh.unshard_rows(p.grad, mesh12, n_tris)
+           if k in sh._TRI_FIELDS else p.grad for k, p in params.items()}
+    res["grad12"] = {"launches": counts, "err": grad_gate(
+        f"rank {rank} (1, 2) pallas", got, want)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -1719,10 +1746,16 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
               f"b5: 19 groups within rtol {VJP_RTOL} of the one-device "
               f"step, max relative error {res['grad']['err']:.2e}; "
               f"launches {res['grad']['launches']}")
+        phase("multi", f"(b) rank {r}: (1, 2) gradient step bunny 480x270 "
+              f"b5 pallas, K4 on each shard: 19 groups (triangle rows "
+              f"gathered) within rtol {VJP_RTOL} of the one-device culling-"
+              f"cast step, max relative error {res['grad12']['err']:.2e}; "
+              f"launches {res['grad12']['launches']}")
     rec["multi_world2_ms"] = max(res["k1"]["ms"] for res in ranks)
     rec["multi_world2_render_ms"] = max(res["k1"]["render_ms"]
                                         for res in ranks)
-    rec["multi_grad_err"] = max(res["grad"]["err"] for res in ranks)
+    rec["multi_grad_err"] = max(res[k]["err"] for res in ranks
+                                for k in ("grad", "grad12"))
     phase("multi", f"bunny 1920x1080 b5 frame by CUDA events (mean of 5; "
           f"3 on each of the two ranks, the larger): render "
           f"{rec['multi_render_ms']:.3f} ms, render_sharded world 1 (NCCL) "

@@ -307,31 +307,15 @@ def cluster_candidates(soa, accel: Accel, o, d, min_dist, o0, order_base=0):
     )
 
 
-def dense_candidates_fn(accel):
+def dense_candidates_fn(accel, order_base=0):
     """A ray_cast `tri_candidates` callable running the dense cast over
-    `accel`'s clusters whatever its kind: the plain versions' query."""
+    `accel`'s clusters whatever its kind: the plain versions' query
+    (`order_base` as cluster_candidates')."""
 
     def provider(soa, o, d, min_dist, o0):
-        return cluster_candidates(soa, accel, o, d, min_dist, o0)
+        return cluster_candidates(soa, accel, o, d, min_dist, o0, order_base)
 
     return provider
-
-
-def accel_candidates(soa, accel: Accel, o, d, min_dist, o0, order_base=0,
-                     tables=None):
-    """The triangle query of an Accel for one cast, by kind: the dense
-    cast for "clusters", the culling cast (K4 on CUDA tensors) for
-    "pallas" and "fused" (the same partition when the fused kernels do not
-    apply). `order_base` offsets the winner's order key; `tables`, the
-    partition's ClusterTables, are built from the live leaves when None."""
-    if accel.kind == "clusters":
-        return cluster_candidates(soa, accel, o, d, min_dist, o0, order_base)
-    if accel.kind not in KINDS:
-        raise ValueError(f"unknown accel kind {accel.kind!r}")
-    from cutrace_tpu_torch.ops.pallas_cast import pallas_candidates
-
-    return pallas_candidates(soa, accel, o, d, min_dist, o0, tables,
-                             order_base)
 
 
 def candidates_fn(accel, tables=None, order_base=0):
@@ -344,14 +328,17 @@ def candidates_fn(accel, tables=None, order_base=0):
     first global index)."""
     if accel is None:
         return None
+    if accel.kind == "clusters":
+        return dense_candidates_fn(accel, order_base)
     if accel.kind not in KINDS:
         raise ValueError(f"unknown accel kind {accel.kind!r}")
-    if accel.kind != "clusters":
-        from cutrace_tpu_torch.ops.pallas_cast import culling_provider
+    from cutrace_tpu_torch.ops.pallas_cast import culling_provider
 
-        return culling_provider(accel, tables, order_base)
+    return culling_provider(accel, tables, order_base)
 
-    def provider(soa, o, d, min_dist, o0):
-        return accel_candidates(soa, accel, o, d, min_dist, o0, order_base)
 
-    return provider
+def accel_candidates(soa, accel: Accel, o, d, min_dist, o0, order_base=0):
+    """The triangle query of an Accel for one cast: candidates_fn's
+    provider, called once."""
+    return candidates_fn(accel, order_base=order_base)(soa, o, d, min_dist,
+                                                       o0)

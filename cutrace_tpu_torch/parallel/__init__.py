@@ -6,6 +6,7 @@ group."""
 
 from cutrace_tpu_torch.parallel.sharding import (  # noqa: F401
     make_mesh,
+    prepare_sharded,
     render_sharded,
     shard_scene,
 )

@@ -8,8 +8,9 @@ tile assignment is a function of the rank alone and the shard combine is a
 (t, order) minimum, so the image is bit-identical to one process's.
 
 Run as a module under torchrun it renders a scene over every rank and
-rank 0 prints one JSON line (the frame's time, one rank's render of the
-same frame, the pixels in which they differ):
+rank 0 prints one JSON line (every rank's frame time and the time it took
+to prepare its shard, one rank's render of the same frame, the pixels in
+which they differ):
 
     torchrun --nproc_per_node 4 -m cutrace_tpu_torch.parallel.multihost \
         scenes/bunny.json [--prims 2] [--accel pallas] [--device cpu]
@@ -133,15 +134,22 @@ def main(argv=None) -> int:
             sc.camera.height = args.height
         prepared = prepare(sc, accel=args.accel, device=mesh.device,
                            bounces=args.bounces)
+        # timed warm: the first call also makes the NCCL communicators
+        sharded = sh.prepare_sharded(prepared, mesh)
+        t0 = time.perf_counter()
+        sharded = sh.prepare_sharded(prepared, mesh)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        prepare_ms = (time.perf_counter() - t0) * 1e3
 
         def frame():
-            return sh.render_sharded(prepared, mesh, bounces=args.bounces)
+            return sh.render_sharded(sharded, mesh, bounces=args.bounces)
 
         image = frame()
         sh.barrier(mesh)
         ms = _frame_ms(frame, args.reps, mesh.device)
-        every = sh._all_gather(torch.tensor([ms], device=mesh.device),
-                               mesh.group).flatten()
+        every = sh._all_gather(torch.tensor([ms, prepare_ms],
+                                            device=mesh.device), mesh.group)
         if dist.get_rank() == 0:
             one = render(prepared, bounces=args.bounces)
             one_ms = _frame_ms(lambda: render(prepared, bounces=args.bounces),
@@ -159,7 +167,8 @@ def main(argv=None) -> int:
                 "accel": args.accel, "backend": dist.get_backend(),
                 "device": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
-                "frame_ms": every.tolist(), "one_rank_ms": one_ms,
+                "frame_ms": every[:, 0].tolist(), "one_rank_ms": one_ms,
+                "prepare_sharded_ms": every[:, 1].tolist(),
                 "reps": args.reps, "pixels_differ": differ}), flush=True)
         sh.barrier(mesh)
     finally:

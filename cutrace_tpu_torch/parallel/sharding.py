@@ -276,10 +276,26 @@ def build_sharded_accel(soa: SceneArrays, mesh: Mesh, kind: str = "pallas",
                      valid=torch.stack([a.valid for a in parts]), kind=kind)
 
 
-def local_accel(accel: bvh.Accel, mesh: Mesh) -> bvh.Accel:
-    """This rank's partition of a build_sharded_accel stack."""
-    return bvh.Accel(order=accel.order[mesh.prim],
-                     valid=accel.valid[mesh.prim], kind=accel.kind)
+def shard_accel(soa: SceneArrays, mesh: Mesh, kind: str = "pallas",
+                cluster_size: Optional[int] = None) -> bvh.Accel:
+    """This rank's partition of its own triangle shard (local orders):
+    its shard of build_sharded_accel, built alone. The common M, the
+    largest of the prims group, comes from one all-gather of the counts."""
+    if cluster_size is None:
+        cluster_size = bvh.CLUSTER_SIZE
+    own = shard_scene(soa, mesh)
+    if mesh.n_prims == 1:
+        return bvh.build_accel(own, cluster_size, kind=kind)
+    host = tuple(getattr(own, f).detach().cpu().numpy()
+                 for f in ("tri_p1", "tri_p2", "tri_p3", "tri_valid"))
+    accel = bvh.build_accel(own, cluster_size, host_tris=host, kind=kind)
+    counts = _all_gather(torch.tensor([accel.order.shape[0]],
+                                      device=mesh.device), mesh.prims_group)
+    m = int(counts.max())
+    if accel.order.shape[0] < m:
+        accel = bvh.build_accel(own, cluster_size, host_tris=host, kind=kind,
+                                min_clusters=m)
+    return accel
 
 
 # --- the sharded triangle query ----------------------------------------------
@@ -319,16 +335,17 @@ def _rederive_t(best: I.TriCandidate, o, d, o0) -> I.TriCandidate:
         best, t=torch.where(live, best.t + (t - t.detach()), best.t))
 
 
-def sharded_tri_candidates(mesh: Mesh, t_local: int, accel_local=None):
+def sharded_tri_candidates(mesh: Mesh, t_local: int, accel_local=None,
+                           tables=None):
     """A ray_cast triangle query over a PRIM_AXIS-sharded buffer of
     `t_local` triangles a shard: the local best (brute force, or this
-    rank's partition `accel_local` through bvh.candidates_fn), keyed by
-    global order; the prim ranks' winners all-gathered; their (t, global
-    order) minimum."""
+    rank's partition `accel_local` through bvh.candidates_fn, with its
+    `tables`), keyed by global order; the prim ranks' winners
+    all-gathered; their (t, global order) minimum."""
     base = mesh.prim * t_local
     local = (functools.partial(I.local_tri_candidates, order_base=base)
              if accel_local is None
-             else bvh.candidates_fn(accel_local, order_base=base))
+             else bvh.candidates_fn(accel_local, tables, order_base=base))
 
     def tri_c(soa_local, o, d, min_dist, o0):
         stacked = _gather_candidates(local(soa_local, o, d, min_dist, o0),
@@ -352,7 +369,8 @@ def render_pixels_sharded(soa: SceneArrays, mesh: Mesh, idx, bounces: int,
     card), with no collective; otherwise the composable pipeline runs in
     batches of `chunk` rays (one batch when None) with the partition's
     query, or, with PRIM_AXIS > 1, the sharded query over this rank's
-    partition `accel` (its local orders) or brute force."""
+    partition `accel` (its local orders; `tables` its culling-cast
+    tables) or brute force."""
     from cutrace_tpu_torch.ops import fused
     from cutrace_tpu_torch.render.renderer import (camera_rays,
                                                    render_chunks)
@@ -362,28 +380,33 @@ def render_pixels_sharded(soa: SceneArrays, mesh: Mesh, idx, bounces: int,
         return fused.fused_render_rays(soa, accel, o, d, fudge, bounces,
                                        tables=tables)
     if mesh.n_prims > 1:
-        tc = sharded_tri_candidates(mesh, soa.tri_p1.shape[0], accel)
+        tc = sharded_tri_candidates(mesh, soa.tri_p1.shape[0], accel,
+                                    tables)
     else:
         tc = bvh.candidates_fn(accel, tables)
     return render_chunks(soa, o, d, bounces, fudge, tc,
                          o.shape[0] if chunk is None else chunk)
 
 
-@torch.no_grad()
-def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
-    """Full-image render over a mesh, the multi-device render.renderer.render:
-    (color (H,W,3), depth (H,W), normal (H,W,3)) on every rank, on the
-    mesh's device.
+@dataclasses.dataclass(frozen=True)
+class ShardedScene:
+    """A scene as one rank of `mesh` holds it (prepare_sharded): its
+    triangle shard, that shard's partition (local orders) and the culling
+    cast's tables, built once for every frame."""
 
-    Accepts a SceneArrays or a render.renderer.PreparedScene. Pixels go in
-    32x16-block order (renderer._block_order), padded to a multiple of
-    n_tiles, one contiguous run per tile rank; with PRIM_AXIS > 1 the
-    prepared partition is rebuilt per triangle shard (build_sharded_accel)
-    so each rank culls only its own shard. The pieces are gathered over the
-    tiles group (gather_image) and put back in scanline order."""
-    from cutrace_tpu_torch.render.renderer import (PreparedScene,
-                                                   _block_order,
-                                                   default_chunk, to_image)
+    soa: SceneArrays
+    mesh: Mesh
+    accel: Optional[bvh.Accel] = None
+    tables: Optional[object] = None
+
+
+def prepare_sharded(scene, mesh: Mesh) -> ShardedScene:
+    """A SceneArrays or a render.renderer.PreparedScene made ready for
+    `mesh` on its device: the rank's shard (shard_scene); with PRIM_AXIS
+    > 1 and a partition, the partition rebuilt over the rank's shard
+    (shard_accel) and its culling-cast tables. Every rank of the prims
+    group calls it together (shard_accel's all-gather)."""
+    from cutrace_tpu_torch.render.renderer import PreparedScene
 
     accel = tables = None
     if isinstance(scene, PreparedScene):
@@ -392,9 +415,36 @@ def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
         scene, tables = soa_to(scene, mesh.device), None
     soa = shard_scene(scene, mesh)
     if mesh.n_prims > 1 and accel is not None:
-        # the culling cast builds this partition's tables once per render
-        accel, tables = local_accel(
-            build_sharded_accel(scene, mesh, accel.kind), mesh), None
+        from cutrace_tpu_torch.ops.pallas_cast import cluster_tables
+
+        accel = shard_accel(scene, mesh, accel.kind)
+        tables = (None if accel.kind == "clusters"
+                  else cluster_tables(soa, accel))
+    return ShardedScene(soa, mesh, accel, tables)
+
+
+@torch.no_grad()
+def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
+    """Full-image render over a mesh, the multi-device render.renderer.render:
+    (color (H,W,3), depth (H,W), normal (H,W,3)) on every rank, on the
+    mesh's device.
+
+    Accepts a SceneArrays, a render.renderer.PreparedScene (prepared for
+    the mesh on every call) or a ShardedScene of this mesh
+    (prepare_sharded, once for every frame). Pixels go in 32x16-block
+    order (renderer._block_order), padded to a multiple of n_tiles, one
+    contiguous run per tile rank; with PRIM_AXIS > 1 each rank culls only
+    its own shard. The pieces are gathered over the tiles group
+    (gather_image) and put back in scanline order."""
+    from cutrace_tpu_torch.render.renderer import (_block_order,
+                                                   default_chunk, to_image)
+
+    if not isinstance(scene, ShardedScene):
+        scene = prepare_sharded(scene, mesh)
+    elif scene.mesh != mesh:
+        raise ValueError("a ShardedScene renders on the mesh it was "
+                         "prepared for")
+    soa, accel = scene.soa, scene.accel
     n = soa.width * soa.height
     run = _ceil_to(n, mesh.n_tiles) // mesh.n_tiles
     order, inverse = _block_order(soa.width, soa.height, run * mesh.n_tiles)
@@ -403,7 +453,7 @@ def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
     culls = accel is not None and accel.kind != "clusters"
     chunk = default_chunk(soa, bounces, lights=not culls)
     color, depth, normal = render_pixels_sharded(
-        soa, mesh, idx, bounces, float(fudge), accel, tables, chunk)
+        soa, mesh, idx, bounces, float(fudge), accel, scene.tables, chunk)
     full = gather_image(torch.cat([color, depth[:, None], normal], dim=1),
                         mesh)
     inverse = torch.from_numpy(inverse.copy()).to(mesh.device)

@@ -20,7 +20,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from cutrace_tpu_torch.diff.grad import extract_params, render_loss, with_params
+from cutrace_tpu_torch.diff.grad import (extract_params, render_loss,
+                                         with_params)
 from cutrace_tpu_torch.parallel import sharding as sh
 from cutrace_tpu_torch.scene.soa import SceneArrays, resolve_device, soa_to
 
@@ -182,7 +183,7 @@ def fit(
             accel = prepare(soa, accel=accel, bounces=bounces).accel
     if sharded and accel is not None:
         kind = accel if isinstance(accel, str) else accel.kind
-        accel = sh.local_accel(sh.build_sharded_accel(soa, mesh, kind), mesh)
+        accel = sh.shard_accel(soa, mesh, kind)
     n_tris = soa.tri_p1.shape[0]
     if mesh is not None:
         soa = sh.shard_scene(soa, mesh)

@@ -92,8 +92,7 @@ def _grads(out, prefix, soa, mesh, target, accel):
 
     local_acc = ref_acc = accel
     if mesh.n_prims > 1 and accel is not None:
-        local_acc = sh.local_accel(
-            sh.build_sharded_accel(soa, mesh, accel.kind), mesh)
+        local_acc = sh.shard_accel(soa, mesh, accel.kind)
         ref_acc = dataclasses.replace(accel, kind="pallas")
     local = sh.shard_scene(soa, mesh)
     params = {k: v.detach().clone().requires_grad_()
@@ -170,11 +169,19 @@ def _world4(rank, out, tmp):
         mesh = sh.make_mesh(t, p, device="cpu")
         _images(out, f"mirror/pallas/{t}x{p}",
                 sh.render_sharded(pallas, mesh, bounces=2))
+        # prepared once, rendered twice
+        ready = sh.prepare_sharded(pallas, mesh)
+        sh.render_sharded(ready, mesh, bounces=2)
+        _images(out, f"mirror/pallas/{t}x{p}/prepared",
+                sh.render_sharded(ready, mesh, bounces=2))
     mesh14 = sh.make_mesh(1, 4, device="cpu")
     for label, m in (("1x4", mesh14), ("2x2", mesh22)):
-        acc = sh.local_accel(sh.build_sharded_accel(mirror, m, "pallas"), m)
-        out[f"accel/{label}/order"] = acc.order.numpy()
-        out[f"accel/{label}/valid"] = acc.valid.numpy()
+        own = sh.shard_accel(mirror, m, "pallas")
+        stack = sh.build_sharded_accel(mirror, m, "pallas")
+        out[f"accel/{label}/order"] = own.order.numpy()
+        out[f"accel/{label}/valid"] = own.valid.numpy()
+        out[f"accel/{label}/stack_order"] = stack.order[m.prim].numpy()
+        out[f"accel/{label}/stack_valid"] = stack.valid[m.prim].numpy()
         out[f"accel/{label}/prim"] = np.asarray(m.prim)
 
     mesh41 = sh.make_mesh(4, 1, device="cpu")
@@ -392,6 +399,27 @@ def test_render_sharded_pallas(runs, scenes_dir, tiles, prims):
             assert ok.all(), f"({tiles},{prims}) {name}"
 
 
+@pytest.mark.parametrize("tiles,prims", [(4, 1), (2, 2)])
+def test_prepared_sharded_scene_renders_the_same(runs, tiles, prims):
+    """A scene prepared once for the mesh (prepare_sharded: the rank's
+    shard, its partition and tables) renders, frame after frame, the image
+    render_sharded makes of the whole prepared scene."""
+    for res in runs[4]:
+        got = f"mirror/pallas/{tiles}x{prims}"
+        _assert_images_identical(res, f"{got}/prepared", got)
+
+
+def test_prepared_sharded_scene_keeps_its_mesh():
+    """A ShardedScene holds one rank's shard of one mesh: render_sharded
+    refuses it on another mesh."""
+    from cutrace_tpu_torch.parallel import sharding as sh
+
+    mesh = sh.make_mesh(1, 1, device="cpu")
+    ready = sh.prepare_sharded(_load("triangle.json", 8, 8), mesh)
+    with pytest.raises(ValueError, match="mesh it was prepared for"):
+        sh.render_sharded(ready, dataclasses.replace(mesh, n_tiles=2))
+
+
 @pytest.mark.parametrize("label", ["bunny", "transparent"])
 def test_render_sharded_fused_tiles(runs, label):
     """A "fused" partition on a (4, 1) mesh: every rank ran
@@ -477,8 +505,9 @@ def test_mesh_over_a_group(runs):
                                                ("2x2", 2, 2)])
 def test_build_sharded_accel_matches_jax(runs, scenes_dir, label, tiles,
                                          prims):
-    """Each rank's partition equals its shard of JAX's build_sharded_accel
-    (local orders, common M)."""
+    """Each rank's partition, built alone (shard_accel) and as its shard
+    of the stack (build_sharded_accel), equals its shard of JAX's
+    build_sharded_accel (local orders, common M)."""
     from cutrace_tpu.parallel.sharding import build_sharded_accel
 
     soa = _jax_soa(scenes_dir, "mirror.json", 32, 16)
@@ -486,10 +515,11 @@ def test_build_sharded_accel_matches_jax(runs, scenes_dir, label, tiles,
                                interpret=True)
     for res in runs[4]:
         prim = int(res[f"accel/{label}/prim"])
-        np.testing.assert_array_equal(res[f"accel/{label}/order"],
-                                      np.asarray(want.order)[prim])
-        np.testing.assert_array_equal(res[f"accel/{label}/valid"],
-                                      np.asarray(want.valid)[prim])
+        for part in ("", "stack_"):
+            np.testing.assert_array_equal(res[f"accel/{label}/{part}order"],
+                                          np.asarray(want.order)[prim])
+            np.testing.assert_array_equal(res[f"accel/{label}/{part}valid"],
+                                          np.asarray(want.valid)[prim])
 
 
 def test_multihost_matches_one_process(runs, scenes_dir):
