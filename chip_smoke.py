@@ -83,7 +83,8 @@ line) if any phase fails:
              (torch.profiler, CUDA only) and bounds summed over its
              launches (65,536 rays for a nearest cast, 262,144 for the
              four lights' shadow casts) inside one --accel pallas bunny
-             1080p b5 frame
+             1080p b5 frame (the program's replays; its tallies through
+             the eager loop, whose wrappers a replay does not call)
  15. pallas  the CLI with --accel pallas at bunny 1920x1080 b5: three
              JPEGs, K4 launched, K1/K3 not; the pallas render at 480x270
              b5 against the dense cast under the forward gate
@@ -93,7 +94,21 @@ line) if any phase fails:
              512) a gradient step runs K1 forward and the composable
              backward through K4, within rtol 2e-3 of autograd of brute
              force
- 17. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
+ 17. program the frame programs (render on the card: CUDA graphs over
+             K1/K3 and K4) against the eager loop (render_eager) on the
+             same card: bunny 1920x1080 b5 fused (K1) and pallas (K4
+             flat), the 16k subdivided bunny 480x270 b5 pallas (K4 tree)
+             and fused (K3), the transparent bunny 160x90 b6 (the
+             127-node composable fallback): every bit of color, depth and
+             normal equal, equal launch counts a frame (the pallas frame's
+             K4 launches: chunks x levels x (1 + march steps)), a second
+             render captures nothing and synchronizes with nothing
+             (torch's sync debug mode "error"), a kept frame unchanged by
+             an in-place change of a value the program reads, after which
+             the program equals the eager loop again; the 1080p frames'
+             first call (warm-up, capture, replay) with its peak and held
+             memory, and CUDA-event times eager, program, eager
+ 18. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
              rank over NCCL (multihost.initialize, make_mesh(1, 1)):
              render_sharded of bunny 1920x1080 b5 bit-identical to render,
              K1 launched; fit(mesh=...) 3 steps at the train phase's
@@ -112,14 +127,16 @@ line) if any phase fails:
              culling-cast step. Each rank's launch counts are reset
              before each run and must grow.
              The sharded frames' CUDA-event times beside render's
- 18. result  a JSON line of per-kernel numbers, then the contract line
+ 19. result  a JSON line of per-kernel numbers, then the contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
 fit, the 256k bigscene run, the 256k step, the --accel pallas CLI, the
 sharded render and fit) runs
 with every kernel's launch count set to 0 just before it and read just
-after; the counts of the result line come from those runs. Each bound is
+after; the counts of the result line come from those runs. A render on
+the card replays a captured program, which calls no wrapper: the program
+adds the counts its capture recorded on every replay. Each bound is
 given twice: the work these inputs need whatever the traversal ("bound":
 the tally's needed cluster visits) and the kernel's own work
 ("bound_admitted": its slab tests and admitted visits). `--skip` leaves
@@ -158,7 +175,7 @@ PARITY = (
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
-          "cast", "pallas", "fallback", "multi")
+          "cast", "pallas", "fallback", "program", "multi")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -1304,10 +1321,12 @@ def kernel_device_ms(fn, kernel):
 
 def k4_in_frame(m, prepared, rec):
     """K4 at the shape its path launches it: one bunny 1920x1080 b5
-    render with accel="pallas" (the CLI's --accel pallas frame), K4's
-    device time summed over its launches (kernel_device_ms); then the
-    same frame again with a tally per launch, whose bounds are summed
-    over the same launches."""
+    render with accel="pallas" (the CLI's --accel pallas frame, replays of
+    its chunk program), K4's device time summed over its launches
+    (kernel_device_ms; through the eager loop if the trace shows no
+    kernel of a graph's replay); then the same frame through the eager
+    loop (a replay calls no wrapper) with a tally per launch, whose bounds
+    are summed over the same launches."""
     lib = m.build.load_library("cluster_cast")
     load = m.build.load_library
     tallies = []
@@ -1319,14 +1338,20 @@ def k4_in_frame(m, prepared, rec):
             args = (*args[:11], m.fused._ptr(t), args[12])
             return lib.cutrace_cluster_cast(*args)
 
-    m.render(prepared, bounces=5)  # warm-up
+    m.render(prepared, bounces=5)  # warm-up: the capture
     torch.cuda.synchronize()
+    traced_on = "program"
     total, n = kernel_device_ms(lambda: m.render(prepared, bounces=5),
                                 "cluster_cast_kernel")
+    if n == 0:
+        traced_on = "eager loop"
+        total, n = kernel_device_ms(
+            lambda: m.render_eager(prepared, bounces=5),
+            "cluster_cast_kernel")
     m.build.load_library = (lambda name: Tallied() if name == "cluster_cast"
                             else load(name))
     try:
-        m.render(prepared, bounces=5)
+        m.render_eager(prepared, bounces=5)
         torch.cuda.synchronize()
     finally:
         m.build.load_library = load
@@ -1339,8 +1364,10 @@ def k4_in_frame(m, prepared, rec):
                  "operations" if sum(b[k][1] == "operations" for b in bounds)
                  * 2 >= n else "bytes") for k in ("bound", "bound_admitted")}
     rec["cast_frame"] = {"launches": n, "ms": total, "bound": frame,
-                         "rays": sum(r for r, _ in tallies)}
-    phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame: "
+                         "rays": sum(r for r, _ in tallies),
+                         "traced_on": traced_on}
+    phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame "
+          f"(traced on the {traced_on}): "
           f"{n} launches of 65536 or 262144 rays "
           f"({rec['cast_frame']['rays']} "
           f"rays), {total:.3f} ms of device time summed ({total / n:.4f} "
@@ -1476,6 +1503,189 @@ def phase_fallback(m, smi, rec):
           f"rtol {VJP_RTOL} of autograd of brute force, max relative error "
           f"{worst:.2e}; {time.perf_counter() - t0:.1f} s ({smi})")
 
+
+
+def bits_equal(a, b):
+    """Do two float32 tensors hold the same bits (NaN and inf included)?"""
+    return (a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            and torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32)))
+
+
+def frames_differ(a, b):
+    """Names of the buffers of two (color, depth, normal) frames whose bits
+    differ, with the count of differing elements."""
+    out = []
+    for name, x, y in zip(("color", "depth", "normal"), a, b):
+        if not bits_equal(x, y):
+            n = (x.shape != y.shape or int(
+                (x.contiguous().view(torch.int32)
+                 != y.contiguous().view(torch.int32)).sum()))
+            out.append(f"{name} ({n})")
+    return out
+
+
+def first_program_call(m, prepared, bounces):
+    """The first render of a scene on the card (a warm-up frame or chunk,
+    the capture, then the replays): host ms, and the peak and the held
+    memory above what was allocated before, MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    captures = m.renderer.CAPTURES
+    t0 = time.perf_counter()
+    m.render(prepared, bounces=bounces)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if m.renderer.CAPTURES != captures + 1:
+        raise AssertionError("the first render did not capture one program")
+    return {"first_call_ms": ms,
+            "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "held_mb": (torch.cuda.memory_allocated() - base) / 2**20}
+
+
+def program_case(m, label, prepared, bounces, eager=None):
+    """render's program against render_eager on one frame: the launch
+    counts of one frame each, every bit of color, depth and normal, and
+    no host synchronization inside the replays (torch's sync debug mode
+    set to "error" around them). The program is captured first if it is
+    not yet. Returns (eager frame, counts)."""
+    if eager is None:
+        m.reset()
+        eager = m.render_eager(prepared, bounces=bounces)
+        torch.cuda.synchronize()
+        want = m.read()
+    else:
+        eager, want = eager
+    m.render(prepared, bounces=bounces)
+    torch.cuda.synchronize()
+    captures = m.renderer.CAPTURES
+    m.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = m.render(prepared, bounces=bounces)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = m.read()
+    if m.renderer.CAPTURES != captures:
+        raise AssertionError(f"{label}: a second render captured again")
+    bad = frames_differ(eager, got)
+    if bad:
+        raise AssertionError(f"{label}: the program's frame differs from "
+                             f"the eager loop's in " + ", ".join(bad))
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} a program frame, "
+                             f"{want} an eager one")
+    return eager, {k: v for k, v in counts.items() if v}
+
+
+def aliasing_case(m, label, prepared, bounces, value):
+    """Keep a frame, change `value` (a tensor the program reads) in place,
+    render again: the kept frame must not change, and the new one must
+    equal the eager loop's for the changed scene (and differ from the
+    kept one)."""
+    kept = m.render(prepared, bounces=bounces)
+    snap = [x.clone() for x in kept]
+    value.add_(0.25)
+    new = m.render(prepared, bounces=bounces)
+    torch.cuda.synchronize()
+    if frames_differ(kept, snap):
+        raise AssertionError(f"{label}: a kept frame changed under the next "
+                             f"render")
+    bad = frames_differ(new, m.render_eager(prepared, bounces=bounces))
+    if bad:
+        raise AssertionError(f"{label}: after an in-place change the "
+                             f"program differs from the eager loop in "
+                             + ", ".join(bad))
+    if not frames_differ(new, snap):
+        raise AssertionError(f"{label}: the in-place change did not show")
+
+
+def program_turns(m, prepared, bounces, eager_reps, program_reps):
+    """CUDA-event ms of the eager loop and the program in turns eager,
+    program, eager."""
+    eager = lambda: m.render_eager(prepared, bounces=bounces)  # noqa: E731
+    prog = lambda: m.render(prepared, bounces=bounces)  # noqa: E731
+    return {"eager_ms": [cuda_ms(eager, eager_reps)],
+            "program_ms": cuda_ms(prog, program_reps),
+            "eager_ms_again": cuda_ms(eager, eager_reps)}
+
+
+def phase_program(m, smi, rec):
+    """The frame programs (render on the card) against the eager loop
+    (render_eager) on the same card: five frames bit for bit with equal
+    launch counts, no host synchronization in the replays, a kept frame
+    unchanged by an in-place scene change, and the 1080p frames' times,
+    first-call time and memory."""
+    t0 = time.perf_counter()
+    out = {}
+    sc = m.load_scene(m.scenes / "bunny.json")
+    # bunny 1920x1080 b5 fused (K1)
+    p = m.prepare(sc, accel="fused", device="cuda", bounces=5)
+    fused_rec = first_program_call(m, p, 5)
+    _, fused_rec["launches"] = program_case(m, "bunny 1080p fused", p, 5)
+    fused_rec.update(program_turns(m, p, 5, 5, 5))
+    aliasing_case(m, "bunny 1080p fused", p, 5, p.tables.ambient)
+    out["fused_1080p"] = fused_rec
+    del p
+    # bunny 1920x1080 b5 pallas (K4 flat)
+    p = m.prepare(sc, accel="pallas", device="cuda", bounces=5)
+    pallas_rec = first_program_call(m, p, 5)
+    m.reset()
+    turns = {"eager_ms": []}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    eager = m.render_eager(p, bounces=5)
+    end.record()
+    end.synchronize()
+    turns["eager_ms"].append(start.elapsed_time(end))
+    want = m.read()
+    _, pallas_rec["launches"] = program_case(m, "bunny 1080p pallas", p, 5,
+                                             (eager, want))
+    del eager
+    # K4 casts a chunk: one nearest cast a tree level and one a march
+    # step (all lights batched)
+    soa = p.soa
+    chunk = m.renderer.default_chunk(soa, 5, lights=False)
+    n_chunks = -(-soa.width * soa.height // chunk)
+    levels = 6 if (soa.any_reflective or soa.any_transparent) else 1
+    expect = n_chunks * levels * (1 + (soa.shadow_steps if soa.n_lights
+                                       else 0))
+    if pallas_rec["launches"].get("cluster_cast") != expect:
+        raise AssertionError(f"pallas frame: {pallas_rec['launches']} K4 "
+                             f"launches, not {expect}")
+    more = program_turns(m, p, 5, 1, 3)
+    pallas_rec.update(eager_ms=turns["eager_ms"] + more["eager_ms"],
+                      program_ms=more["program_ms"],
+                      eager_ms_again=more["eager_ms_again"])
+    out["pallas_1080p"] = pallas_rec
+    del p
+    # the 16k subdivided bunny 480x270 b5 pallas (K4 tree, M > 32) and
+    # fused (K3)
+    sc16, _ = m.bigscene.subdivided_bunny(2, 480, 270)
+    p = m.prepare(sc16, accel="pallas", device="cuda", bounces=5)
+    if p.accel.order.shape[0] <= m.pc.FLAT_MAX_M:
+        raise AssertionError("the 16k partition takes K4's flat instance")
+    _, out["pallas_16k_launches"] = program_case(m, "16k pallas", p, 5)
+    aliasing_case(m, "16k pallas", p, 5, p.soa.ambient)
+    del p
+    p = m.prepare(sc16, accel="fused", device="cuda", bounces=5)
+    _, out["fused_16k_launches"] = program_case(m, "16k fused (K3)", p, 5)
+    if out["fused_16k_launches"] != {"fused_forward_big": 1}:
+        raise AssertionError(f"16k fused: {out['fused_16k_launches']}")
+    del p
+    # the transparent bunny 160x90 b6: 127 nodes, the composable fallback
+    p = m.prepare(transparent_bunny(m, 160, 90), accel="fused",
+                  device="cuda", bounces=6)
+    _, out["fallback_launches"] = program_case(m, "transparent 160x90 b6",
+                                               p, 6)
+    del p
+    rec["program"] = out
+    phase("program", "bit-identical to the eager loop, equal launches, no "
+          "sync in replays, kept frames unchanged: " + json.dumps(out)
+          + f"; {time.perf_counter() - t0:.1f} s ({smi})")
 
 
 def free_port():
@@ -1785,10 +1995,11 @@ def main(argv=None) -> int:
     from cutrace_tpu_torch.ops import replay as rp
     from cutrace_tpu_torch.ops import replay_vjp as rv
     from cutrace_tpu_torch.parallel.train import fit
-    from cutrace_tpu_torch.render import shading
+    from cutrace_tpu_torch.render import renderer, shading
     from cutrace_tpu_torch.render.renderer import (to_image, block_rays,
                                                    camera_rays, prepare,
-                                                   render, render_rays)
+                                                   render, render_eager,
+                                                   render_rays)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1801,7 +2012,8 @@ def main(argv=None) -> int:
         fused=fused, pc=pc, rp=rp, rv=rv, bvh=bvh, I=intersect, sh=shading,
         to_image=to_image, build=_build,
         block_rays=block_rays, camera_rays=camera_rays, prepare=prepare,
-        render=render, render_rays=render_rays, scenes=scenes,
+        render=render, render_eager=render_eager, renderer=renderer,
+        render_rays=render_rays, scenes=scenes,
         reset=lambda: reset_launches(fused, rv, pc),
         read=lambda: read_launches(fused, rv, pc))
     t_start = time.perf_counter()
@@ -2062,6 +2274,8 @@ def main(argv=None) -> int:
         phase_pallas(m, smi, rec, launches)
     if "fallback" not in skip:
         phase_fallback(m, smi, rec)
+    if "program" not in skip:
+        phase_program(m, smi, rec)
     if "multi" not in skip:
         phase_multi(m, main_prepared, root, smi, rec, launches)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
@@ -2139,6 +2353,7 @@ def main(argv=None) -> int:
                     "launches, a launch",
               frame_ms=frame["ms"],
               frame_launches=frame["launches"],
+              frame_traced_on=frame["traced_on"],
               instance="flat (M <= 32; tree past it)",
               resources=rec["cast_resources"],
               primary_1080p={"ms": rec["cast_ms"],
@@ -2165,6 +2380,7 @@ def main(argv=None) -> int:
             "vjp_ms", "vjp_wrapper_ms", "vjp_plain_ms", "vjp_bound")},
         "bigscene": rec["bigscene"],
         "pallas_render_ms": rec["pallas_render_ms"],
+        "program": rec["program"],
         "multi": {"render_ms": rec["multi_render_ms"],
                   "sharded_world1_nccl_ms": rec["multi_world1_ms"],
                   "sharded_world2_gloo_ms": rec["multi_world2_ms"],

@@ -14,11 +14,15 @@ module names so each counterpart is found at once:
   ops.replay_vjp     <- cutrace_tpu.ops.replay_vjp  (the replay backward)
   ops.csrc/*.cu      <- the Pallas kernels, rewritten for Hopper
   render.shading     <- cutrace_tpu.render.shading  (Phong, bounce tree)
-  render.renderer    <- cutrace_tpu.render.renderer (prepare / render)
+  render.renderer    <- cutrace_tpu.render.renderer (prepare / render,
+                                                     the frame programs)
   diff.{grad,camera,checkpoint}
                      <- cutrace_tpu.diff            (gradients, look-at
                                                      camera, checkpoints)
-  parallel.train     <- cutrace_tpu.parallel.train  (fit, one device)
+  parallel.{sharding,multihost,train}
+                     <- cutrace_tpu.parallel        (meshes over
+                                                     torch.distributed, fit)
+  utils.profiling    <- cutrace_tpu.utils.profiling (timings, traces)
   cli                <- cutrace_tpu.cli             (python -m entry)
 
 Nothing here imports jax or cutrace_tpu. Entry points run on the CUDA card

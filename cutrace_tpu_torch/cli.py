@@ -59,24 +59,6 @@ def dump_scene(scene: T.Scene, file=sys.stdout) -> None:
         print(f"  -> Material #{i:<4} has type #0 ", file=file)
 
 
-def _timed_render(prepared, bounces, device):
-    """Render once and return (outputs, milliseconds): CUDA events on the
-    card, the host clock on the CPU."""
-    from cutrace_tpu_torch.render.renderer import render
-
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = render(prepared, bounces=bounces, fudge=1e-3)
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
-    t0 = time.perf_counter()
-    out = render(prepared, bounces=bounces, fudge=1e-3)
-    return out, (time.perf_counter() - t0) * 1000.0
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="cutrace_tpu_torch", description=__doc__,
@@ -113,23 +95,27 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from cutrace_tpu_torch.render.renderer import prepare
+    from cutrace_tpu_torch.render.renderer import prepare, render
+    from cutrace_tpu_torch.utils.profiling import timed_render
 
     total_start = time.perf_counter()
     prepared = prepare(scene, accel=args.accel, device=device,
                        bounces=args.bounces)
-    # warm-up: builds the kernel on first use and fills the caches; the
-    # timed render below is the one reported
+    # warm-up: builds the kernels on first use, fills the caches and, on
+    # the card, captures the frame's program; the timed render below (a
+    # replay) is the one reported
     warm_start = time.perf_counter()
-    _timed_render(prepared, args.bounces, device)
+    render(prepared, bounces=args.bounces, fudge=1e-3)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     warm_ms = (time.perf_counter() - warm_start) * 1000.0
-    (color, depth, normal), render_ms = _timed_render(
-        prepared, args.bounces, device)
+    (color, depth, normal), timings = timed_render(
+        prepared, args.bounces, fudge=1e-3, warmup=False)
     color, depth, normal = (x.cpu().numpy() for x in (color, depth, normal))
     total_ms = (time.perf_counter() - total_start) * 1000.0 - warm_ms
     print(f"Warm-up time was {warm_ms:.0f} ms (excluded below).")
     print(
-        f"Render time was {render_ms:.0f} ms; kernel time with "
+        f"Render time was {timings.render_ms:.0f} ms; kernel time with "
         f"setup/teardown was {total_ms:.0f} ms."
     )
 

@@ -22,8 +22,13 @@ started in that root builds its kernels and times them by CUDA events
               rays (a chunk of the `--accel pallas` frame's primary cast)
   cast/frame  K4 summed over one `--accel pallas` bunny 1920x1080 b5
               render (`render`), with its launch count
+  render/fused   `render` of bunny 1920x1080 b5 prepared "fused" (the
+              CLI's frame), CUDA events, mean of 10
+  render/pallas  the same prepared "pallas" (the `--accel pallas`
+              frame), mean of 2
 
-K1 and K3 are timed by CUDA events around `fused_render_rays`. K2 and K4
+K1 and K3 are timed by CUDA events around `fused_render_rays`, the
+frames by CUDA events around `render`. K2 and K4
 are timed as the device time of their kernels alone, read from a
 torch.profiler trace (the kernels whose names hold `replay_vjp_kernel` or
 `cluster_cast_kernel`): CUDA events around a launch would add the host's
@@ -52,7 +57,9 @@ CASES = {"bunny": ("forward", 0, 1920, 1080),
          "vjp/bunny": ("vjp", 0, 1920, 1080),
          "vjp/256k": ("vjp", 4, 160, 90),
          "cast/bunny": ("cast", 0, 1920, 1080),
-         "cast/frame": ("frame", 0, 1920, 1080)}
+         "cast/frame": ("frame", 0, 1920, 1080),
+         "render/fused": ("render", 0, 1920, 1080),
+         "render/pallas": ("render_pallas", 0, 1920, 1080)}
 
 # what a run does in its root: build, prepare each case, time its kernel
 _CHILD = r"""
@@ -101,8 +108,9 @@ for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
         sc.camera.width, sc.camera.height = w, h
     else:
         sc, _ = bigscene.subdivided_bunny(levels, w, h)
-    p = prepare(sc, accel="pallas" if what in ("cast", "frame") else "fused",
-                device="cuda", bounces=5)
+    culls = what in ("cast", "frame", "render_pallas")
+    p = prepare(sc, accel="pallas" if culls else "fused", device="cuda",
+                bounces=5)
     o, d, _ = block_rays(p.soa)
     if what == "forward":
         fn = lambda: fused.fused_render_rays(p.soa, p.accel, o, d, 1e-3, 5,
@@ -116,7 +124,7 @@ for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
                     .cuda() for s in ((r, 3), (r,), (r, 3)))
         tabs = rv.backward_tables(p.soa)
         fn = lambda: rv.vjp_tables(p.soa, *tabs, o, d, codes, cot, 1e-3, 5)
-    elif what == "frame":
+    elif what in ("frame", "render", "render_pallas"):
         fn = lambda: render(p, bounces=5)
     else:
         oc = (o - p.soa.scene_center)[:65536].contiguous()
@@ -127,8 +135,10 @@ for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
     torch.cuda.synchronize()
     rec = {"clusters": int(p.accel.order.shape[0]),
            "cluster_size": int(p.accel.order.shape[1])}
-    if what == "forward":
+    if what in ("forward", "render"):
         rec["ms"] = event_ms(fn, 10)
+    elif what == "render_pallas":
+        rec["ms"] = event_ms(fn, 2)
     else:
         kernel = "replay_vjp" if what == "vjp" else "cluster_cast"
         rec["ms"], rec["launches"] = device_ms(

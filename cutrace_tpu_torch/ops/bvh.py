@@ -54,6 +54,18 @@ _BIG = 2**30
 
 # sentinel triangle for padding slots (matches scene/soa.py)
 _SENT = ((_FAR, 0.0, 0.0), (_FAR, 64.0, 0.0), (_FAR, 0.0, 64.0))
+_SENT_ON: dict = {}  # device -> _SENT as a (3, 3) float32 tensor
+
+
+def _sentinel(device):
+    """_SENT on `device`, made once per device: a dense cast gathers
+    cluster geometry on every call, and a warm one copies nothing from the
+    host."""
+    sent = _SENT_ON.get(device)
+    if sent is None:
+        sent = _SENT_ON[device] = torch.tensor(_SENT, dtype=torch.float32,
+                                               device=device)
+    return sent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +177,7 @@ def clusters_from_accel(soa, accel: Accel) -> TriClusters:
     idx = accel.order.to(torch.int64).clamp(0, t - 1)
     valid = accel.valid & soa.tri_valid[idx]
     v3 = valid[..., None]
-    sent = torch.tensor(_SENT, dtype=torch.float32, device=idx.device)
+    sent = _sentinel(idx.device)
     p1 = torch.where(v3, soa.tri_p1[idx], sent[0])
     p2 = torch.where(v3, soa.tri_p2[idx], sent[1])
     p3 = torch.where(v3, soa.tri_p3[idx], sent[2])
@@ -189,6 +201,11 @@ def clusters_from_accel(soa, accel: Accel) -> TriClusters:
         bmin=bmin,
         bmax=bmax,
     )
+
+
+def build_clusters(soa, cluster_size: int = CLUSTER_SIZE) -> TriClusters:
+    """The host partition and the geometry gather in one call."""
+    return clusters_from_accel(soa, build_accel(soa, cluster_size))
 
 
 def tree_leaves(m: int) -> int:
@@ -255,6 +272,12 @@ def slab_entry(bmin, bmax, o, d):
     tmin = torch.where(torch.isnan(lo), 0.0, lo).amax(dim=-1)
     tmax = torch.where(torch.isnan(hi), math.inf, hi).amin(dim=-1)
     return torch.clamp(tmin, min=0.0), tmax
+
+
+def slab_test(bmin, bmax, o, d):
+    """(R,3) rays x (M,3) boxes -> (R,M) bool hit mask (see slab_entry)."""
+    tmin, tmax = slab_entry(bmin, bmax, o, d)
+    return tmin <= tmax
 
 
 @dataclasses.dataclass(frozen=True)

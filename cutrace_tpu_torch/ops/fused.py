@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -240,8 +241,7 @@ def _emit_chunk(soa, accel, o, d, fudge, bounces, nodes):
     opaque = not soa.any_transparent
     codes = _code_fill(soa, bounces, o.device).expand(r, -1).clone()
     it = iter(nodes)
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                          device=o.device)
+    unit_z = sh._unit_z(o.device)
 
     def node(level, o3, d3, w, alive):
         _, cast_row, shadow_base = next(it)
@@ -382,14 +382,21 @@ def _check_rays(o, d, device):
 
 def _code_fill(soa, bounces, device):
     """(K,) int32 pre-fill of the code buffer's rows: -1, and 0 in opaque
-    scenes' occlusion-flag rows."""
-    rows, nodes = rp.topo_layout(bounces, soa.any_reflective,
-                                 soa.any_transparent, soa.n_lights,
-                                 soa.shadow_steps)
+    scenes' occlusion-flag rows. Made once per layout and device, and
+    shared: callers copy it."""
+    return _code_fill_on(bounces, soa.any_reflective, soa.any_transparent,
+                         soa.n_lights, soa.shadow_steps, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _code_fill_on(bounces, any_refl, any_transp, n_lights, shadow_steps,
+                  device):
+    rows, nodes = rp.topo_layout(bounces, any_refl, any_transp, n_lights,
+                                 shadow_steps)
     fill = torch.full((rows,), -1, dtype=torch.int32)
-    if not soa.any_transparent:
+    if not any_transp:
         for _, cast_row, shadow_base in nodes:
-            fill[shadow_base:cast_row + 1 + soa.n_lights] = 0
+            fill[shadow_base:cast_row + 1 + n_lights] = 0
     return fill.to(device)
 
 

@@ -294,6 +294,16 @@ def sphere_hit_attrs(soa, o, d, t, idx, need_uv=True):
 # --- combined nearest-hit query --------------------------------------------
 
 
+def min_dist_rows(min_dist, r: int, device):
+    """(r,) float32 lower bounds on t: a tensor converted and broadcast, a
+    Python number filled on `device` (never copied from the host, so a
+    warm cast runs inside a CUDA-graph capture)."""
+    if isinstance(min_dist, torch.Tensor):
+        return min_dist.to(dtype=torch.float32, device=device).expand(r)
+    return torch.full((), float(min_dist), dtype=torch.float32,
+                      device=device).expand(r)
+
+
 def ray_cast(soa, o, d, min_dist, tri_candidates=None, need_attrs=True,
              need_uv=True) -> HitRecord:
     """Nearest hit over all primitive kinds.
@@ -303,8 +313,7 @@ def ray_cast(soa, o, d, min_dist, tri_candidates=None, need_attrs=True,
     min_dist, o0) -> TriCandidate` overrides the brute-force triangle query
     (ops.bvh.candidates_fn). `need_attrs=False` skips point/normal/uv."""
     r = o.shape[0]
-    min_dist = torch.as_tensor(min_dist, dtype=torch.float32,
-                               device=o.device).expand(r)
+    min_dist = min_dist_rows(min_dist, r, o.device)
     o0 = soa.scene_center
 
     if tri_candidates is None:

@@ -432,11 +432,13 @@ def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
     Accepts a SceneArrays, a render.renderer.PreparedScene (prepared for
     the mesh on every call) or a ShardedScene of this mesh
     (prepare_sharded, once for every frame). Pixels go in 32x16-block
-    order (renderer._block_order), padded to a multiple of n_tiles, one
-    contiguous run per tile rank; with PRIM_AXIS > 1 each rank culls only
-    its own shard. The pieces are gathered over the tiles group
-    (gather_image) and put back in scanline order."""
-    from cutrace_tpu_torch.render.renderer import (_block_order,
+    order (renderer.block_order_tensors, on the device once), padded to a
+    multiple of n_tiles, one contiguous run per tile rank; with PRIM_AXIS
+    > 1 each rank culls only its own shard. The pieces are gathered over
+    the tiles group (gather_image) and put back in scanline order. The
+    frame runs op by op: a prim shard's casts make collectives, which no
+    captured program holds."""
+    from cutrace_tpu_torch.render.renderer import (block_order_tensors,
                                                    default_chunk, to_image)
 
     if not isinstance(scene, ShardedScene):
@@ -447,14 +449,13 @@ def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
     soa, accel = scene.soa, scene.accel
     n = soa.width * soa.height
     run = _ceil_to(n, mesh.n_tiles) // mesh.n_tiles
-    order, inverse = _block_order(soa.width, soa.height, run * mesh.n_tiles)
-    idx = torch.from_numpy(order[mesh.tile * run:(mesh.tile + 1) * run]
-                           .copy()).to(mesh.device)
+    bo = block_order_tensors(soa.width, soa.height, run * mesh.n_tiles,
+                             mesh.device)
+    idx = bo.order[mesh.tile * run:(mesh.tile + 1) * run]
     culls = accel is not None and accel.kind != "clusters"
     chunk = default_chunk(soa, bounces, lights=not culls)
     color, depth, normal = render_pixels_sharded(
         soa, mesh, idx, bounces, float(fudge), accel, scene.tables, chunk)
     full = gather_image(torch.cat([color, depth[:, None], normal], dim=1),
                         mesh)
-    inverse = torch.from_numpy(inverse.copy()).to(mesh.device)
-    return to_image(soa, inverse, full[:, 0:3], full[:, 3], full[:, 4:7])
+    return to_image(soa, bo.inverse, full[:, 0:3], full[:, 3], full[:, 4:7])

@@ -2,16 +2,25 @@
 (counterpart of cutrace_tpu.render.renderer).
 
 The primary cast feeds the depth and normal buffers (a miss gives depth
-+inf and normal 0) and the bounce tree the color buffer. Pixels are
-visited in 32x16 blocks, so a warp of the fused kernel, or a chunk of the
-composable path, covers a compact patch of the image.
++inf and normal 0) and the bounce tree the color buffer; the tree's level
+0 is that primary cast. Pixels are visited in 32x16 blocks, so a warp of
+the fused kernel, or a chunk of the composable path, covers a compact
+patch of the image.
+
+Where the JAX package jits a frame into one program (`_render_fused`,
+`_render_padded`), the port captures it on a CUDA device as a CUDA graph
+and replays it: the whole fused frame, or one composable chunk replayed
+over the frame's chunks. The same functions run op by op on the CPU and
+in `render_eager`, the programs' plain version.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -90,29 +99,53 @@ def prepare(scene_or_soa, accel: str = "auto", device="cuda",
     return PreparedScene(soa=soa, accel=acc, tables=tables)
 
 
+def _device_key(device) -> torch.device:
+    """`device` with its index: the current card's for a bare "cuda"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@functools.cache
+def _camera_constants(width: int, height: int, device: torch.device):
+    """(3,) float32 [w, h, w / h] on `device`, the quotient taken in
+    float32 as the JAX package takes it. Kept on the device, once per key:
+    a host scalar divisor would make CUDA's division a multiplication by
+    its reciprocal, which changes bits."""
+    w, h = np.float32(width), np.float32(height)
+    return torch.from_numpy(np.array([w, h, w / h], np.float32)).to(device)
+
+
 def camera_rays(soa: SceneArrays, px, py):
     """Pinhole rays for pixel coordinates:
     dir = normalize(((x/w - 0.5)·aspect)·right + (0.5 - y/h)·up + forward),
-    origin = eye. px, py: (R,) tensors of pixel indices."""
-    w = torch.tensor(float(soa.width), dtype=torch.float32, device=px.device)
-    h = torch.tensor(float(soa.height), dtype=torch.float32, device=px.device)
-    aspect = w / h
+    origin = eye. px, py: (R,) tensors of pixel indices (integer or
+    float32). The constants come from a per-device cache, so a warm call
+    copies nothing from the host."""
+    c = _camera_constants(soa.width, soa.height, _device_key(px.device))
+    w, h, aspect = c[0], c[1], c[2]
     px = px.to(torch.float32)
     py = py.to(torch.float32)
     xv = ((px / w - 0.5) * aspect)[:, None] * soa.cam_right[None, :]
     yv = (0.5 - py / h)[:, None] * soa.cam_up[None, :]
     d = xv + yv + soa.cam_forward[None, :]
-    d = d / torch.sqrt((d * d).sum(-1))[:, None]
+    # the float32 root correctly rounded on every device, as JAX's and
+    # CUDA's are: torch's float32 sqrt on the CPU is one ulp off for about
+    # 0.7 % of inputs, while a float64 root rounded to float32 is exact
+    norm = torch.sqrt((d * d).sum(-1).to(torch.float64)).to(torch.float32)
+    d = d / norm[:, None]
     o = soa.cam_eye[None, :].expand_as(d)
     return o, d
 
 
 def render_rays(soa: SceneArrays, o, d, bounces: int, fudge,
                 tri_candidates=None):
-    """One chunk of the composable pipeline: primary cast (depth/normal)
-    + bounce tree (color). Returns (color (R,3), depth (R,), normal (R,3))."""
-    primary = I.ray_cast(soa, o, d, fudge, tri_candidates, need_uv=False)
-    color = sh.ray_color(soa, o, d, fudge, bounces, tri_candidates)
+    """One chunk of the composable pipeline: the bounce tree (color), whose
+    level-0 hit is the primary cast (depth/normal), so the primary rays
+    are cast once, as XLA's CSE leaves the JAX program. Returns (color
+    (R,3), depth (R,), normal (R,3))."""
+    color, primary = sh._ray_color(soa, o, d, fudge, bounces, tri_candidates)
     return color, primary.t, primary.normal
 
 
@@ -159,15 +192,48 @@ def _block_order(w: int, h: int, n_pad: int, bw: int = 32, bh: int = 16):
     return order, inverse
 
 
+class BlockOrder(NamedTuple):
+    """`_block_order` on a device: the visit order and its inverse (int64,
+    n_pad), and the visited pixels' float32 coordinates as the rows of
+    `pxy` (2, n_pad), `px` = pxy[0] and `py` = pxy[1]."""
+
+    order: torch.Tensor
+    inverse: torch.Tensor
+    pxy: torch.Tensor
+
+    @property
+    def px(self):
+        return self.pxy[0]
+
+    @property
+    def py(self):
+        return self.pxy[1]
+
+
+@functools.lru_cache(maxsize=8)
+def _block_order_on(w: int, h: int, n_pad: int, device: torch.device):
+    order, inverse = _block_order(w, h, n_pad)
+    pxy = np.stack([order % w, order // w]).astype(np.float32)
+    return BlockOrder(*(torch.from_numpy(a.copy()).to(device)
+                        for a in (order, inverse, pxy)))
+
+
+def block_order_tensors(w: int, h: int, n_pad: int, device) -> BlockOrder:
+    """The block order of a (w, h) image padded to n_pad pixels on
+    `device`, uploaded once per (w, h, n_pad, device) and shared by every
+    caller (read-only): the counterpart of the JAX program's compile-time
+    constant."""
+    return _block_order_on(w, h, n_pad, _device_key(device))
+
+
 def block_rays(soa: SceneArrays, n_pad: Optional[int] = None):
     """Camera rays for the whole image in 32x16 block order, plus the
     inverse permutation (a tensor) back to scanline order."""
     n = soa.width * soa.height
-    order, inverse = _block_order(soa.width, soa.height,
-                                  n if n_pad is None else n_pad)
-    idx = torch.from_numpy(order.copy()).to(soa.device)
-    o, d = camera_rays(soa, idx % soa.width, idx // soa.width)
-    return o, d, torch.from_numpy(inverse.copy()).to(soa.device)
+    bo = block_order_tensors(soa.width, soa.height,
+                             n if n_pad is None else n_pad, soa.device)
+    o, d = camera_rays(soa, bo.px, bo.py)
+    return o, d, bo.inverse
 
 
 def to_image(soa, inverse, color, depth, normal):
@@ -184,17 +250,228 @@ def to_image(soa, inverse, color, depth, normal):
     )
 
 
-@torch.no_grad()
-def _render_fused(prepared: PreparedScene, bounces: int, fudge: float):
-    """Whole-image render through ops.fused.fused_render_rays, one call for
-    the full frame."""
+# --------------------------------------------------------------------------
+# the frame programs
+# --------------------------------------------------------------------------
+
+# Programs kept at once (least recently used dropped first); each holds its
+# graph's memory pool, a frame's or a chunk's peak.
+PROGRAM_CACHE_SIZE = 4
+# Programs captured since import: a second render of the same scene
+# replays and adds none.
+CAPTURES = 0
+_PROGRAMS: "collections.OrderedDict" = collections.OrderedDict()
+_OWNERS: dict = {}  # id(scene) -> its weakref.finalize
+
+
+def _launch_counters():
+    """(module, name) of every kernel wrapper's launch counter."""
+    from cutrace_tpu_torch.ops import fused, pallas_cast, replay_vjp
+
+    return [(fused, n) for n in (
+        "LAUNCHES", "TOPO_LAUNCHES", "GLOBAL_LAUNCHES",
+        "GLOBAL_TOPO_LAUNCHES", "BIG_LAUNCHES", "BIG_TOPO_LAUNCHES")] + [
+        (pallas_cast, "LAUNCHES"), (replay_vjp, "LAUNCHES")]
+
+
+class _Program:
+    """One frame or chunk program captured as a CUDA graph.
+
+    fn() runs once eagerly on a side stream (which builds the kernels,
+    loads their libraries and fills every per-device constant cache, as
+    torch.cuda.graph requires), then is captured. `inputs` are the static
+    buffers fn reads, which the caller fills before each replay;
+    `outputs` are fn's results in the graph's pool, which the next replay
+    overwrites; `keep` holds every object whose tensors the graph reads,
+    so no address is freed and reused under it. The kernel wrappers count
+    their launches in Python, which a replay never runs: the counts the
+    capture added are taken back and added again on every replay."""
+
+    def __init__(self, fn, inputs, keep, device):
+        global CAPTURES
+        counters = _launch_counters()
+        self.inputs, self.keep = inputs, keep
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            before = [getattr(m, n) for m, n in counters]
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn()
+        self.counts = []
+        for (m, n), b in zip(counters, before):
+            if getattr(m, n) != b:
+                self.counts.append((m, n, getattr(m, n) - b))
+                setattr(m, n, b)
+        CAPTURES += 1
+
+    def replay(self):
+        self.graph.replay()
+        for m, n, k in self.counts:
+            setattr(m, n, getattr(m, n) + k)
+
+
+def _forget(owner_id: int):
+    _OWNERS.pop(owner_id, None)
+    for key in [k for k in _PROGRAMS if k[0] == owner_id]:
+        del _PROGRAMS[key]
+
+
+def _program(owner, key, build) -> _Program:
+    """The program cached for (`owner`'s identity, key), built by build()
+    on a miss. Scenes are keyed by identity, never by value (their tensor
+    fields do not compare); an entry goes when its scene is freed, or as
+    the least recently used past PROGRAM_CACHE_SIZE."""
+    full = (id(owner),) + tuple(key)
+    prog = _PROGRAMS.get(full)
+    if prog is not None:
+        _PROGRAMS.move_to_end(full)
+        return prog
+    prog = build()
+    _PROGRAMS[full] = prog
+    if id(owner) not in _OWNERS:
+        _OWNERS[id(owner)] = weakref.finalize(owner, _forget, id(owner))
+    while len(_PROGRAMS) > PROGRAM_CACHE_SIZE:
+        _PROGRAMS.popitem(last=False)
+    return prog
+
+
+def _detached(prepared: PreparedScene) -> PreparedScene:
+    """A new PreparedScene over a new SceneArrays holding the same
+    tensors: what a program keeps, so that it reads the live tensors by
+    address without keeping the caller's objects (its cache key) alive."""
+    return dataclasses.replace(prepared,
+                               soa=dataclasses.replace(prepared.soa))
+
+
+def _fused_frame(prepared: PreparedScene, bounces: int, fudge: float):
+    """The fused frame: camera rays in block order, ray packing and K1 or
+    K3 (ops.fused.fused_render_rays), un-permute."""
     from cutrace_tpu_torch.ops.fused import fused_render_rays
 
     soa = prepared.soa
-    o, d, inverse = block_rays(soa)
+    bo = block_order_tensors(soa.width, soa.height, soa.width * soa.height,
+                             soa.device)
+    o, d = camera_rays(soa, bo.px, bo.py)
     color, depth, normal = fused_render_rays(
         soa, prepared.accel, o, d, fudge, bounces, tables=prepared.tables)
-    return to_image(soa, inverse, color, depth, normal)
+    return to_image(soa, bo.inverse, color, depth, normal)
+
+
+@torch.no_grad()
+def _render_fused(prepared: PreparedScene, bounces: int, fudge: float,
+                  program: bool = True):
+    """The whole frame through the fused kernels: on a CUDA device one
+    captured program per (scene, bounces, fudge), replayed (the
+    counterpart of the JAX package's jitted `_render_fused`); op by op
+    without `program` and on the CPU. The images are the frame's own
+    tensors, never the graph's memory."""
+    if not program or prepared.soa.device.type != "cuda":
+        return _fused_frame(prepared, bounces, fudge)
+
+    def build():
+        scene = _detached(prepared)
+        soa = scene.soa
+        bo = block_order_tensors(soa.width, soa.height,
+                                 soa.width * soa.height, soa.device)
+        return _Program(lambda: _fused_frame(scene, bounces, fudge), None,
+                        (scene, bo), soa.device)
+
+    prog = _program(prepared, ("fused", bounces, fudge), build)
+    prog.replay()
+    return tuple(x.clone() for x in prog.outputs)
+
+
+def _chunk(soa, xy, bounces: int, fudge, tri_candidates):
+    """One composable chunk from pixel coordinates xy (2, R): camera rays
+    and render_rays, packed as (R, 7) rows [color, depth, normal]."""
+    o, d = camera_rays(soa, xy[0], xy[1])
+    color, depth, normal = render_rays(soa, o, d, bounces, fudge,
+                                       tri_candidates)
+    return torch.cat([color, depth[:, None], normal], dim=1)
+
+
+def _unpack(soa, inverse, rows):
+    """(n_pad, 7) rows in block order -> to_image's images."""
+    return to_image(soa, inverse, rows[:, 0:3], rows[:, 3], rows[:, 4:7])
+
+
+@torch.no_grad()
+def _render_padded(owner, bounces: int, fudge: float, chunk: int,
+                   program: bool = True):
+    """The composable frame in chunks of `chunk` rays over the block order
+    padded to a multiple of it. `owner` is a SceneArrays (brute force) or
+    a PreparedScene (its partition's triangle query). On a CUDA device one
+    chunk is a captured program per (scene, bounces, fudge, chunk): each
+    chunk's pixel coordinates are copied into its static input, it is
+    replayed, and its rows are copied out into the frame (the counterpart
+    of the JAX package's `_render_padded`, `lax.map` over the chunks);
+    op by op without `program` and on the CPU."""
+    from cutrace_tpu_torch.ops import bvh
+
+    def parts(scene):
+        if isinstance(scene, PreparedScene):
+            return scene.soa, bvh.candidates_fn(scene.accel, scene.tables)
+        return scene, None
+
+    soa, tc = parts(owner)
+    n = soa.width * soa.height
+    n_pad = _ceil_to(n, chunk)
+    bo = block_order_tensors(soa.width, soa.height, n_pad, soa.device)
+    if not program or soa.device.type != "cuda":
+        rows = torch.cat([
+            _chunk(soa, bo.pxy[:, s:s + chunk], bounces, fudge, tc)
+            for s in range(0, n_pad, chunk)])
+        return _unpack(soa, bo.inverse, rows)
+
+    def build():
+        if isinstance(owner, PreparedScene):
+            scene = _detached(owner)
+        else:
+            scene = dataclasses.replace(owner)
+        s_soa, s_tc = parts(scene)
+        xy = bo.pxy[:, :chunk].clone()
+        return _Program(lambda: _chunk(s_soa, xy, bounces, fudge, s_tc), xy,
+                        (scene, s_tc), soa.device)
+
+    prog = _program(owner, ("padded", bounces, fudge, chunk), build)
+    rows = torch.empty((n_pad, 7), dtype=torch.float32, device=soa.device)
+    for s in range(0, n_pad, chunk):
+        prog.inputs.copy_(bo.pxy[:, s:s + chunk])
+        prog.replay()
+        rows[s:s + chunk].copy_(prog.outputs)
+    return _unpack(soa, bo.inverse, rows)
+
+
+def _render(scene_or_soa, bounces, fudge, chunk, device, program):
+    """render's dispatch, as the programs (`program`) or op by op: the
+    fused frame for a "fused" partition in the kernels' scope, else the
+    composable frame, keyed on the PreparedScene when it has a partition
+    and on its SceneArrays when not."""
+    from cutrace_tpu_torch.ops import fused
+
+    owner = scene_or_soa
+    if isinstance(owner, PreparedScene):
+        if fused.fused_supported(owner.soa, owner.accel, bounces):
+            return _render_fused(owner, bounces, float(fudge), program)
+        if owner.accel is None:
+            owner = owner.soa
+    elif not isinstance(owner, SceneArrays):
+        owner = scene_to_soa(owner, device=resolve_device(device))
+    soa = owner.soa if isinstance(owner, PreparedScene) else owner
+    accel = owner.accel if isinstance(owner, PreparedScene) else None
+
+    n = soa.width * soa.height
+    if chunk is None:
+        # the culling cast materializes no (rays x triangles) products, so
+        # its chunks need not shrink with the light fan-out
+        culls = accel is not None and accel.kind != "clusters"
+        chunk = default_chunk(soa, bounces, lights=not culls)
+    chunk = max(8, min(chunk, _ceil_to(n, 8)))
+    return _render_padded(owner, bounces, float(fudge), chunk, program)
 
 
 @torch.no_grad()
@@ -207,40 +484,30 @@ def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
     passes "cpu"; without a card the call raises), a SceneArrays (brute-force
     composable path) or a PreparedScene from prepare(). A "fused"
     partition runs ops.fused.fused_render_rays while the bounce tree is in
-    the kernels' scope; past it, and for "clusters" and "pallas"
-    partitions, the composable path runs with the partition's triangle
-    query (ops.bvh.candidates_fn). `chunk` bounds the rays per composable
-    batch."""
-    from cutrace_tpu_torch.ops import fused
+    the kernels' scope (`_render_fused`); past it, and for "clusters" and
+    "pallas" partitions, the composable path runs with the partition's
+    triangle query (ops.bvh.candidates_fn) in batches of `chunk` rays
+    (`_render_padded`). On a CUDA device each runs as a captured program,
+    built at a scene's first render and replayed after; a failure to
+    capture or replay raises. On the CPU both run op by op
+    (`render_eager`)."""
+    return _render(scene_or_soa, bounces, fudge, chunk, device, True)
 
-    accel = tables = None
-    if isinstance(scene_or_soa, PreparedScene):
-        accel, tables = scene_or_soa.accel, scene_or_soa.tables
-        if fused.fused_supported(scene_or_soa.soa, accel, bounces):
-            return _render_fused(scene_or_soa, bounces, float(fudge))
-        scene_or_soa = scene_or_soa.soa
-    soa = (
-        scene_or_soa
-        if isinstance(scene_or_soa, SceneArrays)
-        else scene_to_soa(scene_or_soa, device=resolve_device(device))
-    )
 
-    n = soa.width * soa.height
-    if chunk is None:
-        # the culling cast materializes no (rays x triangles) products, so
-        # its chunks need not shrink with the light fan-out
-        culls = accel is not None and accel.kind != "clusters"
-        chunk = default_chunk(soa, bounces, lights=not culls)
-    chunk = max(8, min(chunk, _ceil_to(n, 8)))
-    o, d, inverse = block_rays(soa, _ceil_to(n, chunk))
-    color, depth, normal = render_chunks(soa, o, d, bounces, fudge,
-                                         bvh.candidates_fn(accel, tables),
-                                         chunk)
-    return to_image(soa, inverse, color, depth, normal)
+@torch.no_grad()
+def render_eager(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
+                 chunk: Optional[int] = None, device="cuda"):
+    """The plain version of render's programs: the same frame with the
+    same kernels, dispatched op by op from Python on any device. It is
+    render on the CPU; on the card it is what the programs are held
+    against."""
+    return _render(scene_or_soa, bounces, fudge, chunk, device, False)
 
 
 def render_chunks(soa, o, d, bounces: int, fudge, tri_candidates, chunk):
-    """render_rays over the rays in batches of `chunk`, concatenated."""
+    """render_rays over explicit rays in batches of `chunk`, concatenated
+    (the prim-sharded render's loop, which stays op by op: its casts make
+    collectives)."""
     outs = [
         render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge,
                     tri_candidates)

@@ -18,6 +18,17 @@ import torch
 from cutrace_tpu_torch.ops import intersect as I
 
 _EPS = 1e-6  # material activity threshold
+_UNIT_Z: dict = {}  # device -> (3,) float32 [0, 0, 1]
+
+
+def _unit_z(device):
+    """The +z unit vector on `device`, made once per device (the normal
+    that stands in for a miss's)."""
+    z = _UNIT_Z.get(device)
+    if z is None:
+        z = _UNIT_Z[device] = torch.tensor([0.0, 0.0, 1.0],
+                                           dtype=torch.float32, device=device)
+    return z
 
 
 def _dot(a, b):
@@ -82,9 +93,7 @@ def phong(soa, d, hit: I.HitRecord, tri_candidates=None):
     phong_e = soa.mat_phong[hit.mat]
     specular = spec_f[:, None] * diffuse
 
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                          device=d.device)
-    nrm = torch.where(hit.hit[:, None], hit.normal, unit_z)
+    nrm = torch.where(hit.hit[:, None], hit.normal, _unit_z(d.device))
     nn = _normalize(nrm)
     minus_dn = -_normalize(d)
 
@@ -144,20 +153,26 @@ def ray_color(soa, o, d, min_t, bounces: int, tri_candidates=None):
 
     (a leaf contributes w·phong). All nodes of one depth share one cast
     over an (n_nodes·R) ray batch."""
+    return _ray_color(soa, o, d, min_t, bounces, tri_candidates)[0]
+
+
+def _ray_color(soa, o, d, min_t, bounces: int, tri_candidates=None):
+    """ray_color and the level-0 HitRecord: the cast of (o, d) at min_t
+    with need_uv=False, which is the primary cast of render_rays."""
     r = o.shape[0]
-    min_t = torch.as_tensor(min_t, dtype=torch.float32,
-                            device=o.device).expand(r)
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                          device=o.device)
+    min_t = I.min_dist_rows(min_t, r, o.device)
 
     color = torch.zeros((r, 3), dtype=torch.float32, device=o.device)
     os_, ds_ = o, d
     ws = torch.ones(r, dtype=torch.float32, device=o.device)
+    primary = None
 
     for level in range(bounces + 1):
         n_nodes = os_.shape[0] // r
         mt = min_t.repeat(n_nodes)
         hit = I.ray_cast(soa, os_, ds_, mt, tri_candidates, need_uv=False)
+        if primary is None:
+            primary = hit
         ph = torch.where(
             hit.hit[:, None], phong(soa, ds_, hit, tri_candidates), 0.0
         )
@@ -180,7 +195,8 @@ def ray_color(soa, o, d, min_t, bounces: int, tri_candidates=None):
         child_o = os_ + t_safe[:, None] * ds_
         next_o, next_d, next_w = [], [], []
         if soa.any_reflective:
-            nrm = torch.where(hit.hit[:, None], hit.normal, unit_z)
+            nrm = torch.where(hit.hit[:, None], hit.normal,
+                              _unit_z(o.device))
             refl_d = _reflect(_normalize(ds_), _normalize(nrm))
             refl = soa.mat_reflect[hit.mat]
             rr = torch.where(hit.hit & (refl >= _EPS), refl, 0.0)
@@ -195,4 +211,37 @@ def ray_color(soa, o, d, min_t, bounces: int, tri_candidates=None):
         ds_ = torch.cat(next_d, dim=0)
         ws = torch.cat(next_w, dim=0)
 
-    return color
+    return color, primary
+
+
+def ray_color_recursive(soa, o, d, min_t, bounces: int, tri_candidates=None):
+    """The reference recursion written out, one ray_cast per tree NODE
+    (counterpart of cutrace_tpu.render.shading.ray_color_recursive): the
+    cross-check of ray_color's wavefront, which is the production path
+    (a 2^bounces times shorter op sequence)."""
+    hit = I.ray_cast(soa, o, d, min_t, tri_candidates, need_uv=False)
+    rgb = torch.where(hit.hit[:, None], phong(soa, d, hit, tri_candidates),
+                      0.0)
+
+    if bounces > 0 and (soa.any_reflective or soa.any_transparent):
+        t_safe = torch.where(hit.hit, hit.t, 1.0)
+        child_o = o + t_safe[:, None] * d
+
+        if soa.any_reflective:
+            nrm = torch.where(hit.hit[:, None], hit.normal,
+                              _unit_z(o.device))
+            refl_d = _reflect(_normalize(d), _normalize(nrm))
+            child = ray_color_recursive(soa, child_o, refl_d, min_t,
+                                        bounces - 1, tri_candidates)
+            refl = soa.mat_reflect[hit.mat]
+            mask = hit.hit & (refl >= _EPS)
+            rgb = rgb + torch.where(mask, refl, 0.0)[:, None] * child
+
+        if soa.any_transparent:
+            child = ray_color_recursive(soa, child_o, d, min_t, bounces - 1,
+                                        tri_candidates)
+            tr = soa.mat_transparency[hit.mat]
+            f = torch.where(hit.hit & (tr >= _EPS), tr, 0.0)[:, None]
+            rgb = (1.0 - f) * rgb + f * child
+
+    return rgb

@@ -62,8 +62,9 @@ def test_render_outputs(tmp_path):
 
 def test_port_never_loads_jax():
     """Importing the port (its parallel package too), rendering with it
-    (fused, pallas, and over a one-rank mesh) and taking one fit step on
-    the CPU never loads jax or the JAX package (cutrace_tpu)."""
+    (fused, pallas, timed_render, and over a one-rank mesh) and taking one
+    fit step on the CPU never loads jax or the JAX package
+    (cutrace_tpu)."""
     code = (
         "import sys\n"
         "import cutrace_tpu_torch, cutrace_tpu_torch.perf_probe\n"
@@ -80,6 +81,9 @@ def test_port_never_loads_jax():
         "p = prepare(sc, accel='fused', device='cpu')\n"
         "c, d, n = render(p, bounces=2)\n"
         "assert tuple(c.shape) == (8, 8, 3)\n"
+        "from cutrace_tpu_torch.utils.profiling import timed_render\n"
+        "(c, d, n), t = timed_render(p, bounces=2)\n"
+        "assert 'Render time was' in str(t)\n"
         "from cutrace_tpu_torch.parallel import make_mesh, render_sharded\n"
         "c, d, n = render_sharded(p, make_mesh(1, 1, device='cpu'), 2)\n"
         "params, losses = fit(p.soa, c, steps=1, bounces=1, "

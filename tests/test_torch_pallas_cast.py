@@ -166,6 +166,25 @@ def test_fallback_past_63_nodes(scenes_dir):
              atol=2e-4)
 
 
+@pytest.mark.parametrize("scene,accel,bounces", [
+    ("bunny.json", "pallas", 2),
+    ("sphere_plane.json", "fused", 6),
+])
+def test_warm_culling_chunk_makes_no_host_tensor(scenes_dir, monkeypatch,
+                                                 scene, accel, bounces):
+    """A composable chunk through the culling cast creates no tensor from
+    host data once warm (the CPU's stand-in for capturable as a CUDA
+    graph): the "pallas" path, and the 127-node fallback of a "fused"
+    partition."""
+    from test_torch_render import chunk_is_capturable
+
+    sc = _scene(scenes_dir, scene, 16, 8)
+    prepared = TR.prepare(scene_to_soa(port_scene(sc), device="cpu"),
+                          accel=accel, bounces=bounces)
+    assert not tfused.fused_supported(prepared.soa, prepared.accel, bounces)
+    chunk_is_capturable(monkeypatch, prepared, bounces)
+
+
 def test_composable_backward_past_replay(scenes_dir, monkeypatch):
     """Inside the kernels' scope but past the replay's row budget the
     Function's forward emits no codes, and its gradient (the composable
