@@ -1321,12 +1321,17 @@ def kernel_device_ms(fn, kernel):
 
 def k4_in_frame(m, prepared, rec):
     """K4 at the shape its path launches it: one bunny 1920x1080 b5
-    render with accel="pallas" (the CLI's --accel pallas frame, replays of
-    its chunk program), K4's device time summed over its launches
-    (kernel_device_ms; through the eager loop if the trace shows no
-    kernel of a graph's replay); then the same frame through the eager
-    loop (a replay calls no wrapper) with a tally per launch, whose bounds
-    are summed over the same launches."""
+    render with accel="pallas" (the CLI's --accel pallas frame). K4's
+    device time a launch is the mean over the K4 records of a CUDA-only
+    trace of one replay of the chunk program (kernel_device_ms; of the
+    eager loop if the trace shows no kernel of a graph's replay). The same
+    frame then runs through the eager loop (a replay calls no wrapper)
+    with a tally per launch: each launch's tally must count every one of
+    its rays, which shows on the device that the launch ran, and the
+    bounds are summed over these launches. The trace is not a count: it
+    has dropped 1 to 5 of a frame's 384 K4 records, replayed or eager
+    (perf_probe --k4-records), so it may show fewer records than
+    launches, never more."""
     lib = m.build.load_library("cluster_cast")
     load = m.build.load_library
     tallies = []
@@ -1341,11 +1346,11 @@ def k4_in_frame(m, prepared, rec):
     m.render(prepared, bounces=5)  # warm-up: the capture
     torch.cuda.synchronize()
     traced_on = "program"
-    total, n = kernel_device_ms(lambda: m.render(prepared, bounces=5),
-                                "cluster_cast_kernel")
-    if n == 0:
+    total, n_rec = kernel_device_ms(lambda: m.render(prepared, bounces=5),
+                                    "cluster_cast_kernel")
+    if n_rec == 0:
         traced_on = "eager loop"
-        total, n = kernel_device_ms(
+        total, n_rec = kernel_device_ms(
             lambda: m.render_eager(prepared, bounces=5),
             "cluster_cast_kernel")
     m.build.load_library = (lambda name: Tallied() if name == "cluster_cast"
@@ -1355,23 +1360,31 @@ def k4_in_frame(m, prepared, rec):
         torch.cuda.synchronize()
     finally:
         m.build.load_library = load
-    if n == 0 or n != len(tallies):
-        raise AssertionError(f"K4 in the pallas frame: {n} traced launches, "
-                             f"{len(tallies)} tallied")
+    n = len(tallies)
+    short = [(r, int(t[0])) for r, t in tallies if int(t[0]) != r]
+    if n == 0 or short:
+        raise AssertionError(f"K4 in the pallas frame: {n} launches, "
+                             f"{len(short)} of them cast fewer rays than "
+                             f"they were given: {short[:4]}")
+    if n_rec == 0 or n_rec > n:
+        raise AssertionError(f"K4 in the pallas frame: the trace holds "
+                             f"{n_rec} K4 records for {n} launches")
     bounds = [cast_bound(prepared.tables, r, t) for r, t in tallies]
     tally = sum(t for _, t in tallies)
     frame = {k: (sum(b[k][0] for b in bounds),
                  "operations" if sum(b[k][1] == "operations" for b in bounds)
                  * 2 >= n else "bytes") for k in ("bound", "bound_admitted")}
-    rec["cast_frame"] = {"launches": n, "ms": total, "bound": frame,
-                         "rays": sum(r for r, _ in tallies),
-                         "traced_on": traced_on}
-    phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame "
-          f"(traced on the {traced_on}): "
+    rec["cast_frame"] = {"launches": n, "ms": total / n_rec * n,
+                         "bound": frame, "rays": sum(r for r, _ in tallies),
+                         "traced_on": traced_on, "traced_records": n_rec,
+                         "traced_ms": total}
+    phase("cast", f"K4 inside one --accel pallas bunny 1920x1080 b5 frame: "
           f"{n} launches of 65536 or 262144 rays "
-          f"({rec['cast_frame']['rays']} "
-          f"rays), {total:.3f} ms of device time summed ({total / n:.4f} "
-          f"ms a launch); {tally_text(tally)}; summed " + bound_text(frame)
+          f"({rec['cast_frame']['rays']} rays, each cast on the device); "
+          f"the {traced_on}'s trace holds {n_rec} of them, {total:.3f} ms "
+          f"of device time summed ({total / n_rec:.4f} ms a launch, "
+          f"{rec['cast_frame']['ms']:.3f} ms for the {n}); "
+          f"{tally_text(tally)}; summed " + bound_text(frame)
           + f"; plain on one 65536-ray chunk "
           f"{rec['cast_chunk_plain_ms']:.1f} ms")
 
@@ -2349,11 +2362,13 @@ def main(argv=None) -> int:
                for k, v in frame["bound"].items()},
               shape="one launch of an --accel pallas bunny 1920x1080 b5 "
                     "frame (65536 or 262144 rays), M=16 C=64; ms: the "
-                    "device time (torch.profiler) over the frame's "
-                    "launches, a launch",
+                    "mean device time (torch.profiler) of the K4 "
+                    "records in a trace of the replayed frame",
               frame_ms=frame["ms"],
               frame_launches=frame["launches"],
               frame_traced_on=frame["traced_on"],
+              frame_traced_records=frame["traced_records"],
+              frame_traced_ms=frame["traced_ms"],
               instance="flat (M <= 32; tree past it)",
               resources=rec["cast_resources"],
               primary_1080p={"ms": rec["cast_ms"],

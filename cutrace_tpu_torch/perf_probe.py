@@ -29,6 +29,14 @@ of its kernels, copies and memsets) and idle share, the gaps between
 device activities, the runtime calls, the torch ops called and their
 self time, and the kernels by device time, with the culling cast's (K4)
 launches and device time. PATH (gzipped JSON) keeps the chrome trace.
+
+    python -m cutrace_tpu_torch.perf_probe --scenes --k4-records N
+
+traces N warm `--accel pallas` bunny 1920x1080 b5 frames one by one with
+a CUDA-only torch.profiler, N replays of the chunk program and N frames of
+the eager loop (`render_eager`) in turns, and prints one JSON line with
+the number of K4 kernel records each trace holds and their device time:
+how far a trace's count of a frame's launches can be trusted.
 """
 
 from __future__ import annotations
@@ -46,8 +54,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cutrace_tpu_torch import load_scene
-from cutrace_tpu_torch.ops import _build, fused
-from cutrace_tpu_torch.render.renderer import block_rays, prepare, render
+from cutrace_tpu_torch.ops import _build, fused, pallas_cast
+from cutrace_tpu_torch.render.renderer import (block_rays, prepare, render,
+                                               render_eager)
 
 SCENES = ("bunny.json", "mirror.json", "sphere_plane.json")
 BOUNCES = 5
@@ -228,6 +237,47 @@ def pallas_trace(out_path=None) -> dict:
     return summary
 
 
+def _k4_records(fn):
+    """(K4 kernel records, their device ms) in a CUDA-only trace of fn()."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = [e["dur"] for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel" and "cluster_cast" in e["name"]]
+    return len(durs), sum(durs) / 1e3
+
+
+def k4_records(frames: int) -> dict:
+    """K4's records in traces of `frames` warm pallas frames, replayed and
+    eager in turns, beside the launch counters of one frame of each."""
+    prepared = prepare(load_scene(pathlib.Path.cwd() / "scenes"
+                                  / "bunny.json"),
+                       accel="pallas", device="cuda")
+    runs = {"program": lambda: render(prepared, bounces=BOUNCES),
+            "eager": lambda: render_eager(prepared, bounces=BOUNCES)}
+    rec = {}
+    for key, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        before = pallas_cast.LAUNCHES
+        fn()
+        torch.cuda.synchronize()
+        rec[key] = {"counted": pallas_cast.LAUNCHES - before,
+                    "records": [], "ms": []}
+    for _ in range(frames):
+        for key, fn in runs.items():
+            n, ms = _k4_records(fn)
+            rec[key]["records"].append(n)
+            rec[key]["ms"].append(ms)
+    print(json.dumps({"k4_records": rec}), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m cutrace_tpu_torch.perf_probe")
     ap.add_argument("--scenes", nargs="*", default=list(SCENES))
@@ -237,6 +287,9 @@ def main(argv=None) -> int:
                     const=False, default=None, metavar="PATH",
                     help="trace one --accel pallas bunny frame; PATH "
                          "keeps the chrome trace (gzipped JSON)")
+    ap.add_argument("--k4-records", type=int, default=0, metavar="N",
+                    help="count K4's records in N traced pallas frames, "
+                         "replayed and eager")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA card")
@@ -250,6 +303,9 @@ def main(argv=None) -> int:
     if args.pallas_trace is not None:
         print("smi", _smi(), flush=True)
         pallas_trace(args.pallas_trace or None)
+    if args.k4_records:
+        print("smi", _smi(), flush=True)
+        k4_records(args.k4_records)
     print("smi", _smi(), flush=True)
     return 0
 
