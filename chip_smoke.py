@@ -108,12 +108,39 @@ line) if any phase fails:
              the program equals the eager loop again; the 1080p frames'
              first call (warm-up, capture, replay) with its peak and held
              memory, and CUDA-event times eager, program, eager
- 18. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
+ 18. step-program  the step programs (make_train_step / fit on the card:
+             one CUDA graph a training step) against the op-by-op step on
+             the same card: the train phase's fit (bunny 1920x1080 b5, 5
+             steps) through the program and op by op (wall seconds in
+             turns), one capture, 5 K1 with codes and 5 K2 launches in
+             both, step 0's loss bit-equal, the final parameters within
+             the vjp gate; the same 5 steps from the same state (before
+             each call the op-by-op side takes the program's parameters
+             and Adam state): every loss bit-equal, gradients and updated
+             parameters within the vjp gate (two free-running fits part
+             by K2's atomic sums, eager against eager too; their spread is
+             printed); a checkpoint saved between replays holding the
+             live parameters and a resumed fit whose first loss is a
+             forward's at them. One 19-group step (lr 0) on bunny and
+             sphere_plane 1920x1080 b5, the transparent bunny 160x90 b5
+             (K1, composable backward through K4), bunny 480x270 b5
+             "pallas" (K4 under autograd) and the 256k bunny 960x540 b5
+             (K3 with codes, K2): first calls (eager; capture and replay;
+             replay) with peak, held and pool memory, a replay with no
+             sync (torch's sync debug mode "error") and the launch counts
+             of an op-by-op step, gradients within the vjp gate, CUDA-
+             event times op by op, program, op by op. The inverse-
+             rendering example's settings (sphere_plane 64x36: 150
+             mat_color steps b2, 50 look-at camera steps b1): wall seconds
+             op by op, program, op by op, and every step from the same
+             state as above
+ 19. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
              rank over NCCL (multihost.initialize, make_mesh(1, 1)):
              render_sharded of bunny 1920x1080 b5 bit-identical to render,
              K1 launched; fit(mesh=...) 3 steps at the train phase's
-             settings, losses within 1e-6 relative of the one-device fit,
-             K1 with codes and K2 launched. (b) two ranks on the one card
+             settings through one step program (its all-reduce
+             captured), losses within 1e-6 relative of the one-device
+             fit, K1 with codes and K2 launched. (b) two ranks on the one card
              over gloo (CUDA tensors go through the host for the
              collectives), each spawned with a deadline: the (2, 1) mesh
              on bunny 1920x1080 b5 (K1) and on the 16k subdivided bunny
@@ -121,22 +148,26 @@ line) if any phase fails:
              bunny 480x270 b5 with accel="pallas", K4 on each triangle
              shard, under the forward gate against the one-rank pallas
              render; one (2, 1) gradient step on bunny 480x270 b5 (K1
-             codes, K2) within the vjp gate of the one-device step; one
+             codes, K2) within the vjp gate of the one-device step, and a
+             2-step (2, 1) fit there that captures nothing (gloo); one
              (1, 2) gradient step there with accel="pallas" (K4 on each
              shard under autograd) within the vjp gate of the one-device
              culling-cast step. Each rank's launch counts are reset
              before each run and must grow.
              The sharded frames' CUDA-event times beside render's
- 19. result  a JSON line of per-kernel numbers, then the contract line
+ 20. result  a JSON line of per-kernel numbers (each with its launches
+             in one replayed step of each step-program case), then the
+             contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
 fit, the 256k bigscene run, the 256k step, the --accel pallas CLI, the
 sharded render and fit) runs
 with every kernel's launch count set to 0 just before it and read just
-after; the counts of the result line come from those runs. A render on
-the card replays a captured program, which calls no wrapper: the program
-adds the counts its capture recorded on every replay. Each bound is
+after; the counts of the result line come from those runs. A render or
+a training step on the card replays a captured program, which calls no
+wrapper: the program adds the counts its capture recorded on every
+replay. Each bound is
 given twice: the work these inputs need whatever the traversal ("bound":
 the tally's needed cluster visits) and the kernel's own work
 ("bound_admitted": its slab tests and admitted visits). `--skip` leaves
@@ -175,7 +206,7 @@ PARITY = (
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
-          "cast", "pallas", "fallback", "program", "multi")
+          "cast", "pallas", "fallback", "program", "step-program", "multi")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -1701,6 +1732,315 @@ def phase_program(m, smi, rec):
           + f"; {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+def max_rel(losses, ref):
+    """The largest relative difference of two fits' losses, step by
+    step."""
+    a = np.asarray(losses, np.float64)
+    b = np.asarray(ref, np.float64)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise AssertionError(f"losses {losses} against {ref}")
+    return float((np.abs(a - b) / np.abs(b)).max())
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def timed_fit(m, *args, **kw):
+    """(seconds, params, losses) of one fit (its losses fetched to the
+    host at its end, so the seconds hold every step's work)."""
+    t0 = time.perf_counter()
+    params, losses = m.fit(*args, **kw)
+    return time.perf_counter() - t0, params, losses
+
+
+def forced_fit(m, label, soa, target, steps, lr, bounces, param_filter,
+               accel, camera="raw"):
+    """`steps` Adam steps (capturable, eps 1e-8, as fit builds it) of the
+    step program and of the op-by-op step from the same state: before
+    each call the op-by-op side's parameters and optimizer state are set
+    to the program's. K2 sums with atomics, so two free-running fits part
+    by their order of summation (eager against eager too); from the same
+    state each step's loss must be bit-equal (a forward is
+    deterministic: FIT_RTOL a fortiori), its gradients and the updated
+    parameters within the vjp gate. Returns the largest relative error of
+    those."""
+    base = {k: v.detach().clone()
+            for k, v in m.tgrad.extract_params(soa, camera=camera).items()}
+    sides = []
+    for program in (True, False):
+        params = {k: v.clone() for k, v in base.items()}
+        for k in param_filter:
+            params[k].requires_grad_()
+        opt = torch.optim.Adam([params[k] for k in param_filter], lr=lr,
+                               eps=1e-8, capturable=True)
+        step = m.train.make_train_step(opt, bounces,
+                                       param_filter=param_filter,
+                                       accel=accel, program=program)
+        sides.append((params, opt, step))
+    (p_prog, o_prog, prog), (p_eager, o_eager, eager) = sides
+    worst = 0.0
+    for i in range(steps):
+        with torch.no_grad():
+            for k in param_filter:
+                p_eager[k].copy_(p_prog[k])
+            for a, b in zip(o_eager.param_groups[0]["params"],
+                            o_prog.param_groups[0]["params"]):
+                for name, v in o_prog.state[b].items():
+                    o_eager.state[a][name].copy_(v)
+        got = prog(p_prog, soa, target).item()
+        want = eager(p_eager, soa, target).item()
+        if got != want:
+            raise AssertionError(f"{label} step {i}: loss {got!r} from the "
+                                 f"same state as the op-by-op {want!r}")
+        for what in ("grad", "data"):
+            worst = max(worst, grad_gate(
+                f"{label} step {i} parameter {what}",
+                {k: getattr(p_prog[k], what) for k in param_filter},
+                {k: getattr(p_eager[k], what) for k in param_filter}))
+    return worst
+
+
+def step_fit_case(m, prepared, rec):
+    """The train phase's fit (bunny 1920x1080 b5, mat_color perturbed by
+    default_rng(7), lr 5e-2, 5 steps) through the step program against
+    the op-by-op fit, wall seconds in turns op by op, program, op by op:
+    one capture, K1 with codes and K2 five times each in
+    both, step 0's loss bit-equal (the same eager call), the final
+    parameters within the vjp gate; the free-running losses' largest
+    relative difference beside a second op-by-op fit's (the sums' own
+    spread); the same 5 steps from the same state (forced_fit). Then a
+    checkpoint saved between replays holds the live parameters, and a
+    resumed fit continues from it: its first loss bit-equal to a forward
+    at the saved parameters."""
+    soa, accel = prepared.soa, prepared.accel
+    target, start = fit_start(soa, accel, m.tgrad)
+    kw = dict(lr=5e-2, bounces=5, param_filter=("mat_color",), accel=accel,
+              device="cuda")
+    out = {}
+    captures = m.renderer.CAPTURES
+    m.reset()
+    eager_s, p_eager, l_eager = timed_fit(m, start, target, steps=5,
+                                          program=False, **kw)
+    want = nonzero(m.read())
+    m.reset()
+    out["program_s"], p_prog, l_prog = timed_fit(m, start, target, steps=5,
+                                                 **kw)
+    got = nonzero(m.read())
+    again_s, _, l_again = timed_fit(m, start, target, steps=5, program=False,
+                                    **kw)
+    out["eager_s"] = [eager_s, again_s]
+    if m.renderer.CAPTURES != captures + 1:
+        raise AssertionError(f"fit: {m.renderer.CAPTURES - captures} "
+                             f"captures, not 1 (the program's)")
+    if not got == want == {"fused_forward_topo": 5, "replay_vjp": 5}:
+        raise AssertionError(f"fit launches: program {got}, eager {want}")
+    if l_prog[0] != l_eager[0]:
+        raise AssertionError(f"fit step 0: {l_prog[0]!r} against "
+                             f"{l_eager[0]!r}, not bit-equal")
+    out["param_err"] = grad_gate("fit final parameters", p_prog, p_eager)
+    out["free_loss_rel"] = max_rel(l_prog, l_eager)
+    out["eager_vs_eager_rel"] = max_rel(l_again, l_eager)
+    out["forced_param_err"] = forced_fit(
+        m, "bunny 1080p fit", start, target, 5, 5e-2, 5, ("mat_color",),
+        accel)
+    out["launches"] = got
+    out["losses"] = {"program": l_prog, "eager": l_eager}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(kw, checkpoint_dir=tmp, checkpoint_every=2)
+        _, kept, first = timed_fit(m, start, target, steps=5, **ck)
+        saved, _, _ = m.ckpt.restore_checkpoint(tmp, kept, step=4)
+        _, _, more = timed_fit(m, start, target, steps=7, **ck)
+        latest = m.ckpt.latest_step(tmp)
+    if not all(torch.equal(saved[k], kept[k]) for k in kept):
+        raise AssertionError("the checkpoint at step 4 is not the fit's "
+                             "parameters")
+    if latest != 6 or len(more) != 2 or not np.isfinite(more).all():
+        raise AssertionError(f"resumed fit: losses {more}, newest "
+                             f"checkpoint {latest}")
+    with torch.no_grad():
+        again = m.tgrad.render_loss(saved, start, target, 5, 1e-3,
+                                    accel).item()
+    if more[0] != again:
+        raise AssertionError(f"resumed fit: first loss {more[0]!r}, a "
+                             f"forward at the saved parameters {again!r}")
+    out["resumed"] = more
+    rec["fit"] = out
+
+
+def step_program_case(m, label, prepared, expect, reps=3):
+    """One training step over all 19 groups (perf_probe.grad_step, lr 0:
+    every call at the same parameters) as the step program against the
+    op-by-op step: the first three calls (eager; capture and replay;
+    replay) by the host clock with the peak and held memory above what
+    was allocated before, and the memory the card keeps reserved past
+    what it reserved before, the caches emptied (the graph's pool and
+    the optimizer's state); one replay with torch's sync debug mode
+    "error" and the launch counts reset, equal to an op-by-op step's and
+    to `expect` (a count, or None for at least one), its gradients
+    within the vjp gate of the op-by-op step's; CUDA-event times in
+    turns op by op, program, op by op."""
+    prog, prog_params = m.probe.grad_step(prepared, program=True)
+    eager, eager_params = m.probe.grad_step(prepared, program=False)
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    captures = m.renderer.CAPTURES
+    calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prog()
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    out["first_calls_ms"] = calls
+    out["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out["held_mb"] = (torch.cuda.memory_allocated() - base) / 2**20
+    torch.cuda.empty_cache()  # what stays reserved is the graph's pool
+    out["pool_mb"] = (torch.cuda.memory_reserved() - reserved) / 2**20
+    eager()
+    torch.cuda.synchronize()
+    m.reset()
+    eager()
+    torch.cuda.synchronize()
+    want = nonzero(m.read())
+    m.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    got = nonzero(m.read())
+    if m.renderer.CAPTURES != captures + 1:
+        raise AssertionError(f"{label}: {m.renderer.CAPTURES - captures} "
+                             f"captures, not 1")
+    if got != want or set(got) != set(expect) or any(
+            n is not None and got[k] != n for k, n in expect.items()):
+        raise AssertionError(f"{label}: launches {got} a replayed step, "
+                             f"{want} an op-by-op one, expected {expect}")
+    out["launches"] = got
+    missing = [k for k in prog_params if (prog_params[k].grad is None)
+               != (eager_params[k].grad is None)]
+    if missing:
+        raise AssertionError(f"{label}: gradients present in one step "
+                             f"only: {missing}")
+    out["grad_err"] = grad_gate(
+        f"{label} step program", *({k: p.grad for k, p in ps.items()
+                                    if p.grad is not None}
+                                   for ps in (prog_params, eager_params)))
+    out["eager_ms"] = cuda_ms(eager, reps)
+    out["program_ms"] = cuda_ms(prog, reps)
+    out["eager_ms_again"] = cuda_ms(eager, reps)
+    phase("step-program", f"{label}: " + json.dumps(
+        {k: (round(v, 3) if isinstance(v, float) else v)
+         for k, v in out.items()}))
+    return out
+
+
+LOOK_AT_KEYS = ("cam_eye", "cam_target", "cam_up_hint", "cam_scales")
+
+
+def step_example_case(m, rec):
+    """examples/inverse_rendering.py's settings: sphere_plane 64x36, every
+    material color from 0.5 back to the b2 render (150 steps, lr 5e-2),
+    then the look-at camera (eye, target, up hint and scales) from a
+    shaken eye back to the b1 render (50 steps, lr 4e-3). Wall seconds
+    of the two fits in turns op by op, program, op by op (two captures);
+    the free-running losses' largest relative differences; every step
+    from the same state (forced_fit)."""
+    sc = m.load_scene(m.scenes / "sphere_plane.json")
+    sc.camera.width, sc.camera.height = 64, 36
+    soa = m.scene_to_soa(sc, device="cuda")
+    with torch.no_grad():
+        target, _, _ = m.tgrad.render_image_flat(soa, 2, 1e-3)
+        target_b1, _, _ = m.tgrad.render_image_flat(soa, 1, 1e-3)
+    corrupt = dataclasses.replace(soa,
+                                  mat_color=torch.full_like(soa.mat_color,
+                                                            0.5))
+    cam = m.camera.camera_to_look_at(soa)
+    shaken = m.camera.apply_look_at(soa, dict(
+        cam, cam_eye=cam["cam_eye"] + torch.tensor([0.08, -0.05, 0.06],
+                                                   device="cuda")))
+    colors_kw = dict(steps=150, lr=5e-2, bounces=2,
+                     param_filter=("mat_color",))
+    camera_kw = dict(steps=50, lr=4e-3, bounces=1, param_filter=LOOK_AT_KEYS)
+
+    def run(program):
+        t0 = time.perf_counter()
+        _, colors = m.fit(corrupt, target, device="cuda", program=program,
+                          **colors_kw)
+        _, camera = m.fit(shaken, target_b1, camera="look_at",
+                          device="cuda", program=program, **camera_kw)
+        return time.perf_counter() - t0, colors + camera
+
+    captures = m.renderer.CAPTURES
+    eager_s, eager = run(False)
+    program_s, program = run(True)
+    eager_again_s, eager_again = run(False)
+    if m.renderer.CAPTURES != captures + 2:
+        raise AssertionError(f"example: {m.renderer.CAPTURES - captures} "
+                             f"captures, not 2")
+    forced = [forced_fit(m, f"example {name}", s, t, accel=m.prepare(
+        s, accel="fused", bounces=kw["bounces"]).accel, camera=camera, **kw)
+        for name, s, t, kw, camera in (
+            ("colors", corrupt, target, colors_kw, "raw"),
+            ("camera", shaken, target_b1, camera_kw, "look_at"))]
+    rec["example"] = {"eager_s": [eager_s, eager_again_s],
+                      "program_s": program_s,
+                      "free_loss_rel": max_rel(program, eager),
+                      "eager_vs_eager_rel": max_rel(eager_again, eager),
+                      "forced_param_err": max(forced),
+                      "losses": [program[0], program[149], program[150],
+                                 program[-1]]}
+    phase("step-program", "example (sphere_plane 64x36, 150 mat_color "
+          "steps b2, then 50 look-at camera steps b1): " + json.dumps(
+              rec["example"]))
+
+
+def phase_step_program(m, main_prepared, smi, rec):
+    """The step program (make_train_step / fit on the card: one CUDA
+    graph a step over K1/K3 with codes and K2, or K1 and K4 under
+    autograd) against the op-by-op step on the same card."""
+    t0 = time.perf_counter()
+    out = {}
+    step_fit_case(m, main_prepared, out)
+    phase("step-program", "bunny 1920x1080 b5 fit, 5 steps: " + json.dumps(
+        {k: v for k, v in out["fit"].items() if k != "losses"})
+        + " losses " + json.dumps(out["fit"]["losses"]))
+    topo = {"fused_forward_topo": 1, "replay_vjp": 1}
+    out["bunny_1080p"] = step_program_case(m, "bunny 1920x1080 b5",
+                                           main_prepared, topo)
+    sc = m.load_scene(m.scenes / "sphere_plane.json")
+    p = m.prepare(sc, accel="fused", device="cuda", bounces=5)
+    out["sphere_plane_1080p"] = step_program_case(
+        m, "sphere_plane 1920x1080 b5", p, topo)
+    p = m.prepare(transparent_bunny(m, 160, 90), accel="fused",
+                  device="cuda", bounces=5)
+    out["transparent_160x90"] = step_program_case(
+        m, f"transparent bunny 160x90 b5 ({m.rp.replay_rows(p.soa, 5)} "
+        f"rows: K1, composable backward through K4)", p,
+        {"fused_forward": 1, "cluster_cast": None})
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 480, 270
+    p = m.prepare(sc, accel="pallas", device="cuda", bounces=5)
+    out["pallas_480x270"] = step_program_case(
+        m, "bunny 480x270 b5 pallas (K4 under autograd)", p,
+        {"cluster_cast": None})
+    del p
+    p, label = big_prepared(m, 4, 960, 540)
+    out["bunny_256k"] = step_program_case(
+        m, label, p, {"fused_forward_big_topo": 1, "replay_vjp": 1})
+    del p
+    torch.cuda.empty_cache()
+    step_example_case(m, out)
+    rec["step_program"] = out
+    phase("step-program", f"done in {time.perf_counter() - t0:.1f} s "
+          f"({smi})")
+
+
 def free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -1767,6 +2107,7 @@ def multi_rank(rank, port, out_dir, root):
     from cutrace_tpu_torch.parallel import multihost
     from cutrace_tpu_torch.parallel import sharding as sh
     from cutrace_tpu_torch.parallel import train
+    from cutrace_tpu_torch.render import renderer
     from cutrace_tpu_torch.render.renderer import prepare, render
 
     dev = torch.device("cuda:0")
@@ -1828,6 +2169,18 @@ def multi_rank(rank, port, out_dir, root):
     res["grad"] = {"launches": counts, "err": grad_gate(
         f"rank {rank} (2, 1)", {k: p.grad for k, p in params.items()},
         want)}
+    # gloo's collectives go through the host: fit stays op by op
+    captures = renderer.CAPTURES
+    reset_launches(fused, rv, pc)
+    _, losses = train.fit(soa, target, steps=2, bounces=5,
+                          param_filter=("mat_color",), accel=accel,
+                          mesh=mesh21)
+    counts = read_launches(fused, rv, pc)
+    if renderer.CAPTURES != captures or counts["replay_vjp"] != 2:
+        raise AssertionError(f"rank {rank} (2, 1) gloo fit: "
+                             f"{renderer.CAPTURES - captures} captures, "
+                             f"launches {counts}")
+    res["gloo_fit"] = {"losses": losses, "launches": counts}
 
     # (1, 2): each rank differentiates through K4 over its own triangle
     # shard; the triangle gradients gathered back, held to one device's
@@ -1895,9 +2248,13 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
         kw = dict(steps=3, lr=5e-2, bounces=5, param_filter=("mat_color",),
                   accel=accel, device=dev)
         m.reset()
+        captures = m.renderer.CAPTURES
         _, losses = fit(start, target, mesh=mesh, **kw)
         torch.cuda.synchronize()
         launches["multi_fit"] = m.read()
+        if m.renderer.CAPTURES != captures + 1:
+            raise AssertionError("fit(mesh=...) over NCCL did not train "
+                                 "through one step program")
         _, ref_losses = fit(start, target, **kw)
         if (launches["multi_fit"]["fused_forward_topo"] < 3
                 or launches["multi_fit"]["replay_vjp"] < 3):
@@ -1911,10 +2268,12 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
         dist.destroy_process_group()
     phase("multi", f"(a) NCCL, world 1, mesh (1, 1): render_sharded bunny "
           f"1920x1080 b5 bit-identical to render, launches "
-          f"{launches['multi']}; fit(mesh=...) 3 steps: losses "
+          f"{launches['multi']}; fit(mesh=...) 3 steps through the step "
+          f"program (its all-reduce captured): losses "
           + " ".join(f"{x:.8f}" for x in losses) + " against "
           + " ".join(f"{x:.8f}" for x in ref_losses)
-          + f" (max relative {rel.max():.2e}, gate {FIT_RTOL}), launches "
+          + f" of the one-device program fit (max relative "
+          f"{rel.max():.2e}, gate {FIT_RTOL}), launches "
           f"{launches['multi_fit']}")
 
     torch.cuda.empty_cache()
@@ -1969,6 +2328,10 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
               f"b5: 19 groups within rtol {VJP_RTOL} of the one-device "
               f"step, max relative error {res['grad']['err']:.2e}; "
               f"launches {res['grad']['launches']}")
+        phase("multi", f"(b) rank {r}: (2, 1) fit bunny 480x270 b5, 2 "
+              f"steps over gloo, op by op (nothing captured): losses "
+              f"{res['gloo_fit']['losses']}, launches "
+              f"{res['gloo_fit']['launches']}")
         phase("multi", f"(b) rank {r}: (1, 2) gradient step bunny 480x270 "
               f"b5 pallas, K4 on each shard: 19 groups (triangle rows "
               f"gathered) within rtol {VJP_RTOL} of the one-device culling-"
@@ -1999,7 +2362,8 @@ def main(argv=None) -> int:
         return 1
     root = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
-    from cutrace_tpu_torch import bigscene, cli, load_scene
+    from cutrace_tpu_torch import bigscene, cli, load_scene, perf_probe
+    from cutrace_tpu_torch.diff import camera as tcamera
     from cutrace_tpu_torch.diff import checkpoint as ckpt
     from cutrace_tpu_torch.diff import grad as tgrad
     from cutrace_tpu_torch.ops import _build, bvh, fused
@@ -2007,12 +2371,14 @@ def main(argv=None) -> int:
     from cutrace_tpu_torch.ops import pallas_cast as pc
     from cutrace_tpu_torch.ops import replay as rp
     from cutrace_tpu_torch.ops import replay_vjp as rv
+    from cutrace_tpu_torch.parallel import train
     from cutrace_tpu_torch.parallel.train import fit
     from cutrace_tpu_torch.render import renderer, shading
     from cutrace_tpu_torch.render.renderer import (to_image, block_rays,
                                                    camera_rays, prepare,
                                                    render, render_eager,
                                                    render_rays)
+    from cutrace_tpu_torch.scene.soa import scene_to_soa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2026,7 +2392,9 @@ def main(argv=None) -> int:
         to_image=to_image, build=_build,
         block_rays=block_rays, camera_rays=camera_rays, prepare=prepare,
         render=render, render_eager=render_eager, renderer=renderer,
-        render_rays=render_rays, scenes=scenes,
+        render_rays=render_rays, scenes=scenes, fit=fit, ckpt=ckpt,
+        probe=perf_probe, camera=tcamera, scene_to_soa=scene_to_soa,
+        train=train,
         reset=lambda: reset_launches(fused, rv, pc),
         read=lambda: read_launches(fused, rv, pc))
     t_start = time.perf_counter()
@@ -2289,6 +2657,8 @@ def main(argv=None) -> int:
         phase_fallback(m, smi, rec)
     if "program" not in skip:
         phase_program(m, smi, rec)
+    if "step-program" not in skip:
+        phase_step_program(m, main_prepared, smi, rec)
     if "multi" not in skip:
         phase_multi(m, main_prepared, root, smi, rec, launches)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
@@ -2305,6 +2675,10 @@ def main(argv=None) -> int:
         tally)."""
         if not isinstance(bounds, dict):
             bounds = {"bound": bounds, "bound_admitted": bounds}
+        # its launches in one replayed step of each step-program case
+        in_steps = {case: r["launches"][name]
+                    for case, r in rec["step_program"].items()
+                    if case != "fit" and name in r.get("launches", {})}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain,
@@ -2312,7 +2686,8 @@ def main(argv=None) -> int:
                 "bound_by": bounds["bound"][1],
                 "bound_ms_admitted": bounds["bound_admitted"][0],
                 "bound_by_admitted": bounds["bound_admitted"][1],
-                "library_ms": None, **extra}
+                "library_ms": None, "step_program_launches": in_steps,
+                **extra}
 
     frame = rec["cast_frame"]
     kernels = [
@@ -2396,6 +2771,7 @@ def main(argv=None) -> int:
         "bigscene": rec["bigscene"],
         "pallas_render_ms": rec["pallas_render_ms"],
         "program": rec["program"],
+        "step_program": rec["step_program"],
         "multi": {"render_ms": rec["multi_render_ms"],
                   "sharded_world1_nccl_ms": rec["multi_world1_ms"],
                   "sharded_world2_gloo_ms": rec["multi_world2_ms"],

@@ -12,6 +12,11 @@ contract:
 Flags beyond the reference (all optional):
   --out DIR        output directory (default: the working directory)
   --bounces N      bounce depth (default 5)
+  --width W        override the scene camera's width after loading
+  --height H       override the scene camera's height after loading
+  --strict         reject legacy schema aliases (e.g. "model",
+                   "position"): such a scene fails to load with the
+                   schema dump and exit 254
   --device DEV     cuda or cpu (default: cuda; without a card the run
                    fails unless --device cpu is given)
   --accel KIND     auto, none, clusters, pallas or fused (default auto:
@@ -67,6 +72,10 @@ def main(argv=None) -> int:
     parser.add_argument("scene", nargs="?", help="scene JSON file")
     parser.add_argument("--out", default=".", help="output directory")
     parser.add_argument("--bounces", type=int, default=5)
+    parser.add_argument("--width", type=int, default=None)
+    parser.add_argument("--height", type=int, default=None)
+    parser.add_argument("--strict", action="store_true",
+                        help="reject legacy schema aliases")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("--accel", default="auto",
                         choices=("auto", "none", "clusters", "pallas",
@@ -77,12 +86,16 @@ def main(argv=None) -> int:
         print(f"Usage: {parser.prog} <scene file>", file=sys.stderr)
         return 255
 
-    result = load_file(args.scene)
+    result = load_file(args.scene, compat=not args.strict)
     if not result.ok:
         S.dump_schema(file=sys.stdout)
         return 254
 
     scene = result.scene
+    if args.width:
+        scene.camera.width = args.width
+    if args.height:
+        scene.camera.height = args.height
     dump_scene(scene)
 
     try:

@@ -554,8 +554,10 @@ def composable_rays(soa, accel, o, d, fudge, bounces: int):
     def run(oo, dd):
         return render_rays(soa, oo, dd, bounces, fudge, tc)
 
+    # the renderer draws no random numbers, so the recompute needs no RNG
+    # state saved and restored (which no CUDA-graph capture holds)
     outs = [checkpoint(run, o[s:s + chunk], d[s:s + chunk],
-                       use_reentrant=False)
+                       use_reentrant=False, preserve_rng_state=False)
             for s in range(0, o.shape[0], chunk)]
     return tuple(torch.cat(x) for x in zip(*outs))
 

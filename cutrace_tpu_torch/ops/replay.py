@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from cutrace_tpu_torch.render.shading import _unit_z
+
 _EPS = 1e-6  # material activity threshold (default_schema.hpp:334-335)
 
 
@@ -319,8 +321,7 @@ def replay_render_rays(soa, o, d, codes, fudge, bounces: int, table=None):
     depth_normal = [None, None]
     fudge_v = torch.full((r,), float(fudge), dtype=torch.float32,
                          device=o.device)
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                          device=o.device)
+    unit_z = _unit_z(o.device)
 
     def do_node(level, o3, d3, w, mind, root):
         _, cast_row, shadow_base = next(it)

@@ -13,19 +13,27 @@ to prepare its shard, one rank's render of the same frame, the pixels in
 which they differ):
 
     torchrun --nproc_per_node 4 -m cutrace_tpu_torch.parallel.multihost \
-        scenes/bunny.json [--prims 2] [--accel pallas] [--device cpu]
+        scenes/bunny.json [--prims 2] [--accel pallas] [--device cpu] \
+        [--steps N]
 
-one rank a card over NCCL, or with --device cpu over gloo.
+one rank a card over NCCL, or with --device cpu over gloo. With --steps
+it then fits the scene's material colors, perturbed by seeded noise, to
+that image over the mesh (train.fit(mesh=...)): on an NCCL tiles-only
+mesh through the step program (one captured CUDA graph a step, its
+all-reduce inside), elsewhere op by op; the line adds the fit's losses
+and its wall seconds (its setup included).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -101,6 +109,26 @@ def _frame_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
+    """fit(mesh=...) of mat_color, perturbed by default_rng(7) noise, to
+    `image` for args.steps Adam steps (lr 5e-2): its losses, seconds, and
+    whether its steps ran as the step program."""
+    from cutrace_tpu_torch.parallel import train
+
+    soa = prepared.soa
+    color = soa.mat_color.cpu().numpy()
+    noise = np.random.default_rng(7).normal(0.0, 0.15, color.shape)
+    start = dataclasses.replace(soa, mat_color=torch.from_numpy(
+        np.clip(color + noise, 0.0, 1.0).astype(np.float32)).to(soa.device))
+    sh.barrier(mesh)
+    t0 = time.perf_counter()
+    _, losses = train.fit(start, image, steps=args.steps, lr=5e-2,
+                          bounces=args.bounces, param_filter=("mat_color",),
+                          accel=args.accel, mesh=mesh)
+    return {"fit_losses": losses, "fit_s": time.perf_counter() - t0,
+            "step_program": train.step_is_captured(mesh.device, mesh)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="torchrun ... -m cutrace_tpu_torch.parallel.multihost",
@@ -120,6 +148,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cpu for gloo on the CPU (default: the rank's "
                          "card, NCCL)")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="Adam steps of a mat_color fit to the rendered "
+                         "image over the mesh (default 0: none)")
     args = ap.parse_args(argv)
     from cutrace_tpu_torch.render.renderer import prepare, render
     from cutrace_tpu_torch.scene.loader import load_scene
@@ -150,6 +181,8 @@ def main(argv=None) -> int:
         ms = _frame_ms(frame, args.reps, mesh.device)
         every = sh._all_gather(torch.tensor([ms, prepare_ms],
                                             device=mesh.device), mesh.group)
+        trained = _fit_rows(prepared, image[0], mesh, args) if args.steps \
+            else {}
         if dist.get_rank() == 0:
             one = render(prepared, bounces=args.bounces)
             one_ms = _frame_ms(lambda: render(prepared, bounces=args.bounces),
@@ -169,7 +202,8 @@ def main(argv=None) -> int:
                            if dev.type == "cuda" else "cpu"),
                 "frame_ms": every[:, 0].tolist(), "one_rank_ms": one_ms,
                 "prepare_sharded_ms": every[:, 1].tolist(),
-                "reps": args.reps, "pixels_differ": differ}), flush=True)
+                "reps": args.reps, "pixels_differ": differ, **trained}),
+                flush=True)
         sh.barrier(mesh)
     finally:
         dist.destroy_process_group()

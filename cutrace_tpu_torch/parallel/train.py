@@ -12,6 +12,11 @@ rank renders its run of pixels and takes its part of the global mean, and
 the gradients are all-reduced over the tiles group, so every rank applies
 the same update; with PRIM_AXIS > 1 each rank holds and updates its
 triangle shard.
+
+Where the JAX package jits the whole step (`make_train_step`), the port
+captures it on a CUDA device as one CUDA graph and replays it step after
+step (make_train_step's `program`); the same step op by op is its plain
+version, and what runs on the CPU, over gloo and over prim shards.
 """
 
 from __future__ import annotations
@@ -19,10 +24,12 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cutrace_tpu_torch.diff.grad import (extract_params, render_loss,
                                          with_params)
 from cutrace_tpu_torch.parallel import sharding as sh
+from cutrace_tpu_torch.render import renderer
 from cutrace_tpu_torch.scene.soa import SceneArrays, resolve_device, soa_to
 
 
@@ -63,10 +70,34 @@ def _all_reduce_grads(params, loss, mesh):
     return flat[-1]
 
 
+def _optimizer_device(optimizer) -> torch.device:
+    """The device of the optimizer's parameters."""
+    return next(p.device for g in optimizer.param_groups
+                for p in g["params"])
+
+
+def step_is_captured(device, mesh=None) -> bool:
+    """Does make_train_step run its step on `device` over `mesh` as a
+    captured program? On a CUDA device without a mesh, or over a
+    tiles-only mesh whose collectives are NCCL's (captured with the
+    step). Not on the CPU; not over gloo, whose collectives run through
+    the host, which no capture holds; not with PRIM_AXIS > 1, whose
+    every cast gathers the shards (the sharded render's program waits in
+    ROADMAP)."""
+    if not renderer.GRAPHS.captures(device):
+        return False
+    if mesh is None:
+        return True
+    if mesh.n_prims > 1:
+        return False
+    return (mesh.tiles_group is None
+            or dist.get_backend(mesh.tiles_group) == "nccl")
+
+
 def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
                     fudge: float = 1e-3,
                     param_filter: Optional[Tuple[str, ...]] = None,
-                    accel=None, mesh=None) -> Callable:
+                    accel=None, mesh=None, program: bool = True) -> Callable:
     """An Adam (or any optimizer) step over scene parameters.
 
     Returns step(params, soa, target) -> loss, a device scalar; `params`
@@ -78,9 +109,35 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
     positions, merely less tight as geometry drifts. With a `mesh`
     (parallel.sharding) `soa`, `params` and `accel` are the rank's own
     (sharded_loss), the gradients are all-reduced over the tiles group
-    before the update, and the loss returned is the global one."""
+    before the update, and the loss returned is the global one.
 
-    def step(params, soa, target):
+    With `program` (the default), where step_is_captured, the step runs
+    as one captured CUDA graph (the counterpart of the JAX package's
+    jitted step): camera rays, the kernels' tables, the forward with
+    codes, the backward, the routing of the cotangents to the leaves, the
+    mesh's all-reduce and the optimizer's update. For one set of
+    (params, soa, target) objects, keyed on their identity (the graph
+    reads them by address), the first call runs the step eagerly on a
+    side stream (kernels built, caches filled, the optimizer's state
+    made), the second captures it and replays it once, and every later
+    call replays it: each call applies exactly one update. Other objects
+    start a new program, from an eager call. The loss of a replay is a
+    copy of the graph's. After capture the parameters' `.grad` are the
+    graph's tensors; the optimizer's state must not be replaced
+    (load_state_dict) under a program. The optimizer on a CUDA device
+    must be built with capturable=True, or this raises; a failure to
+    capture or replay raises. Without `program`, and elsewhere, the step
+    runs op by op, its plain version."""
+    device = _optimizer_device(optimizer)
+    captured = program and step_is_captured(device, mesh)
+    if captured and device.type == "cuda" and not all(
+            g.get("capturable", False) for g in optimizer.param_groups):
+        raise ValueError(
+            "a step program on the card needs an optimizer built with "
+            "capturable=True (torch.optim.Adam(..., capturable=True)); "
+            "pass program=False to run the step op by op")
+
+    def eager(params, soa, target):
         optimizer.zero_grad(set_to_none=True)
         if mesh is None:
             loss = render_loss(params, soa, target, bounces, fudge, accel)
@@ -96,6 +153,27 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
                     v.grad = None
         optimizer.step()
         return loss.detach()
+
+    if not captured:
+        return eager
+    held = {}  # "key": the objects of the program's calls; "program"
+
+    def step(params, soa, target):
+        key = (params, soa, target, *params.values())
+        old = held.get("key", ())
+        if len(old) != len(key) or any(a is not b
+                                       for a, b in zip(old, key)):
+            held.clear()
+            held["key"] = key
+            return renderer.GRAPHS.warm(lambda: eager(params, soa, target),
+                                        device)
+        prog = held.get("program")
+        if prog is None:
+            prog = held["program"] = renderer._Program(
+                lambda: (eager(params, soa, target),), None,
+                (key, optimizer), device, warm=False)
+        prog.replay()
+        return prog.outputs[0].clone()
 
     return step
 
@@ -147,6 +225,7 @@ def fit(
     camera: str = "raw",
     device="cuda",
     mesh=None,
+    program: bool = True,
 ):
     """Optimize scene parameters to match a target image. Returns (params,
     losses). With `checkpoint_dir`, parameters, optimizer state and step
@@ -166,7 +245,16 @@ def fit(
     arguments and gets the same losses and the whole parameters (the
     triangle shards gathered, the padding dropped); a checkpoint holds the
     whole parameters, written by the lowest rank, and every rank resumes
-    from it."""
+    from it.
+
+    `program`: train through make_train_step's step program where
+    step_is_captured (the card, without a mesh or over an NCCL tiles-only
+    mesh): the first step eager, the second captured and replayed, the
+    rest replays, one update each; False runs every step op by op. On a
+    CUDA device Adam is built with capturable=True either way (its step
+    count on the device), so both run the same arithmetic. A restore
+    happens before the first step; a checkpoint between steps reads the
+    live tensors. The program is dropped before fit returns."""
     from cutrace_tpu_torch.diff import checkpoint as ckpt
     from cutrace_tpu_torch.render.renderer import prepare
 
@@ -195,7 +283,8 @@ def fit(
                  if param_filter is None or k in param_filter]
     for k in trainable:
         params[k].requires_grad_()
-    opt = torch.optim.Adam([params[k] for k in trainable], lr=lr, eps=1e-8)
+    opt = torch.optim.Adam([params[k] for k in trainable], lr=lr, eps=1e-8,
+                           capturable=dev.type == "cuda")
     start = 0
     if checkpoint_dir is not None:
         restored = ckpt.restore_checkpoint(checkpoint_dir, params)
@@ -217,7 +306,7 @@ def fit(
             if verbose:
                 print(f"resumed from step {last}")
     step = make_train_step(opt, bounces, param_filter=param_filter,
-                           accel=accel, mesh=mesh)
+                           accel=accel, mesh=mesh, program=program)
     # losses stay device scalars during the loop: a per-step readback
     # would wait for every step's kernels; they are fetched once at the end
     losses = []
@@ -229,6 +318,7 @@ def fit(
                 (i + 1) % checkpoint_every == 0 or i == steps - 1):
             _save_checkpoint(checkpoint_dir, params, opt, trainable, mesh,
                              n_tris, i)
+    del step  # the step program and its graph's memory
     out = {k: v.detach() for k, v in params.items()}
     if mesh is not None:
         out = {k: sh.unshard_rows(v, mesh, n_tris) if k in sh._TRI_FIELDS

@@ -30,6 +30,16 @@ device activities, the runtime calls, the torch ops called and their
 self time, and the kernels by device time, with the culling cast's (K4)
 launches and device time. PATH (gzipped JSON) keeps the chrome trace.
 
+    python -m cutrace_tpu_torch.perf_probe --scenes --step-trace [PATH]
+
+traces one warm training step over all 19 parameter groups (`grad_step`:
+loss mean((c - 0.9 c0)^2), capturable Adam) the same way, once as a
+replay of the step program and once op by op (program=False), on bunny
+1920x1080 b5 "fused" and bunny 480x270 b5 "pallas", and prints the four
+summaries, each with its graph and kernel launches and synchronizing
+runtime calls (the trace's own closing synchronize among them). PATH
+keeps the replayed bunny 1080p step's chrome trace.
+
     python -m cutrace_tpu_torch.perf_probe --scenes --k4-records N
 
 traces N warm `--accel pallas` bunny 1920x1080 b5 frames one by one with
@@ -54,7 +64,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cutrace_tpu_torch import load_scene
+from cutrace_tpu_torch.diff.grad import extract_params, render_image_flat
 from cutrace_tpu_torch.ops import _build, fused, pallas_cast
+from cutrace_tpu_torch.parallel.train import make_train_step
 from cutrace_tpu_torch.render.renderer import (block_rays, prepare, render,
                                                render_eager)
 
@@ -184,6 +196,8 @@ def trace_summary(events, key_averages, wall_ms):
             top += 1
             ends[e["tid"]] = e["ts"] + e["dur"]
     big_gaps = [g for g in gaps if g > 50.0]
+    launches = {name: runtime.get(name, 0)
+                for name in ("cudaGraphLaunch", "cudaLaunchKernel")}
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy / 1e3,
@@ -195,6 +209,8 @@ def trace_summary(events, key_averages, wall_ms):
         "largest_gap_ms": max(gaps, default=0.0) / 1e3,
         "runtime_calls": dict(sorted(runtime.items(),
                                      key=lambda kv: -kv[1])[:8]),
+        **launches,
+        "syncs": sum(n for k, n in runtime.items() if "Synchronize" in k),
         "host_ops": top,
         "host_ops_nested": sum(1 for e in events if e.get("ph") == "X"
                                and e.get("cat") == "cpu_op"),
@@ -209,18 +225,14 @@ def trace_summary(events, key_averages, wall_ms):
     }
 
 
-def pallas_trace(out_path=None) -> dict:
-    """torch.profiler (host and device) over one warm --accel pallas bunny
-    1920x1080 b5 render: where the composable path's time goes."""
-    prepared = prepare(load_scene(pathlib.Path.cwd() / "scenes"
-                                  / "bunny.json"),
-                       accel="pallas", device="cuda")
-    render(prepared, bounces=BOUNCES)
-    torch.cuda.synchronize()
+def _traced(fn, out_path=None) -> dict:
+    """trace_summary of torch.profiler (host and device) over fn() and a
+    closing synchronize; out_path (gzipped JSON) keeps the chrome
+    trace."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        render(prepared, bounces=BOUNCES)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -232,9 +244,68 @@ def pallas_trace(out_path=None) -> dict:
             out_path.parent.mkdir(parents=True, exist_ok=True)
             with open(path, "rb") as f, gzip.open(out_path, "wb") as g:
                 g.write(f.read())
-    summary = trace_summary(events, prof.key_averages(), wall_ms)
+    return trace_summary(events, prof.key_averages(), wall_ms)
+
+
+def _bunny(accel):
+    return prepare(load_scene(pathlib.Path.cwd() / "scenes" / "bunny.json"),
+                   accel=accel, device="cuda")
+
+
+def pallas_trace(out_path=None) -> dict:
+    """torch.profiler (host and device) over one warm --accel pallas bunny
+    1920x1080 b5 render: where the composable path's time goes."""
+    prepared = _bunny("pallas")
+    render(prepared, bounces=BOUNCES)
+    torch.cuda.synchronize()
+    summary = _traced(lambda: render(prepared, bounces=BOUNCES), out_path)
     print(json.dumps({"pallas_trace": summary}), flush=True)
     return summary
+
+
+def grad_step(prepared, bounces: int = BOUNCES, program: bool = True,
+              lr: float = 0.0):
+    """A training step over all 19 parameter groups of a prepared scene,
+    loss mean((c - 0.9 c0)^2) with c0 the scene's render (chip_smoke.py
+    grad's), through make_train_step with a capturable Adam (eps 1e-8):
+    (step() -> loss, params). At lr 0 the update's arithmetic runs in
+    full and leaves the parameters as they are, so every call
+    differentiates at the same point."""
+    soa, accel = prepared.soa, prepared.accel
+    with torch.no_grad():
+        c0, _, _ = render_image_flat(soa, bounces, 1e-3, accel)
+    target = 0.9 * c0
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(soa).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=lr, eps=1e-8,
+                           capturable=True)
+    step = make_train_step(opt, bounces, accel=accel, program=program)
+    return (lambda: step(params, soa, target)), params
+
+
+def step_trace(out_path=None) -> dict:
+    """torch.profiler over one warm training step (grad_step), a replay
+    of the step program and the op-by-op step: bunny 1920x1080 b5
+    "fused" (K1 with codes, K2) and bunny 480x270 b5 "pallas" (K4 under
+    autograd)."""
+    small = load_scene(pathlib.Path.cwd() / "scenes" / "bunny.json")
+    small.camera.width, small.camera.height = 480, 270
+    cases = {"fused_1080p": _bunny("fused"),
+             "pallas_480x270": prepare(small, accel="pallas",
+                                       device="cuda")}
+    rec = {}
+    for name, prepared in cases.items():
+        rec[name] = {}
+        for key, program in (("program", True), ("eager", False)):
+            step, _ = grad_step(prepared, program=program)
+            for _ in range(3):  # eager, capture and replay, replay
+                step()
+            torch.cuda.synchronize()
+            keep = out_path if program and name == "fused_1080p" else None
+            rec[name][key] = _traced(step, keep)
+            del step
+    print(json.dumps({"step_trace": rec}), flush=True)
+    return rec
 
 
 def _k4_records(fn):
@@ -255,9 +326,7 @@ def _k4_records(fn):
 def k4_records(frames: int) -> dict:
     """K4's records in traces of `frames` warm pallas frames, replayed and
     eager in turns, beside the launch counters of one frame of each."""
-    prepared = prepare(load_scene(pathlib.Path.cwd() / "scenes"
-                                  / "bunny.json"),
-                       accel="pallas", device="cuda")
+    prepared = _bunny("pallas")
     runs = {"program": lambda: render(prepared, bounces=BOUNCES),
             "eager": lambda: render_eager(prepared, bounces=BOUNCES)}
     rec = {}
@@ -287,6 +356,12 @@ def main(argv=None) -> int:
                     const=False, default=None, metavar="PATH",
                     help="trace one --accel pallas bunny frame; PATH "
                          "keeps the chrome trace (gzipped JSON)")
+    ap.add_argument("--step-trace", nargs="?", type=pathlib.Path,
+                    const=False, default=None, metavar="PATH",
+                    help="trace replayed and op-by-op training steps "
+                         "(bunny 1080p b5 fused, 480x270 b5 pallas); PATH "
+                         "keeps the replayed 1080p step's chrome trace "
+                         "(gzipped JSON)")
     ap.add_argument("--k4-records", type=int, default=0, metavar="N",
                     help="count K4's records in N traced pallas frames, "
                          "replayed and eager")
@@ -303,6 +378,9 @@ def main(argv=None) -> int:
     if args.pallas_trace is not None:
         print("smi", _smi(), flush=True)
         pallas_trace(args.pallas_trace or None)
+    if args.step_trace is not None:
+        print("smi", _smi(), flush=True)
+        step_trace(args.step_trace or None)
     if args.k4_records:
         print("smi", _smi(), flush=True)
         k4_records(args.k4_records)

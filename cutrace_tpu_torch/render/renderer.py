@@ -274,33 +274,67 @@ def _launch_counters():
         (pallas_cast, "LAUNCHES"), (replay_vjp, "LAUNCHES")]
 
 
-class _Program:
-    """One frame or chunk program captured as a CUDA graph.
+class _CudaGraphs:
+    """How a program is warmed and captured on a device: the CUDA graph
+    API. `GRAPHS` is the one place the port reaches torch.cuda.graph; a
+    test puts a stand-in there that reruns the captured function."""
 
-    fn() runs once eagerly on a side stream (which builds the kernels,
-    loads their libraries and fills every per-device constant cache, as
-    torch.cuda.graph requires), then is captured. `inputs` are the static
-    buffers fn reads, which the caller fills before each replay;
-    `outputs` are fn's results in the graph's pool, which the next replay
-    overwrites; `keep` holds every object whose tensors the graph reads,
-    so no address is freed and reused under it. The kernel wrappers count
-    their launches in Python, which a replay never runs: the counts the
-    capture added are taken back and added again on every replay."""
+    @staticmethod
+    def captures(device) -> bool:
+        """Are programs captured on `device` (a CUDA device)?"""
+        return torch.device(device).type == "cuda"
 
-    def __init__(self, fn, inputs, keep, device):
-        global CAPTURES
-        counters = _launch_counters()
-        self.inputs, self.keep = inputs, keep
+    @staticmethod
+    def warm(fn, device):
+        """fn() on a side stream of `device`, joined back to the current
+        stream: the eager run a capture needs before it (kernels built
+        and loaded, every per-device constant cache filled)."""
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                fn()
+                out = fn()
             torch.cuda.current_stream().wait_stream(side)
-            before = [getattr(m, n) for m, n in counters]
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.outputs = fn()
+        return out
+
+    @staticmethod
+    def capture(fn, device):
+        """(graph, outputs): fn() captured as a torch.cuda.CUDAGraph on
+        `device`, its results in the graph's pool. Nothing runs until
+        the graph is replayed; a failure to capture raises."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            outputs = fn()
+        return graph, outputs
+
+
+GRAPHS = _CudaGraphs()
+
+
+class _Program:
+    """One program captured as a CUDA graph: a frame, a composable chunk
+    or a training step (parallel.train.make_train_step).
+
+    With `warm` fn() first runs once eagerly on a side stream (a frame's
+    warm-up, as torch.cuda.graph requires); a caller whose eager run is
+    itself a step of its work (a training step, an update each call)
+    runs it and passes warm=False. Then fn() is captured. `inputs` are
+    the static buffers fn reads, which the caller fills before each
+    replay; `outputs` are fn's results in the graph's pool, which the
+    next replay overwrites; `keep` holds every object whose tensors the
+    graph reads, so no address is freed and reused under it. The kernel
+    wrappers count their launches in Python, which a replay never runs:
+    the counts the capture added are taken back and added again on
+    every replay."""
+
+    def __init__(self, fn, inputs, keep, device, warm=True):
+        global CAPTURES
+        counters = _launch_counters()
+        self.inputs, self.keep = inputs, keep
+        if warm:
+            GRAPHS.warm(fn, device)
+        before = [getattr(m, n) for m, n in counters]
+        self.graph, self.outputs = GRAPHS.capture(fn, device)
         self.counts = []
         for (m, n), b in zip(counters, before):
             if getattr(m, n) != b:
@@ -369,7 +403,7 @@ def _render_fused(prepared: PreparedScene, bounces: int, fudge: float,
     counterpart of the JAX package's jitted `_render_fused`); op by op
     without `program` and on the CPU. The images are the frame's own
     tensors, never the graph's memory."""
-    if not program or prepared.soa.device.type != "cuda":
+    if not program or not GRAPHS.captures(prepared.soa.device):
         return _fused_frame(prepared, bounces, fudge)
 
     def build():
@@ -421,7 +455,7 @@ def _render_padded(owner, bounces: int, fudge: float, chunk: int,
     n = soa.width * soa.height
     n_pad = _ceil_to(n, chunk)
     bo = block_order_tensors(soa.width, soa.height, n_pad, soa.device)
-    if not program or soa.device.type != "cuda":
+    if not program or not GRAPHS.captures(soa.device):
         rows = torch.cat([
             _chunk(soa, bo.pxy[:, s:s + chunk], bounces, fudge, tc)
             for s in range(0, n_pad, chunk)])

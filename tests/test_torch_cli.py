@@ -60,6 +60,48 @@ def test_render_outputs(tmp_path):
         assert Image.open(tmp_path / name).size == (20, 20), name
 
 
+def test_width_height_override_like_jax(tmp_path):
+    """--width/--height override the scene camera's resolution after
+    loading: the port writes 32x18 JPEGs from the 20x20 triangle scene,
+    as the JAX CLI does with the same flags."""
+    from PIL import Image
+
+    outs = {}
+    for name, extra in (("cutrace_tpu_torch", ["--device", "cpu"]),
+                        ("cutrace_tpu", ["--platform", "cpu"])):
+        out = tmp_path / name
+        proc = subprocess.run(
+            [sys.executable, "-m", name, "scenes/triangle.json", "--out",
+             str(out), "--width", "32", "--height", "18", "--bounces", "1",
+             *extra],
+            capture_output=True, text=True, cwd=REPO, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        outs[name] = {jpg: Image.open(out / jpg).size for jpg in (
+            "frame.jpg", "depth_map.jpg", "normal_map.jpg")}
+    assert outs["cutrace_tpu_torch"] == outs["cutrace_tpu"]
+    assert set(outs["cutrace_tpu_torch"].values()) == {(32, 18)}
+
+
+def test_strict_rejects_legacy_aliases_like_jax(capsys, tmp_path):
+    """--strict loads without the legacy aliases ("model", "position"):
+    bunny_small.json fails with the JAX CLI's exit code and schema dump;
+    without it the scene still loads and renders."""
+    from cutrace_tpu import cli as jcli
+
+    scene = str(REPO / "scenes" / "bunny_small.json")
+    rc = cli.main([scene, "--strict", "--device", "cpu", "--out",
+                   str(tmp_path)])
+    port = capsys.readouterr().out
+    want_rc = jcli.main([scene, "--strict", "--out", str(tmp_path)])
+    want = capsys.readouterr().out
+    assert rc == want_rc == 254
+    assert port == want and "Schema for scene files:" in port
+    assert not (tmp_path / "frame.jpg").exists()
+    assert cli.main([scene, "--device", "cpu", "--width", "8", "--height",
+                     "8", "--bounces", "1", "--out", str(tmp_path)]) == 0
+    assert (tmp_path / "frame.jpg").exists()
+
+
 def test_port_never_loads_jax():
     """Importing the port (its parallel package too), rendering with it
     (fused, pallas, timed_render, and over a one-rank mesh) and taking one

@@ -268,7 +268,7 @@ def _free_port():
 # with a "pallas" partition per shard
 TORCHRUN_ARGS = ("scenes/mirror.json", "--width", "32", "--height", "16",
                  "--bounces", "2", "--prims", "2", "--accel", "pallas",
-                 "--device", "cpu", "--reps", "1")
+                 "--device", "cpu", "--reps", "1", "--steps", "2")
 
 
 @pytest.fixture(scope="module")
@@ -554,13 +554,17 @@ def test_torchrun_entry_point(runs):
     """`torchrun -m cutrace_tpu_torch.parallel.multihost` with two CPU
     ranks (initialize from torchrun's environment) on a (1, 2) mesh of the
     mirror scene with a "pallas" partition per shard: the image equals
-    one rank's render in every pixel."""
+    one rank's render in every pixel, and its --steps fit runs op by op
+    (gloo, prim shards) with finite losses."""
     import json
 
     row = json.loads(runs["torchrun"].strip().splitlines()[-1])
     assert row["mesh"] == [1, 2] and row["backend"] == "gloo"
     assert row["device"] == "cpu" and len(row["frame_ms"]) == 2
     assert row["pixels_differ"] == 0
+    # --steps: a fit over the prim-sharded gloo mesh, op by op by rule
+    assert len(row["fit_losses"]) == 2 and row["step_program"] is False
+    assert all(np.isfinite(row["fit_losses"]))
 
 
 def _stack(rng, k, r, ties):

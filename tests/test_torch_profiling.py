@@ -75,3 +75,35 @@ def test_device_trace_summary_of_a_cpu_render(scenes_dir, tmp_path):
     assert ms == sorted(ms, reverse=True) and ms[0] > 0.0
     assert all(isinstance(r[2], int) and r[2] >= 1 for r in rows)
     assert TP.summarize_trace(str(tmp_path / "none")) == []
+
+
+def test_trace_summary_counts_launches_and_syncs():
+    """perf_probe.trace_summary of a synthetic chrome trace: the device's
+    busy time over the union of its activities, the idle share, graph
+    and kernel launches and the synchronizing runtime calls."""
+    from cutrace_tpu_torch import perf_probe
+
+    def x(cat, name, ts, dur, tid=1):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "tid": tid}
+
+    events = [
+        x("cuda_runtime", "cudaGraphLaunch", 0.0, 5.0),
+        x("cuda_runtime", "cudaLaunchKernel", 6.0, 2.0),
+        x("cuda_runtime", "cudaLaunchKernel", 9.0, 2.0),
+        x("cuda_runtime", "cudaStreamSynchronize", 12.0, 1.0),
+        x("cuda_runtime", "cudaDeviceSynchronize", 40.0, 1.0),
+        x("kernel", "cluster_cast_kernel", 10.0, 10.0),
+        x("kernel", "k", 15.0, 10.0),  # overlaps the first
+        x("gpu_memcpy", "Memcpy DtoD", 30.0, 5.0),
+        x("cpu_op", "aten::clone", 1.0, 4.0),
+        x("cpu_op", "aten::copy_", 2.0, 1.0),  # nested in the clone
+    ]
+    s = perf_probe.trace_summary(events, [], wall_ms=0.05)
+    assert s["device_busy_ms"] == pytest.approx(0.020)
+    assert s["device_idle_share"] == pytest.approx(0.6)
+    assert (s["gaps"], s["gaps_ms"]) == (1, pytest.approx(0.005))
+    assert s["cudaGraphLaunch"] == 1 and s["cudaLaunchKernel"] == 2
+    assert s["syncs"] == 2
+    assert (s["host_ops"], s["host_ops_nested"]) == (1, 2)
+    assert s["k4"] == [1, pytest.approx(0.010)]

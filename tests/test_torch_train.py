@@ -131,3 +131,179 @@ def test_train_step_filter(scenes_dir):
     for k, v in params.items():
         changed = not torch.equal(v.detach(), before[k])
         assert changed == (k in ("mat_color", "ambient")), k
+
+
+# --- the step program --------------------------------------------------------
+
+
+class _StandInGraph:
+    """A stand-in for a torch.cuda.CUDAGraph on the CPU: replay reruns the
+    captured function and copies its results into the tensors the capture
+    returned. The capture ran the function once where a real one records
+    it, so the first replay keeps that run's results (the real first
+    replay's update) and reruns nothing."""
+
+    def __init__(self, fn, outputs, log):
+        self.fn, self.outputs, self.log = fn, outputs, log
+        self.fresh = True
+
+    def replay(self):
+        self.log.append("replay")
+        if self.fresh:
+            self.fresh = False
+            return
+        for out, new in zip(self.outputs, self.fn()):
+            out.copy_(new)
+
+
+class _StandInGraphs:
+    """renderer.GRAPHS with programs on the CPU: the warm-up runs fn in
+    place, a capture returns a _StandInGraph. `log` records the calls."""
+
+    def __init__(self):
+        self.log = []
+
+    def captures(self, device):
+        return True
+
+    def warm(self, fn, device):
+        self.log.append("eager")
+        return fn()
+
+    def capture(self, fn, device):
+        self.log.append("capture")
+        outputs = fn()
+        return _StandInGraph(fn, outputs, self.log), outputs
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    from cutrace_tpu_torch.render import renderer
+
+    graphs = _StandInGraphs()
+    monkeypatch.setattr(renderer, "GRAPHS", graphs)
+    return graphs
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_fit_program_equals_eager_bit_for_bit(scenes_dir, stand_in):
+    """fit through the step program (the stand-in graph on the CPU) takes
+    the same updates as the op-by-op fit, bit for bit: the first step is
+    the eager call, the second is captured and replayed once, the rest
+    replayed, with no second update at the capture and no loss aliased
+    to the graph's."""
+    _, ts, target = _setup(scenes_dir, "mirror.json", 16, 9, bounces=2)
+    kw = dict(steps=5, lr=5e-2, bounces=2, param_filter=("mat_color",),
+              accel="fused", device="cpu")
+    target = torch.from_numpy(target)
+    p_eager, l_eager = ttrain.fit(ts, target, program=False, **kw)
+    assert stand_in.log == []
+    p_prog, l_prog = ttrain.fit(ts, target, **kw)
+    assert stand_in.log == ["eager", "capture"] + ["replay"] * 4
+    assert len(set(l_prog)) == 5
+    assert np.array_equal(np.float32(l_prog).view(np.int32),
+                          np.float32(l_eager).view(np.int32))
+    for k in p_eager:
+        assert torch.equal(_bits(p_prog[k]), _bits(p_eager[k])), k
+
+
+def test_step_program_new_objects_new_program(scenes_dir, stand_in):
+    """A step object called with a second set of parameters starts a new
+    program from an eager call; every call applies exactly one update
+    (the op-by-op step on copies gives the same bits after each call)."""
+    from cutrace_tpu_torch.render import renderer
+
+    _, ts, target = _setup(scenes_dir, "triangle.json", 8, 8)
+    target = torch.from_numpy(target)
+
+    def params_pair():
+        base = tgrad.extract_params(ts)
+        return [{k: v.detach().clone().requires_grad_()
+                 for k, v in base.items()} for _ in range(2)]
+
+    def step_of(pair, program):
+        opt = torch.optim.Adam([{"params": list(p.values())} for p in pair],
+                               lr=1e-2, eps=1e-8)
+        return ttrain.make_train_step(opt, bounces=1, accel=None,
+                                      param_filter=("mat_color", "ambient"),
+                                      program=program)
+
+    prog_pair, ref_pair = params_pair(), params_pair()
+    prog, ref = step_of(prog_pair, True), step_of(ref_pair, False)
+    captures = renderer.CAPTURES
+    for i, which in enumerate((0, 0, 0, 1, 1, 1, 0)):
+        before = {k: v.detach().clone() for k, v in prog_pair[which].items()}
+        got = prog(prog_pair[which], ts, target)
+        want = ref(ref_pair[which], ts, target)
+        assert torch.equal(_bits(got), _bits(want)), i
+        for k, v in prog_pair[which].items():
+            assert torch.equal(_bits(v.detach()),
+                               _bits(ref_pair[which][k].detach())), (i, k)
+            assert (torch.equal(v.detach(), before[k])
+                    == (k not in ("mat_color", "ambient"))), (i, k)
+    assert stand_in.log == (["eager", "capture", "replay", "replay"]
+                            + ["eager", "capture", "replay", "replay"]
+                            + ["eager"])
+    assert renderer.CAPTURES == captures + 2
+
+
+def test_step_program_rule_on_the_cpu_and_a_mocked_card(scenes_dir,
+                                                        monkeypatch):
+    """On the CPU make_train_step(program=True) runs op by op (nothing
+    captured, the same bits as program=False); on a mocked CUDA device a
+    non-capturable optimizer is refused when a program is asked for."""
+    from cutrace_tpu_torch.render import renderer
+
+    _, ts, target = _setup(scenes_dir, "triangle.json", 8, 8)
+    target = torch.from_numpy(target)
+    out = []
+    for program in (True, False):
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in tgrad.extract_params(ts).items()}
+        opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+        step = ttrain.make_train_step(opt, bounces=1, program=program)
+        captures = renderer.CAPTURES
+        out.append([_bits(step(params, ts, target)) for _ in range(2)]
+                   + [_bits(params["mat_color"].detach())])
+        assert renderer.CAPTURES == captures
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+    monkeypatch.setattr(ttrain, "_optimizer_device",
+                        lambda opt: torch.device("cuda"))
+    params = [torch.zeros(3, requires_grad=True)]
+    with pytest.raises(ValueError, match="capturable=True"):
+        ttrain.make_train_step(torch.optim.Adam(params, lr=1e-2))
+    ttrain.make_train_step(torch.optim.Adam(params, lr=1e-2), program=False)
+    ttrain.make_train_step(torch.optim.Adam(params, lr=1e-2,
+                                            capturable=True))
+
+
+@pytest.mark.parametrize("camera,accel", [
+    ("raw", "fused"), ("raw", "pallas"), ("raw", "none"),
+    ("look_at", "fused")])
+@pytest.mark.parametrize("scene", ["bunny.json", "mirror.json"])
+def test_warm_step_makes_no_host_tensor(scenes_dir, monkeypatch, scene,
+                                        camera, accel):
+    """A warm training step (camera rays, the kernels' tables, the forward
+    with codes and the replay backward through their plain versions, the
+    composable culling or brute-force pipeline under autograd, the look-at
+    camera, the cotangents' routing and Adam's update) makes no tensor
+    from host data: the CPU's stand-in for "capturable as a CUDA graph"."""
+    from cutrace_tpu_torch.render.renderer import prepare
+    from test_torch_render import _no_host_tensors
+
+    _, ts, target = _setup(scenes_dir, scene, 16, 9, bounces=2)
+    target = torch.from_numpy(target)
+    acc = prepare(ts, accel=accel).accel
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in tgrad.extract_params(ts, camera=camera).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2, eps=1e-8)
+    step = ttrain.make_train_step(opt, bounces=2, accel=acc)
+    warm = step(params, ts, target)
+    with monkeypatch.context() as mp:
+        _no_host_tensors(mp)
+        again = step(params, ts, target)
+    assert torch.isfinite(warm) and torch.isfinite(again)
