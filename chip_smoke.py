@@ -136,8 +136,17 @@ line) if any phase fails:
              state as above
  19. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
              rank over NCCL (multihost.initialize, make_mesh(1, 1)):
-             render_sharded of bunny 1920x1080 b5 bit-identical to render,
-             K1 launched; fit(mesh=...) 3 steps at the train phase's
+             render_sharded of bunny 1920x1080 b5 (a ShardedScene) through
+             one captured program (K1 and the image's all-gather inside),
+             bit-identical to render and to render_sharded_eager, with
+             their launches (K1 once a frame) and no sync in a replay
+             (sync debug mode "error"), timed eager, program, program,
+             eager; the prims route's chunk (sharded_tri_candidates over
+             the world-1 mesh: K4 on the one shard, the candidates' two
+             all-gathers, the combine) over bunny 480x270 b5 "pallas" as
+             a captured chunk program (renderer._chunk_rows), bit-identical
+             to its eager loop with equal launches, K4 launched, no sync
+             in a replay; fit(mesh=...) 3 steps at the train phase's
              settings through one step program (its all-reduce
              captured), losses within 1e-6 relative of the one-device
              fit, K1 with codes and K2 launched. (b) two ranks on the one card
@@ -153,7 +162,8 @@ line) if any phase fails:
              (1, 2) gradient step there with accel="pallas" (K4 on each
              shard under autograd) within the vjp gate of the one-device
              culling-cast step. Each rank's launch counts are reset
-             before each run and must grow.
+             before each run and must grow; no render_sharded over gloo
+             captures a program (renderer.CAPTURES unchanged).
              The sharded frames' CUDA-event times beside render's
  20. result  a JSON line of per-kernel numbers (each with its launches
              in one replayed step of each step-program case), then the
@@ -2121,6 +2131,7 @@ def multi_rank(rank, port, out_dir, root):
     def sharded(label, prepared, mesh, count):
         ref = render(prepared, bounces=5)
         ready = sh.prepare_sharded(prepared, mesh)
+        captures = renderer.CAPTURES
         reset_launches(fused, rv, pc)
         out = sh.render_sharded(ready, mesh, bounces=5)
         torch.cuda.synchronize()
@@ -2128,6 +2139,9 @@ def multi_rank(rank, port, out_dir, root):
         if counts[count] < 1:
             raise AssertionError(f"rank {rank} {label}: {count} not "
                                  f"launched: {counts}")
+        if renderer.CAPTURES != captures:
+            raise AssertionError(f"rank {rank} {label}: render_sharded "
+                                 f"over gloo captured a program")
         res[label] = {"launches": counts, "diff": image_diff(ref, out)}
         return ref, out, ready
 
@@ -2139,8 +2153,12 @@ def multi_rank(rank, port, out_dir, root):
     main = bunny(1920, 1080, "fused")
     _, _, ready = sharded("k1", main, mesh21, "fused_forward")
     dist.barrier()
+    captures = renderer.CAPTURES
     res["k1"]["ms"] = cuda_ms(
         lambda: sh.render_sharded(ready, mesh21, bounces=5), 3)
+    if renderer.CAPTURES != captures:
+        raise AssertionError(f"rank {rank}: render_sharded over gloo "
+                             f"captured a program")
     res["k1"]["render_ms"] = cuda_ms(lambda: render(main, bounces=5), 3)
     sc, _ = bigscene.subdivided_bunny(2, 480, 270)
     sharded("k3", prepare(sc, accel="fused", device=dev, bounces=5),
@@ -2210,6 +2228,121 @@ def multi_rank(rank, port, out_dir, root):
     dist.destroy_process_group()
 
 
+def sharded_program_case(m, sh, prepared, mesh, rec):
+    """render_sharded's program at world 1 over NCCL (bunny 1080p b5,
+    "fused": K1 and the image's all-gather in one graph) against
+    render_sharded_eager and render: one capture for the ShardedScene,
+    every bit equal, equal launches (K1 once), no sync in a replay; then
+    CUDA-event times in turns eager, program, program, eager."""
+    ready = sh.prepare_sharded(prepared, mesh)
+    ref = m.render(prepared, bounces=5)
+    m.reset()
+    eager = sh.render_sharded_eager(ready, mesh, bounces=5)
+    torch.cuda.synchronize()
+    want = m.read()
+    captures = m.renderer.CAPTURES
+    t0 = time.perf_counter()
+    first = sh.render_sharded(ready, mesh, bounces=5)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    m.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sh.render_sharded(ready, mesh, bounces=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = m.read()
+    if m.renderer.CAPTURES != captures + 1:
+        raise AssertionError(f"render_sharded over NCCL: "
+                             f"{m.renderer.CAPTURES - captures} captures, "
+                             f"not one")
+    for label, other in (("render_sharded_eager", eager), ("render", ref),
+                         ("the first program frame", first)):
+        bad = frames_differ(got, other)
+        if bad:
+            raise AssertionError(f"render_sharded's program differs from "
+                                 f"{label} in " + ", ".join(bad))
+    if counts != want or counts["fused_forward"] != 1:
+        raise AssertionError(f"render_sharded launches {counts} a program "
+                             f"frame, {want} an eager one")
+    prog = lambda: sh.render_sharded(ready, mesh, bounces=5)  # noqa: E731
+    eag = lambda: sh.render_sharded_eager(  # noqa: E731
+        ready, mesh, bounces=5)
+    turns = {"eager_ms": [cuda_ms(eag, 5)], "program_ms": [cuda_ms(prog, 5)]}
+    turns["program_ms"].append(cuda_ms(prog, 5))
+    turns["eager_ms"].append(cuda_ms(eag, 5))
+    rec["multi_world1_ms"] = float(np.mean(turns["program_ms"]))
+    rec["multi_render_ms"] = cuda_ms(lambda: m.render(prepared, bounces=5),
+                                     5)
+    rec["multi_program"] = {"launches": nonzero(counts), "turns": turns,
+                            "first_call_ms": first_ms}
+    return {"eager": nonzero(want), "first_call_ms": first_ms}
+
+
+def prims_chunk_case(m, sh, mesh, rec):
+    """The prims route's composable chunk as a captured program at world
+    1 over NCCL: bunny 480x270 b5 "pallas", its chunks rendered by
+    renderer._chunk_rows with sharded_tri_candidates over the mesh's one
+    shard (K4, the candidates' two all-gathers over the prims group and
+    the combine inside each chunk's graph), against the same chunks op by
+    op: one capture, every bit equal, equal launches with K4 among them,
+    no sync in a replay; the frame's buffers against render's, printed."""
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 480, 270
+    pallas = m.prepare(sc, accel="pallas", device=mesh.device, bounces=5)
+    ready = sh.prepare_sharded(pallas, mesh)
+    soa = ready.soa
+
+    def parts(scene):
+        return scene.soa, sh.sharded_tri_candidates(
+            scene.mesh, scene.soa.tri_p1.shape[0], scene.accel,
+            scene.tables)
+
+    chunk = m.renderer.default_chunk(soa, 5, lights=False)
+    n_pad = -(-soa.width * soa.height // chunk) * chunk
+    bo = m.renderer.block_order_tensors(soa.width, soa.height, n_pad,
+                                        mesh.device)
+
+    def rows(program):
+        with torch.no_grad():
+            return m.renderer._chunk_rows(ready, parts, bo.pxy, 5, 1e-3,
+                                          chunk, program)
+
+    m.reset()
+    eager = rows(False)
+    torch.cuda.synchronize()
+    want = m.read()
+    captures = m.renderer.CAPTURES
+    rows(True)
+    torch.cuda.synchronize()
+    m.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rows(True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = m.read()
+    if m.renderer.CAPTURES != captures + 1:
+        raise AssertionError("the prims chunk did not run through one "
+                             "captured program")
+    if not bits_equal(got, eager):
+        raise AssertionError("the prims chunk program differs from its "
+                             "eager loop")
+    if counts != want or counts["cluster_cast"] < 1:
+        raise AssertionError(f"prims chunk launches {counts} as programs, "
+                             f"{want} op by op")
+    frame = m.renderer._unpack(soa, bo.inverse, got)
+    differ = frames_differ(frame, m.render(pallas, bounces=5))
+    rec["multi_prims"] = {
+        "launches": nonzero(counts), "chunks": n_pad // chunk,
+        "chunk": chunk, "differ_render": differ,
+        "eager_ms": cuda_ms(lambda: rows(False), 1),
+        "program_ms": cuda_ms(lambda: rows(True), 3)}
+    return dict(rec["multi_prims"], differ_render=len(differ))
+
+
 def phase_multi(m, main_prepared, root, smi, rec, launches):
     """(a) one NCCL rank in this process; (b) two gloo ranks spawned on
     the same card (multi_rank), joined within MULTI_DEADLINE_S."""
@@ -2226,23 +2359,8 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
         if dist.get_backend() != "nccl":
             raise AssertionError(f"backend {dist.get_backend()}")
         mesh = sh.make_mesh(1, 1, device=dev)
-        ref = m.render(main_prepared, bounces=5)
-        m.reset()
-        out = sh.render_sharded(main_prepared, mesh, bounces=5)
-        torch.cuda.synchronize()
-        launches["multi"] = m.read()
-        if launches["multi"]["fused_forward"] < 1:
-            raise AssertionError(f"render_sharded launches "
-                                 f"{launches['multi']}")
-        n_diff, worst = image_diff(ref, out)
-        if n_diff:
-            raise AssertionError(f"render_sharded at world 1: {n_diff} "
-                                 f"pixels differ from render (max "
-                                 f"{worst:.3e})")
-        rec["multi_world1_ms"] = cuda_ms(
-            lambda: sh.render_sharded(main_prepared, mesh, bounces=5), 5)
-        rec["multi_render_ms"] = cuda_ms(
-            lambda: m.render(main_prepared, bounces=5), 5)
+        sharded = sharded_program_case(m, sh, main_prepared, mesh, rec)
+        prims = prims_chunk_case(m, sh, mesh, rec)
         soa, accel = main_prepared.soa, main_prepared.accel
         target, start = fit_start(soa, accel, m.tgrad)
         kw = dict(steps=3, lr=5e-2, bounces=5, param_filter=("mat_color",),
@@ -2265,10 +2383,19 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
             raise AssertionError(f"fit(mesh=...) losses {losses} against "
                                  f"{ref_losses}")
     finally:
+        m.renderer.drop_programs()
         dist.destroy_process_group()
+    launches["multi"] = rec["multi_program"]["launches"]
     phase("multi", f"(a) NCCL, world 1, mesh (1, 1): render_sharded bunny "
-          f"1920x1080 b5 bit-identical to render, launches "
-          f"{launches['multi']}; fit(mesh=...) 3 steps through the step "
+          f"1920x1080 b5 through one captured program, bit-identical to "
+          f"render and to render_sharded_eager, launches "
+          f"{launches['multi']} a frame (eager {sharded['eager']}), no sync "
+          f"in a replay; first call {sharded['first_call_ms']:.1f} ms; the "
+          f"prims route's chunk program (sharded_tri_candidates, world 1) "
+          f"over bunny 480x270 b5 pallas, {prims['chunks']} chunks of "
+          f"{prims['chunk']}: bit-identical to its eager loop, launches "
+          f"{prims['launches']}, {prims['differ_render']} buffers differ "
+          f"from render; fit(mesh=...) 3 steps through the step "
           f"program (its all-reduce captured): losses "
           + " ".join(f"{x:.8f}" for x in losses) + " against "
           + " ".join(f"{x:.8f}" for x in ref_losses)
@@ -2338,6 +2465,7 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
               f"cast step, max relative error {res['grad12']['err']:.2e}; "
               f"launches {res['grad12']['launches']}")
     rec["multi_world2_ms"] = max(res["k1"]["ms"] for res in ranks)
+    turns = rec["multi_program"]["turns"]
     rec["multi_world2_render_ms"] = max(res["k1"]["render_ms"]
                                         for res in ranks)
     rec["multi_grad_err"] = max(res[k]["err"] for res in ranks
@@ -2345,7 +2473,12 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
     phase("multi", f"bunny 1920x1080 b5 frame by CUDA events (mean of 5; "
           f"3 on each of the two ranks, the larger): render "
           f"{rec['multi_render_ms']:.3f} ms, render_sharded world 1 (NCCL) "
-          f"{rec['multi_world1_ms']:.3f} ms; two gloo ranks sharing the "
+          f"program {turns['program_ms'][0]:.3f} / "
+          f"{turns['program_ms'][1]:.3f} ms, render_sharded_eager "
+          f"{turns['eager_ms'][0]:.3f} / {turns['eager_ms'][1]:.3f} ms "
+          f"(turns eager, program, program, eager); the prims chunk "
+          f"frame program {rec['multi_prims']['program_ms']:.3f} ms, eager "
+          f"{rec['multi_prims']['eager_ms']:.3f} ms; two gloo ranks sharing the "
           f"card: render_sharded {rec['multi_world2_ms']:.3f} ms, render "
           f"{rec['multi_world2_render_ms']:.3f} ms; overhead, not scaling "
           f"({smi})")
@@ -2687,6 +2820,13 @@ def main(argv=None) -> int:
                 "bound_ms_admitted": bounds["bound_admitted"][0],
                 "bound_by_admitted": bounds["bound_admitted"][1],
                 "library_ms": None, "step_program_launches": in_steps,
+                "sharded_program_launches": {
+                    case: r["launches"][name]
+                    for case, r in (("world1_fused_1080p",
+                                     rec["multi_program"]),
+                                    ("world1_prims_chunks_480x270",
+                                     rec["multi_prims"]))
+                    if name in r["launches"]},
                 **extra}
 
     frame = rec["cast_frame"]
@@ -2774,6 +2914,8 @@ def main(argv=None) -> int:
         "step_program": rec["step_program"],
         "multi": {"render_ms": rec["multi_render_ms"],
                   "sharded_world1_nccl_ms": rec["multi_world1_ms"],
+                  "sharded_world1_program": rec["multi_program"],
+                  "prims_chunk_world1": rec["multi_prims"],
                   "sharded_world2_gloo_ms": rec["multi_world2_ms"],
                   "render_beside_world2_ms": rec["multi_world2_render_ms"],
                   "grad_err": rec["multi_grad_err"],

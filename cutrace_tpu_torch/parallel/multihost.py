@@ -8,26 +8,34 @@ tile assignment is a function of the rank alone and the shard combine is a
 (t, order) minimum, so the image is bit-identical to one process's.
 
 Run as a module under torchrun it renders a scene over every rank and
-rank 0 prints one JSON line (every rank's frame time and the time it took
-to prepare its shard, one rank's render of the same frame, the pixels in
-which they differ):
+rank 0 prints one JSON line: every rank's frame time as the program
+(render_sharded) and op by op (render_sharded_eager), timed in turns in
+the same run, the programs captured, the time it took to prepare its
+shard, one rank's render of the same frame, and the pixels in which they
+differ:
 
     torchrun --nproc_per_node 4 -m cutrace_tpu_torch.parallel.multihost \
         scenes/bunny.json [--prims 2] [--accel pallas] [--device cpu] \
-        [--steps N]
+        [--steps N] [--subdivide LEVELS]
 
-one rank a card over NCCL, or with --device cpu over gloo. With --steps
-it then fits the scene's material colors, perturbed by seeded noise, to
-that image over the mesh (train.fit(mesh=...)): on an NCCL tiles-only
-mesh through the step program (one captured CUDA graph a step, its
-all-reduce inside), elsewhere op by op; the line adds the fit's losses
-and its wall seconds (its setup included).
+one rank a card over NCCL, or with --device cpu over gloo (where both
+run op by op). With --steps it then fits the scene's material colors,
+perturbed by seeded noise, to that image over the mesh
+(train.fit(mesh=...)): over NCCL through the step program (one captured
+CUDA graph a step, its collectives inside), over gloo op by op, in turns
+with the same fit op by op (program=False) from the same start: op by
+op, program, op by op; the line adds the fits' losses, wall seconds
+(their setup included) and kernel launches. --subdivide splits every
+triangle of the scene's meshes into four, LEVELS times (the big scenes
+of cutrace_tpu_torch.bigscene: bunny.json at 4 levels holds 256k
+triangles, at 5 levels 1M).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import sys
 import time
@@ -109,10 +117,38 @@ def _frame_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _launches(fn):
+    """(fn(), the kernel launches it made): every wrapper's launch count
+    set to 0 just before it (a program adds its capture's on every
+    replay), those above 0 after it, keyed "module.COUNTER"."""
+    from cutrace_tpu_torch.render import renderer
+
+    counters = renderer._launch_counters()
+    for m, n in counters:
+        setattr(m, n, 0)
+    out = fn()
+    return out, {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n)
+                 for m, n in counters if getattr(m, n)}
+
+
+def _pixels_differ(a, b) -> int:
+    """Pixels in which two (color, depth, normal) frames differ in any
+    value (+inf equal to +inf)."""
+    differ = 0
+    for x, y in zip(a, b):
+        same = (x == y) | (torch.isinf(x) & torch.isinf(y))
+        differ += int((~same.reshape(x.shape[0], x.shape[1], -1)
+                       .all(-1)).sum())
+    return differ
+
+
 def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
     """fit(mesh=...) of mat_color, perturbed by default_rng(7) noise, to
-    `image` for args.steps Adam steps (lr 5e-2): its losses, seconds, and
-    whether its steps ran as the step program."""
+    `image` for args.steps Adam steps (lr 5e-2), in turns op by op,
+    through the step program where step_is_captured, op by op (the first
+    fit also pays each process's first-use costs): their losses, seconds
+    and kernel launches, and whether the second ran as the step
+    program."""
     from cutrace_tpu_torch.parallel import train
 
     soa = prepared.soa
@@ -120,13 +156,23 @@ def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
     noise = np.random.default_rng(7).normal(0.0, 0.15, color.shape)
     start = dataclasses.replace(soa, mat_color=torch.from_numpy(
         np.clip(color + noise, 0.0, 1.0).astype(np.float32)).to(soa.device))
-    sh.barrier(mesh)
-    t0 = time.perf_counter()
-    _, losses = train.fit(start, image, steps=args.steps, lr=5e-2,
-                          bounces=args.bounces, param_filter=("mat_color",),
-                          accel=args.accel, mesh=mesh)
-    return {"fit_losses": losses, "fit_s": time.perf_counter() - t0,
-            "step_program": train.step_is_captured(mesh.device, mesh)}
+    out = {"step_program": train.step_is_captured(mesh.device, mesh),
+           "fit_eager_s": []}
+    for program in (False, True, False):
+        sh.barrier(mesh)
+        t0 = time.perf_counter()
+        (_, losses), counts = _launches(lambda: train.fit(
+            start, image, steps=args.steps, lr=5e-2, bounces=args.bounces,
+            param_filter=("mat_color",), accel=args.accel, mesh=mesh,
+            program=program))
+        seconds = time.perf_counter() - t0
+        out[f"fit{'' if program else '_eager'}_launches"] = counts
+        if program:
+            out.update(fit_losses=losses, fit_s=seconds)
+        else:
+            out.update(fit_eager_losses=losses)
+            out["fit_eager_s"].append(seconds)
+    return out
 
 
 def main(argv=None) -> int:
@@ -151,7 +197,12 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=0,
                     help="Adam steps of a mat_color fit to the rendered "
                          "image over the mesh (default 0: none)")
+    ap.add_argument("--subdivide", type=int, default=0, metavar="LEVELS",
+                    help="split every mesh triangle into four LEVELS times "
+                         "(default 0: the scene as loaded)")
     args = ap.parse_args(argv)
+    from cutrace_tpu_torch.scene.mesh_io import subdivide
+    from cutrace_tpu_torch.render import renderer
     from cutrace_tpu_torch.render.renderer import prepare, render
     from cutrace_tpu_torch.scene.loader import load_scene
 
@@ -163,6 +214,9 @@ def main(argv=None) -> int:
             sc.camera.width = args.width
         if args.height:
             sc.camera.height = args.height
+        for ob in sc.objects:
+            if args.subdivide and type(ob).__name__ == "Mesh":
+                ob.vertices = subdivide(ob.vertices, args.subdivide)
         prepared = prepare(sc, accel=args.accel, device=mesh.device,
                            bounces=args.bounces)
         # timed warm: the first call also makes the NCCL communicators
@@ -176,36 +230,56 @@ def main(argv=None) -> int:
         def frame():
             return sh.render_sharded(sharded, mesh, bounces=args.bounces)
 
+        def eager():
+            return sh.render_sharded_eager(sharded, mesh,
+                                           bounces=args.bounces)
+
+        captures = renderer.CAPTURES
         image = frame()
+        eager_image = eager()
         sh.barrier(mesh)
-        ms = _frame_ms(frame, args.reps, mesh.device)
-        every = sh._all_gather(torch.tensor([ms, prepare_ms],
-                                            device=mesh.device), mesh.group)
+        # in turns, program and eager, within this run: frames on several
+        # cards vary between runs
+        ms = {"program": [], "eager": []}
+        for kind, fn in (("program", frame), ("eager", eager),
+                         ("eager", eager), ("program", frame)):
+            ms[kind].append(_frame_ms(fn, args.reps, mesh.device))
+        programs = renderer.CAPTURES - captures
+        launches = {"program": _launches(frame)[1],
+                    "eager": _launches(eager)[1]}
+        every = sh._all_gather(torch.tensor(
+            [np.mean(ms["program"]), np.mean(ms["eager"]), prepare_ms],
+            device=mesh.device), mesh.group)
         trained = _fit_rows(prepared, image[0], mesh, args) if args.steps \
             else {}
         if dist.get_rank() == 0:
             one = render(prepared, bounces=args.bounces)
             one_ms = _frame_ms(lambda: render(prepared, bounces=args.bounces),
                                args.reps, mesh.device)
-            differ = 0
-            for a, b in zip(image, one):
-                same = (a == b) | (torch.isinf(a) & torch.isinf(b))
-                differ += int((~same.reshape(a.shape[0], a.shape[1], -1)
-                               .all(-1)).sum())
+            differ, eager_differ = (_pixels_differ(image, x)
+                                    for x in (one, eager_image))
             dev = mesh.device
             print(json.dumps({
                 "mesh": [mesh.n_tiles, mesh.n_prims],
                 "scene": args.scene, "width": sc.camera.width,
                 "height": sc.camera.height, "bounces": args.bounces,
+                "triangles": int(prepared.soa.tri_p1.shape[0]),
                 "accel": args.accel, "backend": dist.get_backend(),
                 "device": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
-                "frame_ms": every[:, 0].tolist(), "one_rank_ms": one_ms,
-                "prepare_sharded_ms": every[:, 1].tolist(),
-                "reps": args.reps, "pixels_differ": differ, **trained}),
+                "frame_ms": every[:, 0].tolist(),
+                "eager_ms": every[:, 1].tolist(), "programs": programs,
+                "turns_ms": ms, "frame_launches": launches,
+                "one_rank_ms": one_ms,
+                "prepare_sharded_ms": every[:, 2].tolist(),
+                "reps": args.reps, "pixels_differ": differ,
+                "eager_pixels_differ": eager_differ, **trained}),
                 flush=True)
         sh.barrier(mesh)
     finally:
+        # the programs' graphs hold NCCL collectives: free them first
+        renderer.drop_programs()
+        gc.collect()
         dist.destroy_process_group()
     return 0
 

@@ -6,11 +6,11 @@ One process per device. A `Mesh` lays the ranks out row-major as a
 JAX package:
 
   "tiles"  pixels split into one contiguous run per tile, the scene
-           replicated. The forward makes no collective call: each rank
-           renders its run (through the fused kernels when its partition
-           is "fused") and the pieces are gathered once to assemble the
-           image. Training all-reduces the gradients over the tiles group
-           (parallel.train).
+           replicated. The forward's one collective is the image's:
+           each rank renders its run (through the fused kernels when its
+           partition is "fused") and the pieces are gathered once to
+           assemble the image. Training all-reduces the gradients over
+           the tiles group (parallel.train).
   "prims"  the triangle buffer split into equal shards, padded with
            never-hit sentinels. Each rank casts its own shard, through its
            own partition (the culling cast, K4 on the card) when it has
@@ -18,9 +18,13 @@ JAX package:
            and reduced by the (t, global order) minimum, which keeps the
            reference's scene-order tie-break across shards.
 
-Collectives on CUDA tensors over a gloo group go through the host: copied
-to the CPU, exchanged, copied back (gloo's own CUDA path stages through
-host memory the same way; NCCL takes device tensors directly).
+On a CUDA device over NCCL a frame runs as captured CUDA graphs, its
+collectives inside them (render_sharded, mesh_captures), as a training
+step does (parallel.train). Collectives on CUDA tensors over a gloo group
+go through the host: copied to the CPU, exchanged, copied back (gloo's
+own CUDA path stages through host memory the same way; NCCL takes device
+tensors directly). That is a synchronization no capture holds, so gloo
+runs op by op.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch.distributed as dist
 
 from cutrace_tpu_torch.ops import bvh
 from cutrace_tpu_torch.ops import intersect as I
+from cutrace_tpu_torch.render import renderer
 from cutrace_tpu_torch.scene.soa import SceneArrays, resolve_device, soa_to
 
 TILE_AXIS = "tiles"
@@ -137,14 +142,17 @@ def _staged(x, group) -> bool:
 
 
 def _all_gather(x, group):
-    """(K, *x.shape): x of every rank of `group`, in group-rank order."""
+    """(K, *x.shape): x of every rank of `group`, in group-rank order,
+    gathered into one buffer by all_gather_into_tensor, which a CUDA
+    graph holds on an NCCL group."""
     dev = x.device
     x = x.detach().contiguous()
     if _staged(x, group):
         x = x.cpu()
-    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, x, group=group)
-    return torch.stack(out).to(dev)
+    k = dist.get_world_size(group)
+    out = x.new_empty((k * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.view((k,) + tuple(x.shape)).to(dev)
 
 
 def all_reduce_sum(x, group):
@@ -358,41 +366,63 @@ def sharded_tri_candidates(mesh: Mesh, t_local: int, accel_local=None,
 # --- rendering ---------------------------------------------------------------
 
 
+def _nccl(group) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
+def mesh_captures(mesh: Mesh) -> bool:
+    """Do render_sharded and parallel.train.make_train_step run over
+    `mesh` as captured programs? On a CUDA device (renderer.GRAPHS) whose
+    every process group of the mesh is NCCL's: NCCL's collectives take
+    device tensors on the stream, so a CUDA graph holds them (the
+    communicators are made by the eager run before each capture). Not on
+    the CPU, and not over gloo, whose collectives of CUDA tensors go
+    through the host (_staged), a synchronization that no capture
+    holds."""
+    if not renderer.GRAPHS.captures(mesh.device):
+        return False
+    return all(_nccl(g) for g in (mesh.group, mesh.tiles_group,
+                                  mesh.prims_group) if g is not None)
+
+
+def _rank_query(soa: SceneArrays, mesh: Mesh, accel, tables):
+    """The rank's ray_cast triangle query: with PRIM_AXIS > 1 the sharded
+    query over its shard (sharded_tri_candidates), else its partition's
+    (bvh.candidates_fn; brute force without one)."""
+    if mesh.n_prims > 1:
+        return sharded_tri_candidates(mesh, soa.tri_p1.shape[0], accel,
+                                      tables)
+    return bvh.candidates_fn(accel, tables)
+
+
 def render_pixels_sharded(soa: SceneArrays, mesh: Mesh, idx, bounces: int,
-                          fudge, accel=None, tables=None, chunk=None):
+                          fudge, accel=None, tables=None):
     """Render this rank's flat pixel indices `idx` ((R,) on the mesh's
-    device) of the scene as the rank holds it (shard_scene): (color (R,3),
-    depth (R,), normal (R,3)).
+    device) of the scene as the rank holds it (shard_scene), in one
+    batch: (color (R,3), depth (R,), normal (R,3)). The training loss's
+    forward (parallel.train.sharded_loss).
 
     On a tiles-only mesh a "fused" partition inside the kernels' scope
     runs ops.fused.fused_render_rays on the rank's rays (K1 or K3 on the
-    card), with no collective; otherwise the composable pipeline runs in
-    batches of `chunk` rays (one batch when None) with the partition's
-    query, or, with PRIM_AXIS > 1, the sharded query over this rank's
-    partition `accel` (its local orders; `tables` its culling-cast
-    tables) or brute force."""
+    card), with no collective; otherwise the composable pipeline with the
+    rank's triangle query (_rank_query: with PRIM_AXIS > 1 its partition
+    `accel`, local orders, and `tables` its culling-cast tables)."""
     from cutrace_tpu_torch.ops import fused
-    from cutrace_tpu_torch.render.renderer import (camera_rays,
-                                                   render_chunks)
 
-    o, d = camera_rays(soa, idx % soa.width, idx // soa.width)
+    o, d = renderer.camera_rays(soa, idx % soa.width, idx // soa.width)
     if mesh.n_prims == 1 and fused.fused_supported(soa, accel, bounces):
         return fused.fused_render_rays(soa, accel, o, d, fudge, bounces,
                                        tables=tables)
-    if mesh.n_prims > 1:
-        tc = sharded_tri_candidates(mesh, soa.tri_p1.shape[0], accel,
-                                    tables)
-    else:
-        tc = bvh.candidates_fn(accel, tables)
-    return render_chunks(soa, o, d, bounces, fudge, tc,
-                         o.shape[0] if chunk is None else chunk)
+    return renderer.render_rays(soa, o, d, bounces, fudge,
+                                _rank_query(soa, mesh, accel, tables))
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardedScene:
     """A scene as one rank of `mesh` holds it (prepare_sharded): its
     triangle shard, that shard's partition (local orders) and the culling
-    cast's tables, built once for every frame."""
+    cast's tables, built once for every frame. render_sharded's programs
+    are cached on its identity."""
 
     soa: SceneArrays
     mesh: Mesh
@@ -406,10 +436,8 @@ def prepare_sharded(scene, mesh: Mesh) -> ShardedScene:
     > 1 and a partition, the partition rebuilt over the rank's shard
     (shard_accel) and its culling-cast tables. Every rank of the prims
     group calls it together (shard_accel's all-gather)."""
-    from cutrace_tpu_torch.render.renderer import PreparedScene
-
     accel = tables = None
-    if isinstance(scene, PreparedScene):
+    if isinstance(scene, renderer.PreparedScene):
         accel, tables, scene = scene.accel, scene.tables, scene.soa
     if scene.device != mesh.device:
         scene, tables = soa_to(scene, mesh.device), None
@@ -421,6 +449,75 @@ def prepare_sharded(scene, mesh: Mesh) -> ShardedScene:
         tables = (None if accel.kind == "clusters"
                   else cluster_tables(soa, accel))
     return ShardedScene(soa, mesh, accel, tables)
+
+
+def _rank_parts(scene: ShardedScene):
+    """(SceneArrays, triangle query) of a rank's composable chunks."""
+    return scene.soa, _rank_query(scene.soa, scene.mesh, scene.accel,
+                                  scene.tables)
+
+
+def _fused_rank_frame(scene: ShardedScene, bo, run: int, bounces: int,
+                      fudge: float):
+    """The rank's frame through the fused kernels: camera rays of its run
+    of `run` pixels of the block order `bo`, K1 or K3
+    (ops.fused.fused_render_rays), the (R, 7) rows gathered over the
+    tiles group (the frame's one collective) and put back in scanline
+    order."""
+    from cutrace_tpu_torch.ops.fused import fused_render_rays
+
+    soa, mesh = scene.soa, scene.mesh
+    xy = bo.pxy[:, mesh.tile * run:(mesh.tile + 1) * run]
+    o, d = renderer.camera_rays(soa, xy[0], xy[1])
+    color, depth, normal = fused_render_rays(
+        soa, scene.accel, o, d, fudge, bounces, tables=scene.tables)
+    rows = torch.cat([color, depth[:, None], normal], dim=1)
+    return renderer._unpack(soa, bo.inverse, gather_image(rows, mesh))
+
+
+def _render_sharded(scene, mesh: Mesh, bounces: int, fudge: float,
+                    program: bool):
+    """render_sharded's frame, as programs where `program` and
+    mesh_captures(mesh), else op by op."""
+    from cutrace_tpu_torch.ops import fused
+
+    if not isinstance(scene, ShardedScene):
+        scene = prepare_sharded(scene, mesh)
+    elif scene.mesh != mesh:
+        raise ValueError("a ShardedScene renders on the mesh it was "
+                         "prepared for")
+    program = program and mesh_captures(mesh)
+    soa, accel = scene.soa, scene.accel
+    n = soa.width * soa.height
+    run = _ceil_to(n, mesh.n_tiles) // mesh.n_tiles
+    if mesh.n_prims == 1 and fused.fused_supported(soa, accel, bounces):
+        bo = renderer.block_order_tensors(soa.width, soa.height,
+                                          run * mesh.n_tiles, mesh.device)
+        if not program:
+            return _fused_rank_frame(scene, bo, run, bounces, fudge)
+
+        def build():
+            kept = renderer._detached(scene)
+            return renderer._Program(
+                lambda: _fused_rank_frame(kept, bo, run, bounces, fudge),
+                None, (kept, bo), mesh.device)
+
+        prog = renderer._program(scene, ("sharded", bounces, fudge), build)
+        prog.replay()
+        return tuple(x.clone() for x in prog.outputs)
+    # the composable frame: the rank's run padded to whole chunks, the
+    # same count on every rank, so the prim ranks of a row, whose chunks
+    # gather over the prims group, replay them in lockstep
+    culls = accel is not None and accel.kind != "clusters"
+    chunk = renderer.default_chunk(soa, bounces, lights=not culls)
+    chunk = max(8, min(chunk, _ceil_to(run, 8)))
+    run = _ceil_to(run, chunk)
+    bo = renderer.block_order_tensors(soa.width, soa.height,
+                                      run * mesh.n_tiles, mesh.device)
+    rows = renderer._chunk_rows(
+        scene, _rank_parts, bo.pxy[:, mesh.tile * run:(mesh.tile + 1) * run],
+        bounces, fudge, chunk, program)
+    return renderer._unpack(soa, bo.inverse, gather_image(rows, mesh))
 
 
 @torch.no_grad()
@@ -435,27 +532,29 @@ def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
     order (renderer.block_order_tensors, on the device once), padded to a
     multiple of n_tiles, one contiguous run per tile rank; with PRIM_AXIS
     > 1 each rank culls only its own shard. The pieces are gathered over
-    the tiles group (gather_image) and put back in scanline order. The
-    frame runs op by op: a prim shard's casts make collectives, which no
-    captured program holds."""
-    from cutrace_tpu_torch.render.renderer import (block_order_tensors,
-                                                   default_chunk, to_image)
+    the tiles group (gather_image) and put back in scanline order.
 
-    if not isinstance(scene, ShardedScene):
-        scene = prepare_sharded(scene, mesh)
-    elif scene.mesh != mesh:
-        raise ValueError("a ShardedScene renders on the mesh it was "
-                         "prepared for")
-    soa, accel = scene.soa, scene.accel
-    n = soa.width * soa.height
-    run = _ceil_to(n, mesh.n_tiles) // mesh.n_tiles
-    bo = block_order_tensors(soa.width, soa.height, run * mesh.n_tiles,
-                             mesh.device)
-    idx = bo.order[mesh.tile * run:(mesh.tile + 1) * run]
-    culls = accel is not None and accel.kind != "clusters"
-    chunk = default_chunk(soa, bounces, lights=not culls)
-    color, depth, normal = render_pixels_sharded(
-        soa, mesh, idx, bounces, float(fudge), accel, scene.tables, chunk)
-    full = gather_image(torch.cat([color, depth[:, None], normal], dim=1),
-                        mesh)
-    return to_image(soa, bo.inverse, full[:, 0:3], full[:, 3], full[:, 4:7])
+    Where mesh_captures (a CUDA device, NCCL groups) the frame runs as
+    captured programs, cached on the ShardedScene's identity (a
+    PreparedScene or SceneArrays is prepared, and so captured, anew on
+    every call): a "fused" partition on a tiles-only mesh inside the
+    kernels' scope as one program (camera rays, K1 or K3, the image
+    gather inside the graph, the un-permute), the counterpart of the JAX
+    package's jitted `_render_sharded_jit`; otherwise one composable
+    chunk (with PRIM_AXIS > 1 its casts' K4 on the shard, the candidates'
+    all-gathers over the prims group and their combine) replayed over
+    the rank's run (renderer._chunk_rows), then the gather. A failure to
+    capture or replay raises. Free the programs (renderer.drop_programs)
+    before torch.distributed.destroy_process_group. On the CPU and over
+    gloo the same frame runs op by op (render_sharded_eager)."""
+    return _render_sharded(scene, mesh, bounces, float(fudge), True)
+
+
+@torch.no_grad()
+def render_sharded_eager(scene, mesh: Mesh, bounces: int = 5,
+                         fudge: float = 1e-3):
+    """The plain version of render_sharded's programs: the same frame,
+    with the same kernels, chunks and collectives, dispatched op by op
+    from Python on any mesh. It is render_sharded on the CPU and over
+    gloo; on the card it is what the programs are held against."""
+    return _render_sharded(scene, mesh, bounces, float(fudge), False)

@@ -15,8 +15,9 @@ triangle shard.
 
 Where the JAX package jits the whole step (`make_train_step`), the port
 captures it on a CUDA device as one CUDA graph and replays it step after
-step (make_train_step's `program`); the same step op by op is its plain
-version, and what runs on the CPU, over gloo and over prim shards.
+step (make_train_step's `program`), over an NCCL mesh too, prim shards
+included; the same step op by op is its plain version, and what runs on
+the CPU and over gloo.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from cutrace_tpu_torch.diff.grad import (extract_params, render_loss,
                                          with_params)
@@ -78,20 +78,15 @@ def _optimizer_device(optimizer) -> torch.device:
 
 def step_is_captured(device, mesh=None) -> bool:
     """Does make_train_step run its step on `device` over `mesh` as a
-    captured program? On a CUDA device without a mesh, or over a
-    tiles-only mesh whose collectives are NCCL's (captured with the
-    step). Not on the CPU; not over gloo, whose collectives run through
-    the host, which no capture holds; not with PRIM_AXIS > 1, whose
-    every cast gathers the shards (the sharded render's program waits in
-    ROADMAP)."""
+    captured program? On a CUDA device without a mesh, or over a mesh
+    whose process groups are all NCCL's (sharding.mesh_captures): the
+    tiles group's all-reduce and, with PRIM_AXIS > 1, every cast's
+    all-gathers over the prims group are captured with the step. Not on
+    the CPU; not over gloo, whose collectives of CUDA tensors go through
+    the host, a synchronization that no capture holds."""
     if not renderer.GRAPHS.captures(device):
         return False
-    if mesh is None:
-        return True
-    if mesh.n_prims > 1:
-        return False
-    return (mesh.tiles_group is None
-            or dist.get_backend(mesh.tiles_group) == "nccl")
+    return mesh is None or sh.mesh_captures(mesh)
 
 
 def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
@@ -115,7 +110,8 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
     as one captured CUDA graph (the counterpart of the JAX package's
     jitted step): camera rays, the kernels' tables, the forward with
     codes, the backward, the routing of the cotangents to the leaves, the
-    mesh's all-reduce and the optimizer's update. For one set of
+    mesh's collectives (the prims group's all-gathers of every cast, the
+    tiles group's all-reduce) and the optimizer's update. For one set of
     (params, soa, target) objects, keyed on their identity (the graph
     reads them by address), the first call runs the step eagerly on a
     side stream (kernels built, caches filled, the optimizer's state
@@ -248,8 +244,8 @@ def fit(
     from it.
 
     `program`: train through make_train_step's step program where
-    step_is_captured (the card, without a mesh or over an NCCL tiles-only
-    mesh): the first step eager, the second captured and replayed, the
+    step_is_captured (the card, without a mesh or over an NCCL mesh): the
+    first step eager, the second captured and replayed, the
     rest replays, one update each; False runs every step op by op. On a
     CUDA device Adam is built with capturable=True either way (its step
     count on the device), so both run the same arithmetic. A restore

@@ -354,6 +354,15 @@ def _forget(owner_id: int):
         del _PROGRAMS[key]
 
 
+def drop_programs():
+    """Free every cached program, its graph and its memory pool. A graph
+    that holds NCCL collectives keeps its communicator's resources, and a
+    communicator destroyed under it waits for them: call this before
+    torch.distributed.destroy_process_group (four-card runs hung there
+    with sharded frame programs alive)."""
+    _PROGRAMS.clear()
+
+
 def _program(owner, key, build) -> _Program:
     """The program cached for (`owner`'s identity, key), built by build()
     on a miss. Scenes are keyed by identity, never by value (their tensor
@@ -373,12 +382,14 @@ def _program(owner, key, build) -> _Program:
     return prog
 
 
-def _detached(prepared: PreparedScene) -> PreparedScene:
-    """A new PreparedScene over a new SceneArrays holding the same
-    tensors: what a program keeps, so that it reads the live tensors by
-    address without keeping the caller's objects (its cache key) alive."""
-    return dataclasses.replace(prepared,
-                               soa=dataclasses.replace(prepared.soa))
+def _detached(owner):
+    """A new PreparedScene, ShardedScene or SceneArrays over a new
+    SceneArrays holding the same tensors: what a program keeps, so that
+    it reads the live tensors by address without keeping the caller's
+    objects (its cache key) alive."""
+    if isinstance(owner, SceneArrays):
+        return dataclasses.replace(owner)
+    return dataclasses.replace(owner, soa=dataclasses.replace(owner.soa))
 
 
 def _fused_frame(prepared: PreparedScene, bounces: int, fudge: float):
@@ -433,50 +444,61 @@ def _unpack(soa, inverse, rows):
     return to_image(soa, inverse, rows[:, 0:3], rows[:, 3], rows[:, 4:7])
 
 
+def _chunk_rows(owner, parts, pxy, bounces: int, fudge: float, chunk: int,
+                program: bool):
+    """The (R, 7) rows [color, depth, normal] of the pixel coordinates
+    pxy (2, R), R a multiple of `chunk`, rendered in chunks of `chunk`
+    rays; `parts(owner)` gives the scene's SceneArrays and triangle query
+    (None: brute force). Op by op without `program`; else one chunk is a
+    captured program per (owner, parts, bounces, fudge, chunk): each
+    chunk's coordinates are copied into its static input, it is replayed,
+    and its rows are copied out (the counterpart of the JAX package's
+    `lax.map` over the chunks). Callers whose chunks make collectives
+    (a prim-sharded rank) replay the same count in lockstep."""
+    n_pad = pxy.shape[1]
+    if not program:
+        soa, tc = parts(owner)
+        return torch.cat([_chunk(soa, pxy[:, s:s + chunk], bounces, fudge, tc)
+                          for s in range(0, n_pad, chunk)])
+
+    def build():
+        kept = _detached(owner)
+        k_soa, k_tc = parts(kept)
+        xy = pxy[:, :chunk].clone()
+        return _Program(lambda: _chunk(k_soa, xy, bounces, fudge, k_tc), xy,
+                        (kept, k_tc), pxy.device)
+
+    prog = _program(owner, ("chunks", parts, bounces, fudge, chunk), build)
+    rows = torch.empty((n_pad, 7), dtype=torch.float32, device=pxy.device)
+    for s in range(0, n_pad, chunk):
+        prog.inputs.copy_(pxy[:, s:s + chunk])
+        prog.replay()
+        rows[s:s + chunk].copy_(prog.outputs)
+    return rows
+
+
+def _scene_parts(scene):
+    """(SceneArrays, triangle query) of render's composable chunks: a
+    PreparedScene's partition query, or brute force for a SceneArrays."""
+    if isinstance(scene, PreparedScene):
+        return scene.soa, bvh.candidates_fn(scene.accel, scene.tables)
+    return scene, None
+
+
 @torch.no_grad()
 def _render_padded(owner, bounces: int, fudge: float, chunk: int,
                    program: bool = True):
     """The composable frame in chunks of `chunk` rays over the block order
-    padded to a multiple of it. `owner` is a SceneArrays (brute force) or
-    a PreparedScene (its partition's triangle query). On a CUDA device one
-    chunk is a captured program per (scene, bounces, fudge, chunk): each
-    chunk's pixel coordinates are copied into its static input, it is
-    replayed, and its rows are copied out into the frame (the counterpart
-    of the JAX package's `_render_padded`, `lax.map` over the chunks);
-    op by op without `program` and on the CPU."""
-    from cutrace_tpu_torch.ops import bvh
-
-    def parts(scene):
-        if isinstance(scene, PreparedScene):
-            return scene.soa, bvh.candidates_fn(scene.accel, scene.tables)
-        return scene, None
-
-    soa, tc = parts(owner)
-    n = soa.width * soa.height
-    n_pad = _ceil_to(n, chunk)
+    padded to a multiple of it (_chunk_rows). `owner` is a SceneArrays
+    (brute force) or a PreparedScene (its partition's triangle query).
+    On a CUDA device one chunk is a captured program, replayed over the
+    chunks (the counterpart of the JAX package's `_render_padded`); op by
+    op without `program` and on the CPU."""
+    soa = owner.soa if isinstance(owner, PreparedScene) else owner
+    n_pad = _ceil_to(soa.width * soa.height, chunk)
     bo = block_order_tensors(soa.width, soa.height, n_pad, soa.device)
-    if not program or not GRAPHS.captures(soa.device):
-        rows = torch.cat([
-            _chunk(soa, bo.pxy[:, s:s + chunk], bounces, fudge, tc)
-            for s in range(0, n_pad, chunk)])
-        return _unpack(soa, bo.inverse, rows)
-
-    def build():
-        if isinstance(owner, PreparedScene):
-            scene = _detached(owner)
-        else:
-            scene = dataclasses.replace(owner)
-        s_soa, s_tc = parts(scene)
-        xy = bo.pxy[:, :chunk].clone()
-        return _Program(lambda: _chunk(s_soa, xy, bounces, fudge, s_tc), xy,
-                        (scene, s_tc), soa.device)
-
-    prog = _program(owner, ("padded", bounces, fudge, chunk), build)
-    rows = torch.empty((n_pad, 7), dtype=torch.float32, device=soa.device)
-    for s in range(0, n_pad, chunk):
-        prog.inputs.copy_(bo.pxy[:, s:s + chunk])
-        prog.replay()
-        rows[s:s + chunk].copy_(prog.outputs)
+    rows = _chunk_rows(owner, _scene_parts, bo.pxy, bounces, fudge, chunk,
+                       program and GRAPHS.captures(soa.device))
     return _unpack(soa, bo.inverse, rows)
 
 
@@ -536,15 +558,3 @@ def render_eager(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
     render on the CPU; on the card it is what the programs are held
     against."""
     return _render(scene_or_soa, bounces, fudge, chunk, device, False)
-
-
-def render_chunks(soa, o, d, bounces: int, fudge, tri_candidates, chunk):
-    """render_rays over explicit rays in batches of `chunk`, concatenated
-    (the prim-sharded render's loop, which stays op by op: its casts make
-    collectives)."""
-    outs = [
-        render_rays(soa, o[s:s + chunk], d[s:s + chunk], bounces, fudge,
-                    tri_candidates)
-        for s in range(0, o.shape[0], chunk)
-    ]
-    return tuple(torch.cat(x) for x in zip(*outs))

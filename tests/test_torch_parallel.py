@@ -15,6 +15,7 @@ within the port-vs-JAX gate of JAX's render_sharded on the same mesh (JAX's
 the one-device ones; the multi-process image bit-identical to one
 process's."""
 
+import contextlib
 import dataclasses
 import os
 import pathlib
@@ -31,6 +32,11 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 RENDER_MESHES = ((4, 1), (2, 2), (1, 4))
 GRAD_MESHES = {4: ((2, 2),), 2: ((2, 1), (1, 2))}
 GRAD_RTOL = 1e-5
+# (tiles, prims) meshes whose frames each world runs as programs, and the
+# mesh of its prim-sharded step program
+PROGRAM_MESHES = {4: ((4, 1), (2, 2)), 2: ((2, 1), (1, 2))}
+STEP_MESH = {4: (2, 2), 2: (1, 2)}
+STEPS = 3
 RANK_TIMEOUT = 120
 
 
@@ -57,9 +63,13 @@ class _Counting:
 
     def __enter__(self):
         self.saved = {n: getattr(self.module, n) for n in self.names}
+        self.sizes, self.groups = {}, {}
         for n, fn in self.saved.items():
             def wrap(*a, _n=n, _fn=fn, **k):
                 self.calls[_n] = self.calls.get(_n, 0) + 1
+                if a and torch.is_tensor(a[0]):
+                    self.sizes.setdefault(_n, []).append(a[0].numel())
+                self.groups.setdefault(_n, []).append(k.get("group"))
                 return _fn(*a, **k)
             setattr(self.module, n, wrap)
         return self
@@ -74,6 +84,44 @@ _COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce",
                 "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
                 "gather", "scatter", "barrier", "send", "recv", "isend",
                 "irecv", "all_gather_object", "broadcast_object_list")
+
+
+@contextlib.contextmanager
+def _programs():
+    """The stand-in CUDA graphs (tests/torch_stand_in.py) as
+    renderer.GRAPHS and every group taken for NCCL's
+    (sharding.mesh_captures): the programs of the card, on gloo ranks on
+    the CPU."""
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.render import renderer
+    from torch_stand_in import StandInGraphs
+
+    saved = renderer.GRAPHS, sh._nccl
+    renderer.GRAPHS, sh._nccl = StandInGraphs(), lambda group: True
+    try:
+        yield renderer.GRAPHS
+    finally:
+        renderer.GRAPHS, sh._nccl = saved
+
+
+@contextlib.contextmanager
+def _no_host_tensors():
+    """torch.tensor, as_tensor and from_numpy raise: on a card each is a
+    copy from the host, which no CUDA-graph capture holds (the CPU's
+    stand-in for "capturable", as tests/test_torch_render.py's)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor made from host data in a warm "
+                             "program")
+
+    names = ("tensor", "as_tensor", "from_numpy")
+    saved = {n: getattr(torch, n) for n in names}
+    for n in names:
+        setattr(torch, n, refuse)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(torch, n, fn)
 
 
 def _images(out, prefix, imgs):
@@ -128,6 +176,115 @@ def _grad_cases(out, world, rank):
         mesh = sh.make_mesh(t, p, device="cpu")
         for label, accel in (("none", None), ("fused", fused)):
             _grads(out, f"grad/{t}x{p}/{label}", soa, mesh, target, accel)
+
+
+def _program_frames(out, world):
+    """Each case of PROGRAM_MESHES[world] rendered through the programs
+    (the stand-in graphs) and op by op: a tiles mesh's "fused" bunny
+    (one program a frame) and "pallas" mirror (its chunk program), a
+    prims mesh's "pallas" mirror and brute-force sphere_plane (the chunk
+    program over the sharded query). The second program frame is
+    counted (collectives, the candidates' gathers) and replayed with
+    host tensors refused."""
+    import torch.distributed as dist
+
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.render import renderer
+    from cutrace_tpu_torch.render.renderer import prepare
+
+    bunny = prepare(_load("bunny.json", 32, 16), accel="fused")
+    mirror = prepare(_load("mirror.json", 32, 16), accel="pallas")
+    sp = _load("sphere_plane.json", 32, 16)
+    for t, p in PROGRAM_MESHES[world]:
+        mesh = sh.make_mesh(t, p, device="cpu")
+        cases = (("bunny/fused", bunny) if p == 1
+                 else ("sphere_plane/none", sp)), ("mirror/pallas", mirror)
+        for label, scene in cases:
+            prefix = f"program/{label}/{t}x{p}"
+            ready = sh.prepare_sharded(scene, mesh)
+            with _programs():
+                captures = renderer.CAPTURES
+                first = sh.render_sharded(ready, mesh, bounces=2)
+                with _Counting(dist, _COLLECTIVES) as coll, \
+                        _Counting(sh, ("_gather_candidates",)) as casts, \
+                        _no_host_tensors():
+                    second = sh.render_sharded(ready, mesh, bounces=2)
+                out[f"{prefix}/captures"] = np.asarray(
+                    renderer.CAPTURES - captures)
+            _images(out, f"{prefix}/first", first)
+            _images(out, prefix, second)
+            _images(out, f"{prefix}/eager",
+                    sh.render_sharded_eager(ready, mesh, bounces=2))
+            out[f"{prefix}/collectives"] = np.asarray(
+                [coll.calls.get(n, 0) for n in _COLLECTIVES])
+            out[f"{prefix}/casts"] = np.asarray(
+                casts.calls.get("_gather_candidates", 0))
+
+
+def _prim_step(out, world):
+    """STEPS Adam steps of all 19 groups on bunny 16x9 b1 over the "pallas"
+    partition of each shard, at STEP_MESH[world]: through the step program
+    (the stand-in graphs) and op by op, from one state. Each step's
+    all-reduces are counted; the third (a replay) runs with host tensors
+    refused, and its gradients are held against one device's at the
+    state it started from."""
+    import torch.distributed as dist
+
+    from cutrace_tpu_torch.diff import grad as tgrad
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.parallel import train
+    from cutrace_tpu_torch.render.renderer import prepare
+
+    t, p = STEP_MESH[world]
+    mesh = sh.make_mesh(t, p, device="cpu")
+    soa = _load("bunny.json", 16, 9)
+    with torch.no_grad():
+        c0, _, _ = tgrad.render_image_flat(soa, 1, 1e-3)
+    target = 0.9 * c0
+    n_tris = soa.tri_p1.shape[0]
+    accel = sh.shard_accel(soa, mesh, "pallas")
+    local = sh.shard_scene(soa, mesh)
+    prefix = f"step/{t}x{p}"
+
+    def whole(params):
+        return {k: sh.unshard_rows(v.detach(), mesh, n_tris)
+                if k in sh._TRI_FIELDS else v.detach().clone()
+                for k, v in params.items()}
+
+    for label, program in (("program", True), ("eager", False)):
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in tgrad.extract_params(local).items()}
+        opt = torch.optim.Adam(list(params.values()), lr=1e-2, eps=1e-8)
+        with _programs() as graphs:
+            step = train.make_train_step(opt, 1, accel=accel, mesh=mesh,
+                                         program=program)
+            losses, reduces = [], []
+            for i in range(STEPS):
+                if program and i == STEPS - 1:
+                    start = whole(params)
+                refuse = (_no_host_tensors() if i == STEPS - 1
+                          else contextlib.nullcontext())
+                with _Counting(dist, ("all_reduce",)) as coll, refuse:
+                    losses.append(step(params, local, target).clone())
+                reduces.append([coll.calls.get("all_reduce", 0)]
+                               + coll.sizes.get("all_reduce", [])
+                               + [g is mesh.tiles_group for g in
+                                  coll.groups.get("all_reduce", [])])
+            out[f"{prefix}/{label}/log"] = np.asarray(graphs.log)
+        out[f"{prefix}/{label}/losses"] = torch.stack(losses).numpy()
+        out[f"{prefix}/{label}/reduces"] = np.asarray(reduces)
+        for k, v in whole(params).items():
+            out[f"{prefix}/{label}/param/{k}"] = v.numpy()
+        grads = whole({k: v.grad for k, v in params.items()})
+        for k, g in grads.items():
+            out[f"{prefix}/{label}/grad/{k}"] = g.numpy()
+    out[f"{prefix}/size"] = np.asarray(
+        sum(v.numel() for v in params.values()) + 1)
+    ref_acc = prepare(soa, accel="pallas").accel
+    _, ref = tgrad.grad_render_loss(tgrad.with_params(soa, start), target, 1,
+                                    1e-3, ref_acc)
+    for k, g in ref.items():
+        out[f"{prefix}/ref/{k}"] = g.numpy()
 
 
 def _world4(rank, out, tmp):
@@ -199,6 +356,8 @@ def _world4(rank, out, tmp):
             [coll.calls.get(n, 0) for n in _COLLECTIVES])
 
     _grad_cases(out, 4, rank)
+    _program_frames(out, 4)
+    _prim_step(out, 4)
 
     # fit: three steps at (2, 2) with a checkpoint, then a resumed fourth,
     # against four steps on one device
@@ -239,6 +398,8 @@ def _world2(rank, out, tmp):
     piece = torch.full((3, 2), float(rank))
     out["multihost/gathered"] = multihost.gather_image(piece, mesh).numpy()
     _grad_cases(out, 2, rank)
+    _program_frames(out, 2)
+    _prim_step(out, 2)
 
 
 def worker(argv):
@@ -427,9 +588,9 @@ def test_render_sharded_fused_tiles(runs, label):
     image is bit-identical to the one-device fused render (bunny 32x16 b2,
     and the bunny with its mesh at transparency 0.5 at 16x8 b2), and the
     forward made no collective call: the image's gather is the one
-    all_gather."""
+    all_gather_into_tensor."""
     gather = np.zeros(len(_COLLECTIVES), int)
-    gather[_COLLECTIVES.index("all_gather")] = 1
+    gather[_COLLECTIVES.index("all_gather_into_tensor")] = 1
     for res in runs[4]:
         assert int(res[f"{label}/kernel_calls"]) == 1
         assert np.array_equal(res[f"{label}/collectives"], gather), dict(
@@ -565,6 +726,185 @@ def test_torchrun_entry_point(runs):
     # --steps: a fit over the prim-sharded gloo mesh, op by op by rule
     assert len(row["fit_losses"]) == 2 and row["step_program"] is False
     assert all(np.isfinite(row["fit_losses"]))
+
+
+def test_torchrun_times_program_and_eager(runs):
+    """The entry point times render_sharded (`frame_ms`) and
+    render_sharded_eager (`eager_ms`) in turns in one run, every rank's
+    both, and counts the programs captured: none over gloo, where both
+    run op by op and give the same image."""
+    import json
+
+    row = json.loads(runs["torchrun"].strip().splitlines()[-1])
+    assert len(row["frame_ms"]) == len(row["eager_ms"]) == 2
+    assert all(x > 0 for x in row["frame_ms"] + row["eager_ms"])
+    assert [len(row["turns_ms"][k]) for k in ("program", "eager")] == [2, 2]
+    assert row["programs"] == 0 and row["eager_pixels_differ"] == 0
+    # --steps: the fit again op by op from the same start gives the same
+    # losses (over gloo both run op by op)
+    assert row["fit_eager_losses"] == row["fit_losses"]
+    assert row["fit_s"] > 0 and len(row["fit_eager_s"]) == 2
+
+
+PROGRAM_CASES = [(w, t, p, label) for w, meshes in PROGRAM_MESHES.items()
+                 for t, p in meshes
+                 for label in (("bunny/fused" if p == 1
+                                else "sphere_plane/none"), "mirror/pallas")]
+
+
+@pytest.mark.parametrize("world,tiles,prims,label", PROGRAM_CASES)
+def test_program_frames_equal_eager(runs, world, tiles, prims, label):
+    """render_sharded through its programs (the stand-in graphs on gloo
+    ranks; sharding.mesh_captures patched to take the groups for NCCL's):
+    one capture for the ShardedScene, the first and the replayed frames
+    bit-identical to render_sharded_eager on every rank, and a replay
+    makes no tensor from host data (the worker refused them)."""
+    prefix = f"program/{label}/{tiles}x{prims}"
+    for res in runs[world]:
+        assert int(res[f"{prefix}/captures"]) == 1
+        _assert_images_identical(res, prefix, f"{prefix}/eager")
+        _assert_images_identical(res, f"{prefix}/first", f"{prefix}/eager")
+        assert np.isfinite(res[f"{prefix}/depth"]).any()
+
+
+@pytest.mark.parametrize("world,tiles,prims,label", PROGRAM_CASES)
+def test_program_frame_collectives(runs, world, tiles, prims, label):
+    """A replayed frame's collectives: on a tiles mesh exactly one, the
+    image's all_gather_into_tensor (the counterpart of the JAX package's
+    collective gates, tests/test_hlo.py, tests/test_parallel_fused.py);
+    on a prims mesh two all-gathers a cast (the candidates' floats and
+    keys) and the image's."""
+    prefix = f"program/{label}/{tiles}x{prims}"
+    for res in runs[world]:
+        casts = int(res[f"{prefix}/casts"])
+        assert (casts > 0) == (prims > 1)
+        want = np.zeros(len(_COLLECTIVES), int)
+        want[_COLLECTIVES.index("all_gather_into_tensor")] = 2 * casts + 1
+        assert np.array_equal(res[f"{prefix}/collectives"], want), dict(
+            zip(_COLLECTIVES, res[f"{prefix}/collectives"]))
+
+
+@pytest.mark.parametrize("world,tiles,prims,label", [
+    c for c in PROGRAM_CASES if c[3] != "bunny/fused"])
+def test_program_frames_match_jax(runs, scenes_dir, world, tiles, prims,
+                                  label):
+    """The program frames within the port-vs-JAX gates of JAX's
+    render_sharded on the same mesh: "pallas" within atol 1e-4
+    (test_render_sharded_pallas's), brute force by _compare
+    (test_render_sharded_brute_force's). The fused frames are
+    bit-identical to their eager frames, which
+    test_render_sharded_fused_tiles holds to the one-device render."""
+    from cutrace_tpu.parallel import render_sharded
+    from cutrace_tpu.render.renderer import prepare
+    from test_fused import _compare
+
+    name, accel = label.split("/")
+    soa = _jax_soa(scenes_dir, f"{name}.json", 32, 16)
+    scene = soa if accel == "none" else prepare(soa, accel=accel)
+    want = [np.asarray(x) for x in render_sharded(
+        scene, _jax_mesh(tiles, prims), bounces=2)]
+    prefix = f"program/{label}/{tiles}x{prims}"
+    for res in runs[world]:
+        got = [res[f"{prefix}/{k}"] for k in ("color", "depth", "normal")]
+        if accel == "none":
+            _compare(want, got, atol=2e-4)
+            continue
+        for a, b, k in zip(want, got, ("color", "depth", "normal")):
+            ok = np.isclose(a, b, atol=1e-4) | (np.isinf(a) & np.isinf(b))
+            assert ok.all(), f"({tiles},{prims}) {k}"
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+@pytest.mark.parametrize("world", sorted(STEP_MESH))
+def test_prim_step_program_equals_eager(runs, world):
+    """The prim-sharded step program ("pallas" partitions on each shard,
+    all 19 groups, Adam) against the op-by-op step from one state, over
+    STEPS steps: call 1 eager, call 2 captured and replayed, call 3
+    replayed; losses, updated parameters and gradients bit for bit, the
+    same on every rank."""
+    t, p = STEP_MESH[world]
+    prefix = f"step/{t}x{p}"
+    first = runs[world][0]
+    for res in runs[world]:
+        assert list(res[f"{prefix}/program/log"]) == [
+            "eager", "capture", "replay", "replay"]
+        losses = res[f"{prefix}/program/losses"]
+        assert len(losses) == STEPS and np.isfinite(losses).all()
+        assert _bits_equal(losses, res[f"{prefix}/eager/losses"])
+        assert _bits_equal(losses, first[f"{prefix}/program/losses"])
+        keys = [k.split("/")[-1] for k in res
+                if k.startswith(f"{prefix}/program/grad/")]
+        assert len(keys) == 19
+        for kind in ("param", "grad"):
+            for k in keys:
+                assert _bits_equal(res[f"{prefix}/program/{kind}/{k}"],
+                                   res[f"{prefix}/eager/{kind}/{k}"]), (
+                    kind, k)
+
+
+@pytest.mark.parametrize("world", sorted(STEP_MESH))
+def test_prim_step_program_gradients(runs, world):
+    """The replayed prim-sharded step's gradients (its third call) within
+    GRAD_RTOL (atol 1e-6 of the group's largest) of one device's at the
+    state the step started from, all 19 groups, the triangle rows
+    gathered from the shards."""
+    t, p = STEP_MESH[world]
+    prefix = f"step/{t}x{p}"
+    for res in runs[world]:
+        keys = [k.split("/")[-1] for k in res
+                if k.startswith(f"{prefix}/ref/")]
+        assert len(keys) == 19
+        for k in keys:
+            got = res[f"{prefix}/program/grad/{k}"]
+            want = res[f"{prefix}/ref/{k}"]
+            scale = max(np.abs(want).max(), 1e-12)
+            np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                                       atol=1e-6 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("world", sorted(STEP_MESH))
+def test_prim_step_program_one_all_reduce(runs, world):
+    """Every call of the prim-sharded step, program and op by op, makes
+    exactly one all-reduce, over the tiles group, of the trainable
+    parameters' size plus one (the loss): the counterpart of the JAX
+    package's gate on its step's collectives (tests/test_hlo.py)."""
+    t, p = STEP_MESH[world]
+    prefix = f"step/{t}x{p}"
+    for res in runs[world]:
+        size = int(res[f"{prefix}/size"])
+        for label in ("program", "eager"):
+            reduces = res[f"{prefix}/{label}/reduces"]
+            assert len(reduces) == STEPS
+            for calls, numel, tiles_group in reduces:
+                assert (calls, numel, tiles_group) == (1, size, 1), label
+
+
+def test_capture_rule_nccl_and_gloo(monkeypatch):
+    """sharding.mesh_captures and train.step_is_captured: a CUDA device
+    whose groups are NCCL's captures, prims meshes included; gloo and the
+    CPU run op by op. The groups' backends are mocked."""
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.parallel import train
+
+    cuda = torch.device("cuda", 0)
+    groups = dict(group=object(), tiles_group=object(),
+                  prims_group=object())
+    for n_tiles, n_prims in ((1, 2), (2, 2), (4, 1)):
+        mesh = sh.Mesh(n_tiles, n_prims, 0, 0, cuda, **groups)
+        cpu = dataclasses.replace(mesh, device=torch.device("cpu"))
+        for backend, want in (("nccl", True), ("gloo", False)):
+            monkeypatch.setattr(sh.dist, "get_backend",
+                                lambda group=None, _b=backend: _b)
+            assert sh.mesh_captures(mesh) is want
+            assert train.step_is_captured(cuda, mesh) is want
+            assert not sh.mesh_captures(cpu)
+            assert not train.step_is_captured(torch.device("cpu"), cpu)
+    # the one-process (1, 1) mesh has no group: it captures on a card
+    assert sh.mesh_captures(sh.Mesh(1, 1, 0, 0, cuda))
 
 
 def _stack(rng, k, r, ties):

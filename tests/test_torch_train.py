@@ -22,6 +22,7 @@ from cutrace_tpu_torch.diff import grad as tgrad
 from cutrace_tpu_torch.parallel import train as ttrain
 from cutrace_tpu_torch.scene import soa as tsoa
 from test_torch_host import port_scene
+from torch_stand_in import StandInGraphs
 
 torch.set_num_threads(2)
 
@@ -136,51 +137,11 @@ def test_train_step_filter(scenes_dir):
 # --- the step program --------------------------------------------------------
 
 
-class _StandInGraph:
-    """A stand-in for a torch.cuda.CUDAGraph on the CPU: replay reruns the
-    captured function and copies its results into the tensors the capture
-    returned. The capture ran the function once where a real one records
-    it, so the first replay keeps that run's results (the real first
-    replay's update) and reruns nothing."""
-
-    def __init__(self, fn, outputs, log):
-        self.fn, self.outputs, self.log = fn, outputs, log
-        self.fresh = True
-
-    def replay(self):
-        self.log.append("replay")
-        if self.fresh:
-            self.fresh = False
-            return
-        for out, new in zip(self.outputs, self.fn()):
-            out.copy_(new)
-
-
-class _StandInGraphs:
-    """renderer.GRAPHS with programs on the CPU: the warm-up runs fn in
-    place, a capture returns a _StandInGraph. `log` records the calls."""
-
-    def __init__(self):
-        self.log = []
-
-    def captures(self, device):
-        return True
-
-    def warm(self, fn, device):
-        self.log.append("eager")
-        return fn()
-
-    def capture(self, fn, device):
-        self.log.append("capture")
-        outputs = fn()
-        return _StandInGraph(fn, outputs, self.log), outputs
-
-
 @pytest.fixture
 def stand_in(monkeypatch):
     from cutrace_tpu_torch.render import renderer
 
-    graphs = _StandInGraphs()
+    graphs = StandInGraphs()
     monkeypatch.setattr(renderer, "GRAPHS", graphs)
     return graphs
 
