@@ -59,8 +59,8 @@ line) if any phase fails:
              480x270 b5 and 256k 160x90 b5, forward gate with the 10 %
              edge budget of subdivided meshes (tests/test_fused.py:173-188)
  11. big-topo / big-vjp  the topo and vjp phases on those two scenes: K3
-             with codes (bits, replay, emitter gates), K2 at 256k (every
-             table cotangent a global atomic)
+             with codes (bits, replay, emitter gates), K2 at 256k (the
+             triangle rows' exact sums in global memory)
  12. big-frame  a cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and
              1M, 960x540 b5, with K3's time, both bounds, launches, and
              slab tests, admitted and needed visits a cast. The 256k
@@ -113,28 +113,41 @@ line) if any phase fails:
              the same card: the train phase's fit (bunny 1920x1080 b5, 5
              steps) through the program and op by op (wall seconds in
              turns), one capture, 5 K1 with codes and 5 K2 launches in
-             both, step 0's loss bit-equal, the final parameters within
-             the vjp gate; the same 5 steps from the same state (before
-             each call the op-by-op side takes the program's parameters
-             and Adam state): every loss bit-equal, gradients and updated
-             parameters within the vjp gate (two free-running fits part
-             by K2's atomic sums, eager against eager too; their spread is
-             printed); a checkpoint saved between replays holding the
-             live parameters and a resumed fit whose first loss is a
-             forward's at them. One 19-group step (lr 0) on bunny and
-             sphere_plane 1920x1080 b5, the transparent bunny 160x90 b5
-             (K1, composable backward through K4), bunny 480x270 b5
-             "pallas" (K4 under autograd) and the 256k bunny 960x540 b5
-             (K3 with codes, K2): first calls (eager; capture and replay;
-             replay) with peak, held and pool memory, a replay with no
-             sync (torch's sync debug mode "error") and the launch counts
-             of an op-by-op step, gradients within the vjp gate, CUDA-
-             event times op by op, program, op by op. The inverse-
-             rendering example's settings (sphere_plane 64x36: 150
-             mat_color steps b2, 50 look-at camera steps b1): wall seconds
-             op by op, program, op by op, and every step from the same
-             state as above
- 19. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
+             both, every loss and the final parameters bit-equal (a second
+             op-by-op fit too); the same 5 steps from the same state
+             (before each call the op-by-op side takes the program's
+             parameters and Adam state): losses, gradients and updated
+             parameters bit-equal; a checkpoint saved between replays
+             holding the live parameters and a resumed fit whose first
+             loss is a forward's at them. One 19-group step (lr 0) on
+             bunny and sphere_plane 1920x1080 b5, the transparent bunny
+             160x90 b5 (K1, composable backward through K4), bunny
+             480x270 b5 "pallas" (K4 under autograd) and the 256k bunny
+             960x540 b5 (K3 with codes, K2): first calls (eager; capture
+             and replay; replay) with peak, held and pool memory, a replay
+             with no sync (torch's sync debug mode "error") and the launch
+             counts of an op-by-op step, gradients bit-equal to the
+             op-by-op step's, CUDA-event times op by op, program, op by
+             op. The inverse-rendering example's settings (sphere_plane
+             64x36: 150 mat_color steps b2, 50 look-at camera steps b1):
+             wall seconds op by op, program, op by op, every loss of the
+             three bit-equal, and every step from the same state as above
+ 19. determinism  same inputs, same bits, every count of differing
+             elements printed before the gate: K2's sums alone
+             (replay_vjp.exact_sum, 2**20 seeded terms into 17,102
+             elements, specials included) bit-equal to their plain version
+             and to themselves shuffled; K2 three times on the same codes
+             and cotangents, bunny and sphere_plane 1920x1080 b5 and the
+             256k bunny 960x540 b5 (d_rays, d_tbl, d_misc); the 19-group
+             gradient three times as a step program and twice op by op
+             (those three, the transparent bunny 160x90 b5 through K4,
+             bunny 480x270 b5 "pallas"), every group bit-equal within each
+             kind and between them; the example's two
+             fits twice from scratch as programs, every loss and the final
+             parameters; a 10-step bunny 480x270 b5 fit checkpointed at
+             step 5 and resumed in a fresh fit call against an
+             uninterrupted one, the final parameters and Adam state
+ 20. multi   the multi-device path (cutrace_tpu_torch.parallel): (a) one
              rank over NCCL (multihost.initialize, make_mesh(1, 1)):
              render_sharded of bunny 1920x1080 b5 (a ShardedScene) through
              one captured program (K1 and the image's all-gather inside),
@@ -149,7 +162,8 @@ line) if any phase fails:
              in a replay; fit(mesh=...) 3 steps at the train phase's
              settings through one step program (its all-reduce
              captured), losses within 1e-6 relative of the one-device
-             fit, K1 with codes and K2 launched. (b) two ranks on the one card
+             fit, K1 with codes and K2 launched, and run twice: losses and
+             parameters bit-equal. (b) two ranks on the one card
              over gloo (CUDA tensors go through the host for the
              collectives), each spawned with a deadline: the (2, 1) mesh
              on bunny 1920x1080 b5 (K1) and on the 16k subdivided bunny
@@ -165,7 +179,7 @@ line) if any phase fails:
              before each run and must grow; no render_sharded over gloo
              captures a program (renderer.CAPTURES unchanged).
              The sharded frames' CUDA-event times beside render's
- 20. result  a JSON line of per-kernel numbers (each with its launches
+ 21. result  a JSON line of per-kernel numbers (each with its launches
              in one replayed step of each step-program case), then the
              contract line
              {"ok": true, "device": {...}}
@@ -198,6 +212,7 @@ import sys
 import tempfile
 import time
 import types
+from collections import Counter
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -216,7 +231,8 @@ PARITY = (
 MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
-          "cast", "pallas", "fallback", "program", "step-program", "multi")
+          "cast", "pallas", "fallback", "program", "step-program",
+          "determinism", "multi")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -1566,17 +1582,31 @@ def bits_equal(a, b):
                             b.contiguous().view(torch.int32)))
 
 
+def bits_differ(a, b):
+    """Elements of two float32 tensors whose bits differ (every element if
+    the shapes differ)."""
+    if a.shape != b.shape:
+        return max(a.numel(), b.numel())
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def params_differ(a, b):
+    """Per key of two dicts of float32 tensors, the elements whose bits
+    differ (all of a tensor that only one dict holds); equal keys left
+    out."""
+    out = {k: bits_differ(a[k], b[k]) if k in a and k in b
+           else (a.get(k) if k in a else b[k]).numel()
+           for k in set(a) | set(b)}
+    return {k: v for k, v in out.items() if v}
+
+
 def frames_differ(a, b):
     """Names of the buffers of two (color, depth, normal) frames whose bits
     differ, with the count of differing elements."""
-    out = []
-    for name, x, y in zip(("color", "depth", "normal"), a, b):
-        if not bits_equal(x, y):
-            n = (x.shape != y.shape or int(
-                (x.contiguous().view(torch.int32)
-                 != y.contiguous().view(torch.int32)).sum()))
-            out.append(f"{name} ({n})")
-    return out
+    return [f"{name} ({n})" for name, x, y in zip(("color", "depth",
+                                                   "normal"), a, b)
+            if (n := bits_differ(x, y))]
 
 
 def first_program_call(m, prepared, bounces):
@@ -1769,12 +1799,9 @@ def forced_fit(m, label, soa, target, steps, lr, bounces, param_filter,
     """`steps` Adam steps (capturable, eps 1e-8, as fit builds it) of the
     step program and of the op-by-op step from the same state: before
     each call the op-by-op side's parameters and optimizer state are set
-    to the program's. K2 sums with atomics, so two free-running fits part
-    by their order of summation (eager against eager too); from the same
-    state each step's loss must be bit-equal (a forward is
-    deterministic: FIT_RTOL a fortiori), its gradients and the updated
-    parameters within the vjp gate. Returns the largest relative error of
-    those."""
+    to the program's. Every step's loss, gradients and updated parameters
+    must be bit-equal: the forward and K2's exact sums are functions of
+    their inputs, and both sides run the same arithmetic."""
     base = {k: v.detach().clone()
             for k, v in m.tgrad.extract_params(soa, camera=camera).items()}
     sides = []
@@ -1789,7 +1816,6 @@ def forced_fit(m, label, soa, target, steps, lr, bounces, param_filter,
                                        accel=accel, program=program)
         sides.append((params, opt, step))
     (p_prog, o_prog, prog), (p_eager, o_eager, eager) = sides
-    worst = 0.0
     for i in range(steps):
         with torch.no_grad():
             for k in param_filter:
@@ -1804,11 +1830,13 @@ def forced_fit(m, label, soa, target, steps, lr, bounces, param_filter,
             raise AssertionError(f"{label} step {i}: loss {got!r} from the "
                                  f"same state as the op-by-op {want!r}")
         for what in ("grad", "data"):
-            worst = max(worst, grad_gate(
-                f"{label} step {i} parameter {what}",
+            differ = params_differ(
                 {k: getattr(p_prog[k], what) for k in param_filter},
-                {k: getattr(p_eager[k], what) for k in param_filter}))
-    return worst
+                {k: getattr(p_eager[k], what) for k in param_filter})
+            if differ:
+                raise AssertionError(f"{label} step {i}: parameter {what} "
+                                     f"differs from the same state's "
+                                     f"op-by-op step: {differ}")
 
 
 def step_fit_case(m, prepared, rec):
@@ -1816,10 +1844,9 @@ def step_fit_case(m, prepared, rec):
     default_rng(7), lr 5e-2, 5 steps) through the step program against
     the op-by-op fit, wall seconds in turns op by op, program, op by op:
     one capture, K1 with codes and K2 five times each in
-    both, step 0's loss bit-equal (the same eager call), the final
-    parameters within the vjp gate; the free-running losses' largest
-    relative difference beside a second op-by-op fit's (the sums' own
-    spread); the same 5 steps from the same state (forced_fit). Then a
+    both, every loss and the final parameters bit-equal, and a second
+    op-by-op fit's too; the same 5 steps from the same state (forced_fit):
+    gradients and parameters bit-equal step by step. Then a
     checkpoint saved between replays holds the live parameters, and a
     resumed fit continues from it: its first loss bit-equal to a forward
     at the saved parameters."""
@@ -1845,15 +1872,15 @@ def step_fit_case(m, prepared, rec):
                              f"captures, not 1 (the program's)")
     if not got == want == {"fused_forward_topo": 5, "replay_vjp": 5}:
         raise AssertionError(f"fit launches: program {got}, eager {want}")
-    if l_prog[0] != l_eager[0]:
-        raise AssertionError(f"fit step 0: {l_prog[0]!r} against "
-                             f"{l_eager[0]!r}, not bit-equal")
-    out["param_err"] = grad_gate("fit final parameters", p_prog, p_eager)
-    out["free_loss_rel"] = max_rel(l_prog, l_eager)
-    out["eager_vs_eager_rel"] = max_rel(l_again, l_eager)
-    out["forced_param_err"] = forced_fit(
-        m, "bunny 1080p fit", start, target, 5, 5e-2, 5, ("mat_color",),
-        accel)
+    if not l_prog == l_eager == l_again:
+        raise AssertionError(f"fit losses: program {l_prog}, op by op "
+                             f"{l_eager} and {l_again}, not bit-equal")
+    out["params_differ"] = params_differ(p_prog, p_eager)
+    if out["params_differ"]:
+        raise AssertionError(f"fit final parameters: program against op "
+                             f"by op {out['params_differ']}")
+    forced_fit(m, "bunny 1080p fit", start, target, 5, 5e-2, 5,
+               ("mat_color",), accel)
     out["launches"] = got
     out["losses"] = {"program": l_prog, "eager": l_eager}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1888,8 +1915,8 @@ def step_program_case(m, label, prepared, expect, reps=3):
     the optimizer's state); one replay with torch's sync debug mode
     "error" and the launch counts reset, equal to an op-by-op step's and
     to `expect` (a count, or None for at least one), its gradients
-    within the vjp gate of the op-by-op step's; CUDA-event times in
-    turns op by op, program, op by op."""
+    bit-equal to the op-by-op step's; CUDA-event times in turns op by op,
+    program, op by op."""
     prog, prog_params = m.probe.grad_step(prepared, program=True)
     eager, eager_params = m.probe.grad_step(prepared, program=False)
     out = {}
@@ -1937,10 +1964,13 @@ def step_program_case(m, label, prepared, expect, reps=3):
     if missing:
         raise AssertionError(f"{label}: gradients present in one step "
                              f"only: {missing}")
-    out["grad_err"] = grad_gate(
-        f"{label} step program", *({k: p.grad for k, p in ps.items()
-                                    if p.grad is not None}
-                                   for ps in (prog_params, eager_params)))
+    out["grads_differ"] = params_differ(
+        *({k: p.grad for k, p in ps.items() if p.grad is not None}
+          for ps in (prog_params, eager_params)))
+    if out["grads_differ"]:
+        raise AssertionError(f"{label}: the step program's gradients "
+                             f"differ from the op-by-op step's: "
+                             f"{out['grads_differ']}")
     out["eager_ms"] = cuda_ms(eager, reps)
     out["program_ms"] = cuda_ms(prog, reps)
     out["eager_ms_again"] = cuda_ms(eager, reps)
@@ -1953,14 +1983,12 @@ def step_program_case(m, label, prepared, expect, reps=3):
 LOOK_AT_KEYS = ("cam_eye", "cam_target", "cam_up_hint", "cam_scales")
 
 
-def step_example_case(m, rec):
+def example_fits(m):
     """examples/inverse_rendering.py's settings: sphere_plane 64x36, every
     material color from 0.5 back to the b2 render (150 steps, lr 5e-2),
     then the look-at camera (eye, target, up hint and scales) from a
-    shaken eye back to the b1 render (50 steps, lr 4e-3). Wall seconds
-    of the two fits in turns op by op, program, op by op (two captures);
-    the free-running losses' largest relative differences; every step
-    from the same state (forced_fit)."""
+    shaken eye back to the b1 render (50 steps, lr 4e-3): the two fits'
+    (name, scene, target, fit arguments)."""
     sc = m.load_scene(m.scenes / "sphere_plane.json")
     sc.camera.width, sc.camera.height = 64, 36
     soa = m.scene_to_soa(sc, device="cuda")
@@ -1974,35 +2002,48 @@ def step_example_case(m, rec):
     shaken = m.camera.apply_look_at(soa, dict(
         cam, cam_eye=cam["cam_eye"] + torch.tensor([0.08, -0.05, 0.06],
                                                    device="cuda")))
-    colors_kw = dict(steps=150, lr=5e-2, bounces=2,
-                     param_filter=("mat_color",))
-    camera_kw = dict(steps=50, lr=4e-3, bounces=1, param_filter=LOOK_AT_KEYS)
+    return (("colors", corrupt, target,
+             dict(steps=150, lr=5e-2, bounces=2, param_filter=("mat_color",),
+                  camera="raw")),
+            ("camera", shaken, target_b1,
+             dict(steps=50, lr=4e-3, bounces=1, param_filter=LOOK_AT_KEYS,
+                  camera="look_at")))
 
-    def run(program):
-        t0 = time.perf_counter()
-        _, colors = m.fit(corrupt, target, device="cuda", program=program,
-                          **colors_kw)
-        _, camera = m.fit(shaken, target_b1, camera="look_at",
-                          device="cuda", program=program, **camera_kw)
-        return time.perf_counter() - t0, colors + camera
 
+def example_run(m, fits, program):
+    """The example's two fits from scratch, one after the other: (wall
+    seconds, losses, final parameters keyed "fit.name")."""
+    t0 = time.perf_counter()
+    losses, params = [], {}
+    for name, soa, target, kw in fits:
+        p, part = m.fit(soa, target, device="cuda", program=program, **kw)
+        losses += part
+        params.update({f"{name}.{k}": v for k, v in p.items()})
+    return time.perf_counter() - t0, losses, params
+
+
+def step_example_case(m, rec):
+    """The example's fits (example_fits): wall seconds of the two fits in
+    turns op by op, program, op by op (two captures); every loss of the
+    three bit-equal; every step from the same state (forced_fit)."""
+    fits = example_fits(m)
     captures = m.renderer.CAPTURES
-    eager_s, eager = run(False)
-    program_s, program = run(True)
-    eager_again_s, eager_again = run(False)
+    eager_s, eager, _ = example_run(m, fits, False)
+    program_s, program, _ = example_run(m, fits, True)
+    eager_again_s, eager_again, _ = example_run(m, fits, False)
     if m.renderer.CAPTURES != captures + 2:
         raise AssertionError(f"example: {m.renderer.CAPTURES - captures} "
                              f"captures, not 2")
-    forced = [forced_fit(m, f"example {name}", s, t, accel=m.prepare(
-        s, accel="fused", bounces=kw["bounces"]).accel, camera=camera, **kw)
-        for name, s, t, kw, camera in (
-            ("colors", corrupt, target, colors_kw, "raw"),
-            ("camera", shaken, target_b1, camera_kw, "look_at"))]
+    if not program == eager == eager_again:
+        raise AssertionError(f"example: program and op-by-op losses not "
+                             f"bit-equal (max relative "
+                             f"{max_rel(program, eager):.2e}, op by op "
+                             f"twice {max_rel(eager_again, eager):.2e})")
+    for name, soa, target, kw in fits:
+        forced_fit(m, f"example {name}", soa, target, accel=m.prepare(
+            soa, accel="fused", bounces=kw["bounces"]).accel, **kw)
     rec["example"] = {"eager_s": [eager_s, eager_again_s],
                       "program_s": program_s,
-                      "free_loss_rel": max_rel(program, eager),
-                      "eager_vs_eager_rel": max_rel(eager_again, eager),
-                      "forced_param_err": max(forced),
                       "losses": [program[0], program[149], program[150],
                                  program[-1]]}
     phase("step-program", "example (sphere_plane 64x36, 150 mat_color "
@@ -2049,6 +2090,192 @@ def phase_step_program(m, main_prepared, smi, rec):
     rec["step_program"] = out
     phase("step-program", f"done in {time.perf_counter() - t0:.1f} s "
           f"({smi})")
+
+
+def k2_repeat(m, prepared, seed):
+    """K2 alone (vjp_tables) three times on the same codes and numpy-seeded
+    cotangents: the elements of d_rays (d_o, d_d), d_tbl and d_misc (the
+    light and ambient cotangents) whose bits differ from the first
+    call's, summed over the later calls."""
+    soa = prepared.soa
+    o, d, _ = m.block_rays(soa)
+    *_, codes = m.fused.fused_render_rays(soa, prepared.accel, o, d, 1e-3, 5,
+                                          emit_topo=True,
+                                          tables=prepared.tables)
+    rng = np.random.default_rng(seed)
+    r = o.shape[0]
+    cot = tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .cuda() for s in ((r, 3), (r,), (r, 3)))
+    tables = [x.detach() for x in m.rv.backward_tables(soa)]
+    outs = []
+    for _ in range(3):
+        outs.append(m.rv.vjp_tables(soa, *tables, o, d, codes, cot, 1e-3, 5))
+        torch.cuda.synchronize()
+    groups = {"d_tbl": (0,), "d_misc": (1, 2), "d_rays": (3, 4)}
+    counts = {name: sum(bits_differ(out[i], outs[0][i]) for out in outs[1:]
+                        for i in idx) for name, idx in groups.items()}
+    inst = m.rv.vjp_instance(soa, 5)
+    return {"instance": inst.sums, "differ": counts}
+
+
+def grad_repeat(m, prepared):
+    """The 19-group gradient (perf_probe.grad_step, lr 0: every call at the
+    same parameters) called three times as the step program (eager,
+    capture and replay, replay) and twice op by op: per group, the
+    elements whose bits differ from the first call of the same kind,
+    and between the first program and the first op-by-op call."""
+    runs = {}
+    for program, calls in ((True, 3), (False, 2)):
+        step, params = m.probe.grad_step(prepared, program=program)
+        runs[program] = []
+        for _ in range(calls):
+            step()
+            torch.cuda.synchronize()
+            runs[program].append({k: p.grad.clone() for k, p in
+                                  params.items() if p.grad is not None})
+        del step, params
+    prog, eager = runs[True], runs[False]
+    out = {"program": dict(sum((Counter(params_differ(g, prog[0]))
+                                for g in prog[1:]), Counter())),
+           "eager": params_differ(eager[1], eager[0]),
+           "program_vs_eager": params_differ(prog[0], eager[0]),
+           "groups": len(eager[0])}
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_case(m):
+    """A 10-step bunny 480x270 b5 fit (mat_color perturbed as fit_start
+    does, light_color and ambient trained too, lr 5e-2) uninterrupted,
+    against 5 steps, a checkpoint, and a fresh fit call resuming to step
+    10: the elements of the final parameters and of the Adam state (as
+    the step-9 checkpoints hold them) whose bits differ."""
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 480, 270
+    p = m.prepare(sc, accel="fused", device="cuda", bounces=5)
+    target, start = fit_start(p.soa, p.accel, m.tgrad)
+    kw = dict(lr=5e-2, bounces=5, accel=p.accel, device="cuda",
+              param_filter=("mat_color", "light_color", "ambient"))
+    like = {k: v.detach().clone() for k, v in
+            m.tgrad.extract_params(start).items()}
+    with tempfile.TemporaryDirectory() as one, \
+            tempfile.TemporaryDirectory() as two:
+        m.fit(start, target, steps=10, checkpoint_dir=one,
+              checkpoint_every=100, **kw)
+        m.fit(start, target, steps=5, checkpoint_dir=two,
+              checkpoint_every=100, **kw)
+        if m.ckpt.latest_step(two) != 4:
+            raise AssertionError("the 5-step fit saved no step 4")
+        _, resumed = m.fit(start, target, steps=10, checkpoint_dir=two,
+                           checkpoint_every=100, **kw)
+        if len(resumed) != 5:
+            raise AssertionError(f"the resumed fit ran {len(resumed)} steps")
+        a, sa, step_a = m.ckpt.restore_checkpoint(one, like)
+        b, sb, step_b = m.ckpt.restore_checkpoint(two, like)
+    if step_a != step_b or step_a != 9:
+        raise AssertionError(f"checkpoints at steps {step_a}, {step_b}")
+    differ = params_differ(a, b)
+    for i, state in sa["state"].items():
+        for name, v in state.items():
+            n = bits_differ(v.float(), sb["state"][i][name].float())
+            if n:
+                differ[f"adam.{i}.{name}"] = n
+    return {"differ": differ, "resumed_losses": resumed}
+
+
+def exact_sum_case(m, n_el=17102, n=1 << 20, seed=400):
+    """K2's sums alone (replay_vjp.exact_sum: the kernel's split, integer
+    atomics and rounding) on `n` numpy-seeded terms into bunny's n_el
+    table elements, half of them into one row of 17 (a wall's), over 11
+    decades, with NaN, infinities, a float-overflowing pair and terms
+    under the grid in a few elements: against exact_sum_plain, and against
+    itself with the terms shuffled. Returns the counts of elements whose
+    bits differ."""
+    rng = np.random.default_rng(seed)
+    idx = np.where(rng.random(n) < 0.5, rng.integers(0, 17, n),
+                   rng.integers(0, n_el, n)).astype(np.int32)
+    vals = (rng.normal(size=n) * 10.0 ** rng.uniform(-8, 3, n)).astype(
+        np.float32)
+    special = [np.inf, -np.inf, np.nan, 3e38, 3e38, 2.0 ** -65, 1e-45]
+    idx[:7] = [n_el - 1, n_el - 2, n_el - 3, n_el - 4, n_el - 4, n_el - 5,
+               n_el - 6]
+    vals[:7] = special
+    perm = rng.permutation(n)
+    index, values = torch.from_numpy(idx), torch.from_numpy(vals)
+    got = m.rv.exact_sum(index.cuda(), values.cuda(), n_el)
+    again = m.rv.exact_sum(index[perm].cuda(), values[perm].cuda(), n_el)
+    want = m.rv.exact_sum_plain(index, values, n_el)
+    torch.cuda.synchronize()
+    return {"terms": n, "elements": n_el,
+            "plain_differ": bits_differ(got.cpu(), want),
+            "shuffled_differ": bits_differ(again, got)}
+
+
+def phase_determinism(m, main_prepared, smi, rec):
+    """Same inputs, same bits: K2's sums alone against their plain version
+    (exact_sum_case), K2 three times (bunny and sphere_plane 1920x1080 b5,
+    the 256k bunny 960x540 b5), the 19-group gradient twice op by op and
+    three times as a step program, and between the two (those three, the
+    transparent bunny 160x90 b5 through K4, bunny 480x270 b5 "pallas"),
+    the example's fits twice from scratch as programs, and a fit resumed
+    from a checkpoint against an uninterrupted one. Every count of
+    differing elements is printed before the gate, which wants them all
+    zero."""
+    t0 = time.perf_counter()
+    out = {"exact_sum": exact_sum_case(m), "k2": {}, "grad": {}}
+    phase("determinism", "K2's sums alone (exact_sum) against their plain "
+          "version and shuffled: " + json.dumps(out["exact_sum"]))
+    sp = m.prepare(m.load_scene(m.scenes / "sphere_plane.json"),
+                   accel="fused", device="cuda", bounces=5)
+    big, big_label = big_prepared(m, 4, 960, 540)
+    fused_cases = (("bunny 1920x1080 b5", main_prepared),
+                   ("sphere_plane 1920x1080 b5", sp), (big_label, big))
+    for seed, (label, prepared) in enumerate(fused_cases):
+        out["k2"][label] = k2_repeat(m, prepared, 300 + seed)
+        phase("determinism", f"K2 x3 {label}: " + json.dumps(
+            out["k2"][label]))
+        torch.cuda.empty_cache()
+    sc = m.load_scene(m.scenes / "bunny.json")
+    sc.camera.width, sc.camera.height = 480, 270
+    steps = fused_cases + (
+        ("transparent bunny 160x90 b5 (K4 backward)",
+         m.prepare(transparent_bunny(m, 160, 90), accel="fused",
+                   device="cuda", bounces=5)),
+        ("bunny 480x270 b5 pallas",
+         m.prepare(sc, accel="pallas", device="cuda", bounces=5)))
+    for label, prepared in steps:
+        out["grad"][label] = grad_repeat(m, prepared)
+        phase("determinism", f"gradient {label}: " + json.dumps(
+            out["grad"][label]))
+    del sp, big, steps
+    torch.cuda.empty_cache()
+    fits = example_fits(m)
+    (_, la, pa), (_, lb, pb) = (example_run(m, fits, True) for _ in "ab")
+    out["example"] = {"losses_differ": int(sum(
+        x != y for x, y in zip(la, lb)) + abs(len(la) - len(lb))),
+        "params_differ": params_differ(pa, pb)}
+    phase("determinism", "example fit twice as programs: "
+          + json.dumps(out["example"]))
+    out["resume"] = resume_case(m)
+    phase("determinism", "bunny 480x270 b5 fit resumed at step 5 against "
+          "10 uninterrupted steps: " + json.dumps(out["resume"]))
+    rec["determinism"] = out
+    bad = [f"exact_sum: {out['exact_sum']}"] if (
+        out["exact_sum"]["plain_differ"]
+        or out["exact_sum"]["shuffled_differ"]) else []
+    bad += [f"K2 {k}: {v['differ']}" for k, v in out["k2"].items()
+           if any(v["differ"].values())]
+    bad += [f"gradient {k} {kind}: {v[kind]}"
+            for k, v in out["grad"].items()
+            for kind in ("program", "eager", "program_vs_eager") if v[kind]]
+    if out["example"]["losses_differ"] or out["example"]["params_differ"]:
+        bad.append(f"example fit: {out['example']}")
+    if out["resume"]["differ"]:
+        bad.append(f"resumed fit: {out['resume']['differ']}")
+    if bad:
+        raise AssertionError("not bit-reproducible: " + "; ".join(bad))
+    phase("determinism", f"every case bit-equal; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
 
 
 def free_port():
@@ -2367,12 +2594,21 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
                   accel=accel, device=dev)
         m.reset()
         captures = m.renderer.CAPTURES
-        _, losses = fit(start, target, mesh=mesh, **kw)
+        mesh_params, losses = fit(start, target, mesh=mesh, **kw)
         torch.cuda.synchronize()
         launches["multi_fit"] = m.read()
         if m.renderer.CAPTURES != captures + 1:
             raise AssertionError("fit(mesh=...) over NCCL did not train "
                                  "through one step program")
+        again_params, again = fit(start, target, mesh=mesh, **kw)
+        rec["multi_fit_differ"] = {
+            "losses": sum(x != y for x, y in zip(losses, again)),
+            "params": params_differ(mesh_params, again_params)}
+        if rec["multi_fit_differ"]["losses"] or rec[
+                "multi_fit_differ"]["params"]:
+            raise AssertionError(f"fit(mesh=...) twice: losses {losses} "
+                                 f"and {again}, parameters differ "
+                                 f"{rec['multi_fit_differ']['params']}")
         _, ref_losses = fit(start, target, **kw)
         if (launches["multi_fit"]["fused_forward_topo"] < 3
                 or launches["multi_fit"]["replay_vjp"] < 3):
@@ -2401,7 +2637,8 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
           + " ".join(f"{x:.8f}" for x in ref_losses)
           + f" of the one-device program fit (max relative "
           f"{rel.max():.2e}, gate {FIT_RTOL}), launches "
-          f"{launches['multi_fit']}")
+          f"{launches['multi_fit']}; run twice, losses and parameters "
+          f"bit-equal")
 
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
@@ -2792,6 +3029,8 @@ def main(argv=None) -> int:
         phase_program(m, smi, rec)
     if "step-program" not in skip:
         phase_step_program(m, main_prepared, smi, rec)
+    if "determinism" not in skip:
+        phase_determinism(m, main_prepared, smi, rec)
     if "multi" not in skip:
         phase_multi(m, main_prepared, root, smi, rec, launches)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")

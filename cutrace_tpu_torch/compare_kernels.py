@@ -26,18 +26,31 @@ started in that root builds its kernels and times them by CUDA events
               CLI's frame), CUDA events, mean of 10
   render/pallas  the same prepared "pallas" (the `--accel pallas`
               frame), mean of 2
+  step/bunny  one replay of the 19-group step program
+              (perf_probe.grad_step, lr 0) on bunny 1920x1080 b5, K1 with
+              codes and K2; CUDA events, mean of 10 after the eager call
+              and the capture
+  step/sphere_plane  the same on sphere_plane 1920x1080 b5
+  step/256k   the same on the 256k bunny 960x540 b5 (K3 with codes, K2)
+  fit/example  the inverse-rendering example's fits (sphere_plane 64x36:
+              150 mat_color steps b2, then 50 look-at camera steps b1)
+              through `fit`'s step programs, captures included: host
+              seconds to the losses on the host, in ms
 
 K1 and K3 are timed by CUDA events around `fused_render_rays`, the
 frames by CUDA events around `render`. K2 and K4
 are timed as the device time of their kernels alone, read from a
-torch.profiler trace (the kernels whose names hold `replay_vjp_kernel` or
-`cluster_cast_kernel`): CUDA events around a launch would add the host's
+torch.profiler trace (the kernels whose names hold `replay_vjp`, K2 and
+the rounding of its sums, each also by name, or `cluster_cast_kernel`;
+`launches` counts them): CUDA events around a launch would add the host's
 launch latency whenever the card waits on the host, as it does between
 the composable path's launches. It calls only what every checkout since
 the culling cast (K4) has: `load_scene`, `bigscene.subdivided_bunny`,
 `prepare`, `block_rays`, `render`, `ops.fused.fused_render_rays`,
-`ops.replay_vjp.backward_tables` and `vjp_tables`, and
-`ops.pallas_cast.cast_clusters`.
+`ops.replay_vjp.backward_tables` and `vjp_tables`,
+`ops.pallas_cast.cast_clusters`, and since the step programs
+`perf_probe.grad_step`, `scene_to_soa`, `diff.grad`, `diff.camera` and
+`parallel.train.fit`.
 Each run prints one JSON line with the card's `nvidia-smi` name and power
 limit; the last line is a JSON summary of every case's times per label.
 """
@@ -50,7 +63,8 @@ import pathlib
 import subprocess
 import sys
 
-# name: (what is timed, subdivision levels, width, height), bounces 5
+# name: (what is timed, subdivision levels, width, height[, scene]),
+# bounces 5 (the example's fits their own)
 CASES = {"bunny": ("forward", 0, 1920, 1080),
          "bunny/256k": ("forward", 4, 960, 540),
          "bunny/1M": ("forward", 5, 960, 540),
@@ -59,16 +73,20 @@ CASES = {"bunny": ("forward", 0, 1920, 1080),
          "cast/bunny": ("cast", 0, 1920, 1080),
          "cast/frame": ("frame", 0, 1920, 1080),
          "render/fused": ("render", 0, 1920, 1080),
-         "render/pallas": ("render_pallas", 0, 1920, 1080)}
+         "render/pallas": ("render_pallas", 0, 1920, 1080),
+         "step/bunny": ("step", 0, 1920, 1080),
+         "step/sphere_plane": ("step", 0, 1920, 1080, "sphere_plane.json"),
+         "step/256k": ("step", 4, 960, 540),
+         "fit/example": ("example", 0, 64, 36, "sphere_plane.json")}
 
 # what a run does in its root: build, prepare each case, time its kernel
 _CHILD = r"""
-import json, os, subprocess, sys, tempfile
+import dataclasses, json, os, subprocess, sys, tempfile, time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
-from cutrace_tpu_torch import bigscene, load_scene
+from cutrace_tpu_torch import bigscene, load_scene, perf_probe
 from cutrace_tpu_torch.ops import fused
 from cutrace_tpu_torch.ops import pallas_cast as pc
 from cutrace_tpu_torch.ops import replay_vjp as rv
@@ -85,8 +103,9 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 # device ms a call of the kernels whose names hold `kernel`, and their
-# launches a call, from a profiler trace of reps calls
-def device_ms(fn, reps, kernel):
+# launches a call, from a profiler trace of reps calls; with `by_name`, also
+# each kernel's ms a call by its name
+def device_ms(fn, reps, kernel, by_name=False):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -96,23 +115,58 @@ def device_ms(fn, reps, kernel):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    durs = [e["dur"] for e in events if e.get("ph") == "X"
+    hits = [e for e in events if e.get("ph") == "X"
             and e.get("cat") == "kernel" and kernel in e["name"]]
-    return sum(durs) / 1e3 / reps, len(durs) / reps
+    total = sum(e["dur"] for e in hits) / 1e3 / reps, len(hits) / reps
+    if not by_name:
+        return total
+    names = {}
+    for e in hits:
+        names[e["name"]] = names.get(e["name"], 0.0) + e["dur"] / 1e3 / reps
+    return total, names
 
 torch.backends.cuda.matmul.allow_tf32 = False
 out = {}
-for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
+def example_fits():
+    from cutrace_tpu_torch.diff import camera, grad
+    from cutrace_tpu_torch.parallel.train import fit
+    from cutrace_tpu_torch.scene.soa import scene_to_soa
+    soa = scene_to_soa(sc, device="cuda")
+    with torch.no_grad():
+        target, _, _ = grad.render_image_flat(soa, 2, 1e-3)
+        target_b1, _, _ = grad.render_image_flat(soa, 1, 1e-3)
+    corrupt = dataclasses.replace(
+        soa, mat_color=torch.full_like(soa.mat_color, 0.5))
+    cam = camera.camera_to_look_at(soa)
+    shaken = camera.apply_look_at(soa, dict(
+        cam, cam_eye=cam["cam_eye"] + torch.tensor([0.08, -0.05, 0.06],
+                                                   device="cuda")))
+    t0 = time.perf_counter()
+    fit(corrupt, target, steps=150, lr=5e-2, bounces=2,
+        param_filter=("mat_color",), device="cuda")
+    fit(shaken, target_b1, steps=50, lr=4e-3, bounces=1,
+        param_filter=("cam_eye", "cam_target", "cam_up_hint", "cam_scales"),
+        camera="look_at", device="cuda")
+    return (time.perf_counter() - t0) * 1e3
+
+for name, (what, levels, w, h, *scene) in json.loads(sys.argv[1]).items():
     if levels == 0:
-        sc = load_scene("scenes/bunny.json")
+        sc = load_scene("scenes/" + (scene[0] if scene else "bunny.json"))
         sc.camera.width, sc.camera.height = w, h
     else:
         sc, _ = bigscene.subdivided_bunny(levels, w, h)
+    if what == "example":
+        example_fits()
+        out[name] = {"ms": min(example_fits() for _ in range(2))}
+        continue
     culls = what in ("cast", "frame", "render_pallas")
     p = prepare(sc, accel="pallas" if culls else "fused", device="cuda",
                 bounces=5)
     o, d, _ = block_rays(p.soa)
-    if what == "forward":
+    if what == "step":
+        fn, _ = perf_probe.grad_step(p, program=True)
+        fn()
+    elif what == "forward":
         fn = lambda: fused.fused_render_rays(p.soa, p.accel, o, d, 1e-3, 5,
                                              tables=p.tables)
     elif what == "vjp":
@@ -135,14 +189,17 @@ for name, (what, levels, w, h) in json.loads(sys.argv[1]).items():
     torch.cuda.synchronize()
     rec = {"clusters": int(p.accel.order.shape[0]),
            "cluster_size": int(p.accel.order.shape[1])}
-    if what in ("forward", "render"):
+    if what in ("forward", "render", "step"):
         rec["ms"] = event_ms(fn, 10)
     elif what == "render_pallas":
         rec["ms"] = event_ms(fn, 2)
     else:
-        kernel = "replay_vjp" if what == "vjp" else "cluster_cast"
-        rec["ms"], rec["launches"] = device_ms(
-            fn, 2 if what == "frame" else 10, kernel + "_kernel")
+        if what == "vjp":  # every kernel named replay_vjp*: the rounding too
+            (rec["ms"], rec["launches"]), rec["kernels_ms"] = device_ms(
+                fn, 10, "replay_vjp", by_name=True)
+        else:
+            rec["ms"], rec["launches"] = device_ms(
+                fn, 2 if what == "frame" else 10, "cluster_cast_kernel")
     out[name] = rec
     del p, o, d, fn
     torch.cuda.empty_cache()

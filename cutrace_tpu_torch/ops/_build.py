@@ -54,14 +54,15 @@ SIGNATURES = {
     },
     "replay_vjp": {
         "cutrace_replay_vjp": (
-            [_P] * 9  # rays codes cot table lights ambient d_rays d_tbl
-                      # d_misc
+            [_P] * 9  # rays codes cot table lights ambient d_rays acc out
             + [_I] * 11  # n_rays n_pad k_rows n_tab t_cnt p_cnt n_lights
                          # bounces shadow_steps any_refl any_transp
             + [_F]  # fudge
-            + [_I]  # shared_sums
+            + [_I]  # smem_lo
             + [_P]  # stream
         ),
+        # index values n n_el acc out stream
+        "cutrace_exact_sum": [_P, _P, _I, _I, _P, _P, _P],
         "cutrace_replay_vjp_attributes": [_P],  # out[4]
     },
     "cluster_cast": {

@@ -44,21 +44,46 @@
 // What bounds it on this card: arithmetic and divergence per ray (about
 // 300 float operations per live node plus 180 per light, with branches on
 // kind, light and march, IEEE division, sqrt, powf and logf throughout: no
-// fast math), and the parameter cotangent sums. Blocks run in no order, so
-// the sums are atomics:
+// fast math), and the parameter cotangent sums. Blocks and warps run in no
+// fixed order, so every sum is made exact, and thereby independent of the
+// order its terms arrive in:
 //   * blocks of kBlock = 256 threads, persistent (as many as fit on the
 //     card at once), each over a grid-stride loop of ray tiles; a ragged
 //     last tile (n_pad a multiple of 128) leaves its lanes idle;
-//   * the (N, 17) table cotangent: one shared-memory copy a block when the
-//     caller asks for it (bunny: 1006 rows = 68 KB, two blocks an SM),
-//     flushed once with global atomics of its nonzero entries, else global
-//     atomics throughout (the 256k step). Either way the lanes of a warp
-//     are grouped by winner code (__match_any_sync) and each group's sum is
-//     added once, by its lowest lane;
+//   * a float term v goes into a fixed-point sum on the grid 2^-64
+//     (split, add_parts): its 24-bit significand, shifted to v's exponent,
+//     falls in at most two of six 32-bit limbs, each limb kept in a 64-bit
+//     word and added with an integer atomicAdd. Integer addition is
+//     associative, so the words, and the float finalize_kernel rounds them
+//     to (nearest, ties to even), are the same whichever warp or block adds
+//     first. Every finite float32 fits (|v| < 2^128), so nothing overflows;
+//     a term below 2^-64 rounds to the grid (ties to even), the one rounding
+//     before the last. A word sums at most k_rows x n_pad <= 2^30 terms (the
+//     code buffer's bound, checked at the launch) of magnitude below 2^32,
+//     so it cannot wrap. A NaN or infinity sets a flag bit instead, and the
+//     element is what a float sum gives: NaN, or that infinity;
+//   * the (N, 17) table cotangent: rows from `smem_lo` on are summed in a
+//     block's own shared-memory words and added to the global words once,
+//     at the block's end; the others go to the global words directly, and
+//     mark their row touched, so the rounding skips the rows no ray hit
+//     (most of a 256k table at 160x90).
+//     ops/replay_vjp.py vjp_instance picks smem_lo: every row when they fit
+//     ("shared", sphere_plane), else the planes' and spheres' (bunny's walls
+//     take most rays; "global"). The lanes of a warp are grouped by winner
+//     code (__match_any_sync) and each group's float sum, in a fixed order
+//     of shuffles, is added once, by its lowest lane;
 //   * the light and ambient cotangents: one shared-memory column a thread
-//     ((6 L + 1) x 256 floats: 25 KB for bunny's 4 lights), summed over the
-//     block at the end, so no light index reaches local memory.
-// Summation order varies run to run, so results are allclose, not bitwise.
+//     ((6 L + 1) x 256 floats: 25 KB for bunny's 4 lights), so no light
+//     index reaches local memory, summed in float over the thread's rays,
+//     then over each warp at the block's end in a fixed order of shuffles,
+//     and added exactly.
+// So the outputs depend on the inputs and the grid alone, not on timing:
+// the same inputs give the same bits, run after run. The table's sums do
+// not depend on the grid either; the light sums do, through the tiles each
+// block takes, and the grid is sized from the card's SM count and
+// occupancy, so bits are equal on one card model and build. (Flushing the
+// light columns at every tile's end instead made them grid-free too, at
+// 0.26 ms of bunny 1080p's 2.6 ms: PERF.md.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,6 +102,12 @@ constexpr int kMaxNodes = 63;    // bounce-tree nodes
 constexpr int kMaxParked = 6;    // parked transparency frames (bounces <= 5)
 constexpr int kCotStack = kMaxParked + 2;  // pending child cotangents
 constexpr float kEps = 1e-6f;    // material activity threshold
+// exact sums: six 32-bit limbs a sum, each in a 64-bit word, on the grid
+// 2^-kGridExp (ops/replay_vjp.py _WORDS, _GRID_EXP)
+constexpr int kWords = 6;
+constexpr int kGridExp = 64;
+// flag bits of a sum: a NaN, +inf or -inf was added
+constexpr unsigned kNaN = 1u, kPosInf = 2u, kNegInf = 4u;
 // packed-table columns
 constexpr int PK_A = 0, PK_B = 3, PK_C = 6, PK_COL = 10, PK_SPEC = 13;
 constexpr int PK_REFL = 14, PK_PHONG = 15, PK_TRANSP = 16;
@@ -118,6 +149,8 @@ __device__ __forceinline__ V3 norm_vjp(V3 u, float inv, bool z, V3 g) {
   return (g - u * dot(u, g)) * inv;
 }
 
+typedef unsigned long long u64;
+
 struct Args {
   const float* rays;    // (n_pad, 8): o - o0, d, 0, 0
   const int* codes;     // (k_rows, n_pad)
@@ -126,28 +159,148 @@ struct Args {
   const float* lights;  // (L, 8): kind, vec (point lights recentered), color
   const float* ambient;
   float* d_rays;        // (n_pad, 8): d_o, d_d, 0, 0
-  float* d_tbl;         // (n_tab, 17), zeroed by the caller
-  float* d_misc;        // (L * 8 + 8), zeroed by the caller
+  u64* acc;             // (n_el, kWords) exact sums, zeroed by the caller:
+                        // the table's n_tab x 17, then L * 8 + 8 light rows
+  unsigned* flags;      // (n_el) flag bits, zeroed by the caller
+  unsigned char* touched;  // (n_tab) rows below smem_lo added to, zeroed
   int n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights, bounces;
-  int shadow_steps, n_nodes, node_rows;
-  bool any_refl, any_transp, smem_table;
+  int shadow_steps, n_nodes, node_rows, smem_lo;
+  bool any_refl, any_transp;
   float fudge;
 };
 
-// Where a block adds table cotangents: its shared-memory copy, or the
-// output in global memory. The branch is uniform, and each side keeps its
-// address space, so shared adds compile to shared-memory atomics.
+// The fixed-point parts of a float v on the grid 2^-kGridExp: v's
+// significand (rounded to the grid, ties to even, where v is below
+// 2^(24 - kGridExp)) shifted to v's exponent, cut at limb `limb` into lo
+// (< 2^32) and hi (< 2^23, zero from limb 5 on), negated with v. false
+// when v adds nothing: zero, a subnormal (< 2^-126), a term under half a
+// grid step, or a NaN or infinity, which sets `flag` instead.
+struct Parts {
+  int limb;
+  long long lo, hi;
+  unsigned flag;
+};
+
+__device__ __forceinline__ bool split(float v, Parts& p) {
+  const unsigned b = __float_as_uint(v);
+  const int ex = (b >> 23) & 0xff;
+  p.flag = 0u;
+  if (ex == 0xff) {
+    p.flag = (b & 0x7fffffu) ? kNaN : ((b >> 31) ? kNegInf : kPosInf);
+    return false;
+  }
+  if (ex == 0) return false;
+  unsigned m = (b & 0x7fffffu) | 0x800000u;
+  int s = ex - 150 + kGridExp;  // |v| = m 2^(s - kGridExp)
+  if (s < 0) {
+    const int k = -s;
+    if (k > 24) return false;  // m < 2^24 <= half a step of 2^k
+    const unsigned q = m >> k, rem = m & ((1u << k) - 1u);
+    const unsigned half = 1u << (k - 1);
+    m = q + ((rem > half || (rem == half && (q & 1u))) ? 1u : 0u);
+    if (m == 0u) return false;
+    s = 0;
+  }
+  p.limb = s >> 5;  // s <= 168: limb <= 5, and hi = 0 at limb 5
+  const u64 w = (u64)m << (s & 31);
+  p.lo = (long long)(w & 0xffffffffull);
+  p.hi = (long long)(w >> 32);
+  if (b >> 31) {
+    p.lo = -p.lo;
+    p.hi = -p.hi;
+  }
+  return true;
+}
+
+// Adds the parts to one sum's words, in shared or global memory (two's
+// complement: the words' sums are signed).
+__device__ __forceinline__ void add_parts(u64* words, const Parts& p) {
+  atomicAdd(words + p.limb, (u64)p.lo);
+  if (p.hi != 0) atomicAdd(words + p.limb + 1, (u64)p.hi);
+}
+
+// Where a block adds cotangents: rows from smem_lo on to its shared-memory
+// words, other rows (marked touched) and the light rows to the global ones.
+// The branch keeps each side's address space, so shared adds compile to
+// shared-memory atomics.
 struct Sums {
-  float* shared;
-  float* global;
-  bool use_shared;
-  __device__ __forceinline__ void add(size_t off, float v) const {
-    if (use_shared)
-      atomicAdd(shared + off, v);
-    else
-      atomicAdd(global + off, v);
+  u64* shared;
+  u64* global;
+  unsigned* flags;
+  unsigned char* touched;
+  int smem_lo;
+  // element el (a table element, or n_tab * kCols + a light-row index) of
+  // the global sums
+  __device__ __forceinline__ void add_global(size_t el, float v) const {
+    Parts p;
+    if (split(v, p))
+      add_parts(global + el * kWords, p);
+    else if (p.flag)
+      atomicOr(flags + el, p.flag);
+  }
+  // column col of table row `row`
+  __device__ __forceinline__ void add(int row, int col, float v) const {
+    const size_t el = (size_t)row * kCols + col;
+    if (row < smem_lo) {
+      touched[row] = 1;
+      add_global(el, v);
+      return;
+    }
+    Parts p;
+    if (split(v, p))
+      add_parts(shared + (el - (size_t)smem_lo * kCols) * kWords, p);
+    else if (p.flag)
+      atomicOr(flags + el, p.flag);
   }
 };
+
+// The float nearest (ties to even) to the exact sum in `words`, or the
+// float sum's own NaN or infinity when `flag` says one was added. The
+// words are carried into kWords + 1 digits of 32 bits (the last signed:
+// the sum is below 2^30 x 2^192 grid steps), made a magnitude, and the 24
+// bits below its top bit kept, rounded by the next bit and every bit
+// under it.
+__device__ float exact_value(const u64* words, unsigned flag) {
+  if ((flag & kNaN) || (flag & (kPosInf | kNegInf)) == (kPosInf | kNegInf))
+    return __int_as_float(0x7fc00000);  // the canonical quiet NaN
+  if (flag & kPosInf) return INFINITY;
+  if (flag & kNegInf) return -INFINITY;
+  unsigned d[kWords + 1];
+  long long c = 0;
+  for (int i = 0; i < kWords; ++i) {
+    const long long t = (long long)words[i] + c;
+    d[i] = (unsigned)(t & 0xffffffffll);
+    c = t >> 32;  // arithmetic: t = c 2^32 + d[i]
+  }
+  d[kWords] = (unsigned)c;
+  const bool neg = c < 0;
+  if (neg) {
+    unsigned carry = 1u;
+    for (int i = 0; i <= kWords; ++i) {
+      const u64 t = (u64)(~d[i]) + carry;
+      d[i] = (unsigned)t;
+      carry = (unsigned)(t >> 32);
+    }
+  }
+  int j = kWords;
+  while (j >= 0 && d[j] == 0u) --j;
+  if (j < 0) return 0.0f;
+  const int p = 31 - __clz(d[j]);  // the top bit: bit p + 32 of win
+  const u64 win = ((u64)d[j] << 32) | (j > 0 ? d[j - 1] : 0u);
+  unsigned q = (unsigned)(win >> (p + 9));  // 24 bits
+  const bool half = ((win >> (p + 8)) & 1ull) != 0ull;
+  bool sticky = (win & ((1ull << (p + 8)) - 1ull)) != 0ull;
+  for (int i = 0; i < j - 1; ++i) sticky = sticky || d[i] != 0u;
+  int e2 = 32 * (j - 1) + p + 9 - kGridExp;
+  if (half && (sticky || (q & 1u))) {
+    if (++q == (1u << 24)) {
+      q >>= 1;
+      ++e2;
+    }
+  }
+  const float f = ldexpf((float)q, e2);  // exact, or inf past float's range
+  return neg ? -f : f;
+}
 
 __device__ __forceinline__ int kind_of(const Args& a, int code) {
   if (code < 0) return kMiss;
@@ -417,7 +570,7 @@ __device__ __forceinline__ NodeCot node_backward(
       const float g_wgt = dot(mul(contrib, lc), g_final);
       for (int si = 0; si < n_steps; ++si) {
         int cc = a.codes[(size_t)(sbase + si) * a.n_pad + i];
-        if (g_wgt != 0.0f) sums.add((size_t)cc * kCols + PK_TRANSP, g_wgt);
+        if (g_wgt != 0.0f) sums.add(cc, PK_TRANSP, g_wgt);
       }
     }
     const float dg = dot(dif, g_contrib);
@@ -597,8 +750,12 @@ __device__ __forceinline__ NodeCot node_backward(
 // grouped by code (__match_any_sync). Within a group each lane adds in the
 // partial sum of the next peer above it still taking part, then every
 // second one drops out, so after log2 of the group's size rounds its
-// lowest lane holds the group's sum and adds it alone: the rays of one
-// wall would otherwise serialize on the same 17 addresses.
+// lowest lane holds the group's sum, in an order fixed by the lanes' codes:
+// the rays of one wall would otherwise add to the same 17 sums one by one.
+// Then each group's row in turn is spread over the lanes, lane j adding
+// column j, so no lane splits 17 terms alone (faster than each leader
+// adding its own row, for a wall's few groups and a fine mesh's many
+// alike: PERF.md).
 __device__ __forceinline__ void scatter_row(const Sums& sums, int code,
                                             float (&g)[kCols]) {
   const unsigned full = 0xffffffffu;
@@ -618,10 +775,18 @@ __device__ __forceinline__ void scatter_row(const Sums& sums, int code,
     above &= __ballot_sync(full, (rank & 1) == 0);
     rank >>= 1;
   }
-  if (leader && code >= 0) {
+  unsigned rows = __ballot_sync(full, leader && code >= 0);
+  while (rows != 0u) {
+    const int src = __ffs(rows) - 1;
+    rows &= rows - 1u;
+    const int row = __shfl_sync(full, code, src);
+    float mine = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      if (g[j] != 0.0f) sums.add((size_t)code * kCols + j, g[j]);
+    for (int j = 0; j < kCols; ++j) {
+      const float v = __shfl_sync(full, g[j], src);
+      if (lane == (unsigned)j) mine = v;
+    }
+    if (lane < (unsigned)kCols && mine != 0.0f) sums.add(row, lane, mine);
   }
 }
 
@@ -780,21 +945,42 @@ __device__ __forceinline__ void tree_ray(const Args& a, const Sums& sums,
   }
 }
 
+// Adds the warp's light columns to the exact light sums, at the block's
+// end: each row summed over the 32 lanes in a fixed order of shuffles and
+// added by lane (row mod 32). Rows mirror the light-table columns [kind,
+// vec, color, 0] a light, then ambient. Every lane of the warp calls it.
+__device__ __forceinline__ void flush_lights(const Args& a, const Sums& sums,
+                                             float* lcol) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int n_misc = a.n_lights * 6 + 1;
+  for (int j = 0; j < n_misc; ++j) {
+    float v = lcol[j * kBlock];
+    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
+    if (lane == (j & 31) && v != 0.0f) {
+      const int dst = j < a.n_lights * 6 ? (j / 6) * kLightRows + 1 + j % 6
+                                         : a.n_lights * kLightRows;
+      sums.add_global((size_t)a.n_tab * kCols + dst, v);
+    }
+  }
+}
+
 // Blocks a multiprocessor should hold at once: the register cap the
 // compiler is held to (65,536 / (256 x 2) = 128 a thread).
 constexpr int kMinBlocks = 2;
 
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 replay_vjp_kernel(Args a) {
-  extern __shared__ float smem[];
+  extern __shared__ u64 smem[];
   const int n_misc = a.n_lights * 6 + 1;
-  float* s_light = smem;  // n_misc rows of kBlock columns
-  float* s_tbl = smem + n_misc * kBlock;
-  const int n_tbl = a.smem_table ? a.n_tab * kCols : 0;
-  for (int j = threadIdx.x; j < n_misc * kBlock + n_tbl; j += kBlock)
-    smem[j] = 0.0f;
+  float* s_light = reinterpret_cast<float*>(smem);  // n_misc x kBlock
+  u64* s_tbl = smem + n_misc * (kBlock / 2);
+  const int n_words = (a.n_tab - a.smem_lo) * kCols * kWords;
+  for (int j = threadIdx.x; j < n_misc * kBlock; j += kBlock)
+    s_light[j] = 0.0f;
+  for (int j = threadIdx.x; j < n_words; j += kBlock) s_tbl[j] = 0ull;
   __syncthreads();
-  const Sums sums{s_tbl, a.d_tbl, a.smem_table};
+  const Sums sums{s_tbl, a.acc, a.flags, a.touched, a.smem_lo};
   float* lcol = s_light + threadIdx.x;
 
   const int n_tiles = (a.n_pad + kBlock - 1) / kBlock;
@@ -803,32 +989,56 @@ replay_vjp_kernel(Args a) {
     const bool active = i < a.n_rays;
     tree_ray(a, sums, lcol, i, active);
   }
+  flush_lights(a, sums, lcol);
   __syncthreads();
+  // the block's shared words into the global ones
+  u64* dst = a.acc + (size_t)a.smem_lo * kCols * kWords;
+  for (int j = threadIdx.x; j < n_words; j += kBlock) {
+    const u64 v = s_tbl[j];
+    if (v != 0ull) atomicAdd(dst + j, (u64)v);
+  }
+}
 
-  // flush: each warp sums whole rows of the light columns; misc rows
-  // mirror the light-table columns [kind, vec, color, 0], then ambient
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  for (int j = threadIdx.x >> 5; j < n_misc; j += kBlock / 32) {
-    float v = 0.0f;
-    for (int t = lane; t < kBlock; t += 32) v += s_light[j * kBlock + t];
-    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(full, v, off);
-    if (lane == 0 && v != 0.0f) {
-      const int dst = j < a.n_lights * 6 ? (j / 6) * kLightRows + 1 + j % 6
-                                         : a.n_lights * kLightRows;
-      atomicAdd(a.d_misc + dst, v);
-    }
-  }
-  for (int j = threadIdx.x; j < n_tbl; j += kBlock) {
-    const float v = s_tbl[j];
-    if (v != 0.0f) atomicAdd(a.d_tbl + j, v);
-  }
+// One thread an element: the exact sums rounded to float32; a table row
+// below smem_lo that no term touched is zero without reading its words.
+__global__ void replay_vjp_finalize_kernel(const u64* acc,
+                                           const unsigned* flags,
+                                           const unsigned char* touched,
+                                           int smem_lo, float* out,
+                                           int n_el) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_el) return;
+  const int row = e / kCols;
+  out[e] = row < smem_lo && !touched[row]
+               ? 0.0f
+               : exact_value(acc + (size_t)e * kWords, flags[e]);
+}
+
+// Sums terms into elements exactly, one thread a term: the sums of K2,
+// alone (ops/replay_vjp.py exact_sum; chip_smoke.py holds it to its plain
+// version).
+__global__ void exact_sum_kernel(const int* index, const float* values,
+                                 int n, u64* acc, unsigned* flags) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Sums sums{nullptr, acc, flags, nullptr, 0};
+  sums.add_global((size_t)index[i], values[i]);
+}
+
+int finalize(const u64* acc, const unsigned* flags,
+             const unsigned char* touched, int smem_lo, float* out,
+             int n_el, cudaStream_t stream) {
+  if (n_el <= 0) return 0;
+  replay_vjp_finalize_kernel<<<(n_el + kBlock - 1) / kBlock, kBlock, 0,
+                               stream>>>(acc, flags, touched, smem_lo, out,
+                                         n_el);
+  return (int)cudaGetLastError();
 }
 
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)(a.n_lights * 6 + 1) * kBlock +
-                       (a.smem_table ? (size_t)a.n_tab * kCols : 0));
+      sizeof(float) * (size_t)(a.n_lights * 6 + 1) * kBlock +
+      sizeof(u64) * (size_t)(a.n_tab - a.smem_lo) * kCols * kWords;
   cudaError_t err = cudaFuncSetAttribute(
       replay_vjp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -858,36 +1068,74 @@ int tree_nodes(int bounces, bool refl, bool transp) {
 
 }  // namespace
 
-// Launches the replay backward on `stream`; returns a CUDA error code (0
-// on success). n_pad (a multiple of 128, >= n_rays) is the row count of
-// rays, cot and d_rays and the ray stride of codes; rays past n_rays are
-// ignored. d_tbl and d_misc must be zeroed by the caller. `shared_sums`
-// keeps a block's table cotangent in shared memory (ops/replay_vjp.py
-// vjp_instance picks it). Refuses (cudaErrorInvalidValue) more than 8
-// lights, more than 63 tree nodes, a two-branch tree deeper than the
-// parked-frame stack or a ragged n_pad; a shared-memory request past the
+// Most terms one exact sum may take (each below 2^32 a limb in a 64-bit
+// word): ops/replay_vjp.py MAX_TERMS.
+constexpr long long kMaxTerms = 1ll << 30;
+
+// Launches the replay backward on `stream`, then the rounding of its sums;
+// returns a CUDA error code (0 on success). n_pad (a multiple of 128, >=
+// n_rays) is the row count of rays, cot and d_rays and the ray stride of
+// codes; rays past n_rays are ignored. `acc` holds n_el = n_tab * 17 +
+// n_lights * 8 + 8 sums of kWords words, then n_el 32-bit flags, then
+// n_tab bytes of touched rows, all zeroed by the caller; `out` (n_el
+// floats) receives the table cotangent (n_tab, 17), then the light rows
+// [0, d_vec, d_color, 0] and d_ambient. Table rows from `smem_lo` on are
+// summed in shared memory (ops/replay_vjp.py vjp_instance picks it).
+// Refuses (cudaErrorInvalidValue) more than 8 lights, more than 63 tree
+// nodes, a two-branch tree deeper than the parked-frame stack, a ragged
+// n_pad or more than kMaxTerms codes; a shared-memory request past the
 // card's limit fails in the launch.
 extern "C" int cutrace_replay_vjp(
     const float* rays, const int* codes, const float* cot,
     const float* table, const float* lights, const float* ambient,
-    float* d_rays, float* d_tbl, float* d_misc, int n_rays, int n_pad,
+    float* d_rays, long long* acc, float* out, int n_rays, int n_pad,
     int k_rows, int n_tab, int t_cnt, int p_cnt, int n_lights, int bounces,
     int shadow_steps, int any_refl, int any_transp, float fudge,
-    int shared_sums, void* stream) {
+    int smem_lo, void* stream) {
   const bool refl = any_refl != 0, transp = any_transp != 0;
   const int n_nodes = tree_nodes(bounces, refl, transp);
   if (n_lights < 0 || n_lights > kMaxLights || n_nodes > kMaxNodes ||
       (refl && transp && bounces >= kMaxParked) || n_pad % kPad != 0 ||
-      n_rays > n_pad)
+      n_rays > n_pad || smem_lo < 0 || smem_lo > n_tab ||
+      (long long)k_rows * n_pad > kMaxTerms)
     return (int)cudaErrorInvalidValue;
-  if (n_rays <= 0) return 0;
   const int node_rows = 1 + n_lights * (transp ? shadow_steps : 1);
   if (n_nodes * node_rows != k_rows) return (int)cudaErrorInvalidValue;
-  Args a{rays, codes, cot, table, lights, ambient, d_rays, d_tbl, d_misc,
-         n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights, bounces,
-         shadow_steps, n_nodes, node_rows, refl, transp, shared_sums != 0,
-         fudge};
-  return launch(a, (cudaStream_t)stream);
+  const int n_el = n_tab * kCols + n_lights * kLightRows + kLightRows;
+  u64* words = reinterpret_cast<u64*>(acc);
+  unsigned* flags = reinterpret_cast<unsigned*>(words + (size_t)n_el * kWords);
+  unsigned char* touched = reinterpret_cast<unsigned char*>(flags + n_el);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n_rays > 0) {
+    Args a{rays, codes, cot, table, lights, ambient, d_rays, words, flags,
+           touched, n_rays, n_pad, k_rows, n_tab, t_cnt, p_cnt, n_lights,
+           bounces, shadow_steps, n_nodes, node_rows, smem_lo, refl, transp,
+           fudge};
+    const int err = launch(a, s);
+    if (err != 0) return err;
+  }
+  return finalize(words, flags, touched, smem_lo, out, n_el, s);
+}
+
+// Sums `values` (n) into n_el elements by `index` (each in [0, n_el)),
+// exactly as K2 sums its cotangents, into `out`; `acc`: n_el sums of
+// kWords words, then n_el 32-bit flags, zeroed by the caller. Returns a
+// CUDA error code.
+extern "C" int cutrace_exact_sum(const int* index, const float* values,
+                                 int n, int n_el, long long* acc, float* out,
+                                 void* stream) {
+  if (n < 0 || n_el < 0 || (long long)n > kMaxTerms)
+    return (int)cudaErrorInvalidValue;
+  u64* words = reinterpret_cast<u64*>(acc);
+  unsigned* flags = reinterpret_cast<unsigned*>(words + (size_t)n_el * kWords);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0) {
+    exact_sum_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(
+        index, values, n, words, flags);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  return finalize(words, flags, nullptr, 0, out, n_el, s);
 }
 
 // The kernel's resources as compiled (registers, local bytes, static

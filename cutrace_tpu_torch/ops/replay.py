@@ -96,18 +96,38 @@ _PK_TRANSP = 16
 _PK_W = 17
 
 
+class _MaterialRows(torch.autograd.Function):
+    """The rows of the (M, 7) material columns that (N,) material indices
+    pick, whose backward sums the rows of each material in a fixed order:
+    the cotangents masked by a one-hot of the indices, (N, M, 7), summed
+    over N by one torch reduction, which keeps its order from run to run.
+    index_select's own backward, index_add_, adds with atomics on the card
+    (every triangle of a mesh shares one material), so its sums, and every
+    gradient downstream, changed bits from run to run; advanced indexing's
+    sorts the (N,) indices and walks each run of duplicates in one warp."""
+
+    @staticmethod
+    def forward(ctx, mats, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_mats = mats.shape[0]
+        return torch.index_select(mats, 0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        mats = torch.arange(ctx.n_mats, device=idx.device)
+        one_hot = (idx[:, None] == mats)[:, :, None]
+        return torch.where(one_hot, g[:, None, :], 0.0).sum(0), None
+
+
 def _packed_table(soa):
     """(T+P+S, 17) packed per-primitive rows: geometry plus the winner's
     material parameters, so the replay needs one row gather per (node,
     ray). Built from the live leaves, so it is differentiable (gradients
     flow through the concatenation back to every geometry and material
-    leaf) and never stale."""
+    leaf) and never stale. The material columns' gradients are summed in
+    a fixed order (_MaterialRows)."""
     def matcols(mat_idx):
-        # index_select, not advanced indexing: its backward is one
-        # index_add_, where indexing's sorts the (N,) indices and walks
-        # each run of duplicates in one warp (a 256k-triangle mesh has
-        # one material)
-        mat_idx = mat_idx.to(torch.int64)
         mats = torch.cat([
             soa.mat_color,
             soa.mat_specular[:, None],
@@ -115,7 +135,7 @@ def _packed_table(soa):
             soa.mat_phong[:, None],
             soa.mat_transparency[:, None],
         ], dim=1)
-        return torch.index_select(mats, 0, mat_idx)  # (N, 7)
+        return _MaterialRows.apply(mats, mat_idx.to(torch.int64))  # (N, 7)
 
     t = soa.tri_p1.shape[0]
     p = soa.pl_point.shape[0]

@@ -135,6 +135,24 @@ def test_no_cutrace_tpu_import_in_the_port():
     assert not offenders
 
 
+def test_replay_vjp_has_no_float_atomics():
+    """The replay backward kernel sums no float with an atomic, whose
+    order would change the bits from run to run: every atomicAdd in
+    csrc/replay_vjp.cu adds a 64-bit integer word (its exact sums), and
+    no float atomic of another name (atomicAdd_block, atomicAdd_system)
+    is there."""
+    src = (REPO / "cutrace_tpu_torch" / "ops" / "csrc"
+           / "replay_vjp.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    adds = re.findall(r"\batomic\w*\(([^;]*?)\);", code)
+    assert len(adds) >= 4
+    for args in adds:
+        first, second = args.split(",", 1)
+        assert "(u64)" in second or "flag" in args, args
+    assert "atomicAdd_block" not in code and "atomicAdd_system" not in code
+    assert not re.search(r"atomicAdd\(\s*\(float", code)
+
+
 @pytest.mark.parametrize("entry", ["scene_to_soa", "soa_from_numpy",
                                    "params_from_numpy", "accel_from_numpy",
                                    "prepare", "render", "make_mesh",

@@ -1,7 +1,7 @@
 """Which instance of the replay backward (K2) and of the culling cast
 (K4) runs, decided on the host before the launch, and the host side of
-their wrappers: shared or global sums and block size for K2
-(`ops.replay_vjp.vjp_instance`), the flat loop or the tree walk for K4
+their wrappers: which table rows K2 sums in shared memory and its block
+size (`ops.replay_vjp.vjp_instance`), the flat loop or the tree walk for K4
 (`ops.pallas_cast.k4_instance`), the code buffer's no-copy contract, the
 arguments that reach each launch (stand-in libraries), the constants the
 CUDA sources share with the wrappers, and the resource query.
@@ -42,10 +42,15 @@ def _soa(scenes_dir, name, w=8, h=4):
     return scene_to_soa(sc, device="cpu")
 
 
-def _table_bytes(soa):
-    rows = (soa.tri_p1.shape[0] + soa.pl_point.shape[0]
+def _rows(soa):
+    return (soa.tri_p1.shape[0] + soa.pl_point.shape[0]
             + soa.sp_center.shape[0])
-    return 4 * rows * 17
+
+
+def _sum_bytes(rows):
+    """Shared bytes of `rows` table rows' exact sums: 17 sums of six int64
+    words each."""
+    return 8 * 17 * 6 * rows
 
 
 def _column_bytes(soa):
@@ -55,9 +60,9 @@ def _column_bytes(soa):
 # the five bundled scenes at bounce depth 5: (tree nodes, sums)
 BUNDLED = [
     ("triangle.json", 1, "shared"),
-    ("bunny.json", 6, "shared"),
-    ("bunny_small.json", 6, "shared"),
-    ("mirror.json", 6, "shared"),
+    ("bunny.json", 6, "global"),
+    ("bunny_small.json", 6, "global"),
+    ("mirror.json", 6, "global"),
     ("sphere_plane.json", 63, "shared"),
 ]
 
@@ -65,26 +70,37 @@ BUNDLED = [
 @pytest.mark.parametrize("name,nodes,sums", BUNDLED)
 def test_vjp_instance_bundled_scenes(scenes_dir, name, nodes, sums):
     """Every bundled scene at b5, from the 1-node chain to sphere_plane's
-    63-node two-branch tree, keeps the table cotangent in shared memory,
-    256 threads a block."""
+    63-node two-branch tree, 256 threads a block: every table row's exact
+    sums in shared memory where they fit (triangle, sphere_plane), else
+    the planes' and spheres' rows, the meshes' triangles in global
+    memory."""
     soa = _soa(scenes_dir, name)
     inst = tvjp.vjp_instance(soa, 5)
     assert (inst.nodes, inst.sums, inst.block) == (nodes, sums, 256)
-    assert inst.shared_bytes == _column_bytes(soa) + _table_bytes(soa)
+    lo = 0 if sums == "shared" else soa.tri_p1.shape[0]
+    assert inst.shared_from == lo
+    assert inst.shared_bytes == (_column_bytes(soa)
+                                 + _sum_bytes(_rows(soa) - lo))
     assert inst.shared_bytes <= tvjp.SHARED_SUMS_MAX
     if name == "bunny.json":
-        # 1006 rows of 17 floats and 4 lights' columns: two blocks an SM
-        assert inst.shared_bytes == 4 * (1006 * 17 + 25 * 256) == 94008
+        # 5 planes and a padding sphere row and 4 lights' columns
+        assert inst.shared_bytes == 4 * 25 * 256 + 816 * 6 == 30496
 
 
 def test_vjp_instance_256k_global_sums(scenes_dir):
     """At the 256k bunny's table size the (N, 17) sums no longer fit a
-    block's share: global sums, shared memory for the light columns
-    only."""
+    block's share: the triangles' rows are summed in global memory,
+    shared memory holds the light columns and the planes' and spheres'
+    rows; past SHARED_SUMS_MAX even those go to global memory."""
     soa = _soa(scenes_dir, "bunny.json")
     big = dataclasses.replace(soa, tri_p1=torch.empty((256000, 3)))
     inst = tvjp.vjp_instance(big, 5)
     assert (inst.nodes, inst.sums) == (6, "global")
+    assert inst.shared_from == 256000
+    assert inst.shared_bytes == _column_bytes(soa) + _sum_bytes(6) == 30496
+    many = dataclasses.replace(big, sp_center=torch.empty((200, 3)))
+    inst = tvjp.vjp_instance(many, 5)
+    assert inst.shared_from == _rows(many)
     assert inst.shared_bytes == _column_bytes(soa) == 25600
 
 
@@ -94,7 +110,7 @@ def test_vjp_instance_zero_lights(tmp_path):
     assert soa.n_lights == 0
     inst = tvjp.vjp_instance(soa, 5)
     assert (inst.nodes, inst.sums) == (6, "shared")
-    assert inst.shared_bytes == 4 * 256 + _table_bytes(soa)
+    assert inst.shared_bytes == 4 * 256 + _sum_bytes(_rows(soa))
 
 
 def test_vjp_instance_long_chain(scenes_dir):
@@ -140,11 +156,15 @@ def _fake_vjp_library(monkeypatch, rc=0):
 def test_vjp_wrapper_launch_contract(scenes_dir, monkeypatch, name,
                                      bounces):
     """The K2 wrapper's host side with a stand-in library: the launch gets
-    vjp_instance's sums, rays padded to a multiple of
-    128; LAUNCHES counts successful launches only and a CUDA error code
+    vjp_instance's first shared row, rays padded to a multiple of
+    128, a zeroed accumulator of the table's and the light rows' exact
+    sums; LAUNCHES counts successful launches only and a CUDA error code
     raises."""
     case = _case(scenes_dir, name, 8, 4, bounces)
     calls = _fake_vjp_library(monkeypatch)
+    made, acc_of = [], tvjp._acc
+    monkeypatch.setattr(tvjp, "_acc", lambda *a: made.append(
+        acc_of(*a)) or made[-1])
     table, lights, ambient = tvjp.backward_tables(case.soa)
     codes = case.port_codes()
     before = tvjp.LAUNCHES
@@ -156,7 +176,12 @@ def test_vjp_wrapper_launch_contract(scenes_dir, monkeypatch, name,
     n_rays, n_pad = args[9], args[10]
     assert (n_rays, n_pad) == (32, 128)
     assert args[12] == table.shape[0] and args[15] == case.soa.n_lights
-    assert args[21] == (inst.sums == "shared") == 1
+    assert args[21] == inst.shared_from == (
+        case.soa.tri_p1.shape[0] if name == "bunny.json" else 0)
+    n_el = table.shape[0] * 17 + case.soa.n_lights * 8 + 8
+    acc = made[0]
+    assert acc.dtype == torch.int64 and not acc.any()
+    assert acc.numel() == n_el * 6 + -(-(4 * n_el + table.shape[0]) // 8)
     assert inst.nodes == (3 if name == "bunny.json" else 7)
     monkeypatch.setattr(_build, "load_library", lambda name: type(
         "L", (), {"cutrace_replay_vjp": lambda self, *a: 700})())
@@ -301,6 +326,10 @@ def test_instance_constants_match_sources():
     assert consts["kPad"] == tvjp._PAD
     assert consts["kMaxLights"] == tvjp.MAX_LIGHTS
     assert consts["kMaxNodes"] == tvjp.MAX_NODES
+    assert consts["kWords"] == tvjp._WORDS
+    assert consts["kGridExp"] == tvjp._GRID_EXP
+    assert "constexpr long long kMaxTerms = 1ll << 30;" in src
+    assert tvjp.MAX_TERMS == 1 << 30
     assert "kInstance" not in src  # one kernel for every tree shape
     cast = _build.SOURCES["cluster_cast"].read_text()
     inst = dict(re.findall(r"\b(kInstance\w+) = (\d+)", cast))
