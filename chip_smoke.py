@@ -179,9 +179,18 @@ line) if any phase fails:
              before each run and must grow; no render_sharded over gloo
              captures a program (renderer.CAPTURES unchanged).
              The sharded frames' CUDA-event times beside render's
- 21. result  a JSON line of per-kernel numbers (each with its launches
-             in one replayed step of each step-program case), then the
-             contract line
+ 21. bench   `python -m cutrace_tpu_torch.bench --reps 10` in a
+             subprocess at its full sizes, within BENCH_DEADLINE_S, its
+             output passed on to the log as it is: exit code 0, every
+             line a JSON object with backend "cuda" and correct true
+             (frames equal to the eager loop's and gated at 480x270,
+             step gradients equal to the op-by-op step's with the route's
+             kernels launched, the example's losses falling, the kernels'
+             outputs and launches), every line of the bench present, the
+             headline bunny_1080p_ray_casts last
+ 22. result  a JSON line of per-kernel numbers (each with its launches
+             in one replayed step of each step-program case) and the
+             bench's headline and step lines, then the contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
@@ -218,8 +227,16 @@ from contextlib import redirect_stdout
 import numpy as np
 import torch
 
-ATOL = 2e-4
-EDGE_BUDGET = 0.05
+from cutrace_tpu_torch.utils.gates import (ATOL, EDGE_BUDGET,
+                                           EDGE_BUDGET_SUBDIVIDED,
+                                           code_edges, dilate,
+                                           discontinuity_mask,
+                                           gate, mismatch)
+from cutrace_tpu_torch.utils.profiling import event_ms as cuda_ms
+from cutrace_tpu_torch.utils.profiling import kernel_records
+from cutrace_tpu_torch.utils.roofline import (cast_bound, forward_bound,
+                                              tally_of, vjp_bound)
+
 REPLAY_TOL = {"color": 1e-5, "depth": 1e-4, "normal": 1e-5}
 VJP_RTOL = 2e-3
 PARITY = (
@@ -232,14 +249,11 @@ MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
           "cast", "pallas", "fallback", "program", "step-program",
-          "determinism", "multi")
+          "determinism", "multi", "bench")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
 BIG_ROWS = (2, 3, 4, 5)
-# a subdivided mesh against its own K1/plain render, or across subdivision:
-# tests/test_fused.py:173-188's edge budget
-EDGE_BUDGET_SUBDIVIDED = 0.10
 # share of rays that may take another path through the subdivided scene
 KNIFE_RAY_BUDGET = 1e-3
 # turns of a ray (radians) within which K3 and the plain version must
@@ -258,92 +272,20 @@ CAST_RANDOM_RAYS = 65536
 CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
 FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
 MULTI_DEADLINE_S = 240  # the two spawned ranks of the multi phase, together
+BENCH_DEADLINE_S = 420  # the bench phase's subprocess
+# the bench's lines, in order (cutrace_tpu_torch.bench), the headline last
+BENCH_LINES = (
+    "probe", "frame/mirror_1080p_b5", "frame/sphere_plane_1080p_b5",
+    "frame/bunny_1080p_b5_pallas", "bigscene/16k_960x540_b5",
+    "bigscene/64k_960x540_b5", "bigscene/256k_960x540_b5",
+    "bigscene/1M_960x540_b5", "bunny_1080p_grad_step",
+    "sphere_plane_1080p_grad_step", "step/bunny_256k_960x540_b5",
+    "fit/inverse_rendering_example", "kernel/K1", "kernel/K1_topo",
+    "kernel/K2", "kernel/K3", "kernel/K4", "bunny_1080p_ray_casts")
 FIT_RTOL = 1e-6  # fit(mesh=...) losses against the one-device fit
 PLAIN_CHUNK = 262144  # rays per plain-replay chunk on the card
-# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
-# float32 FLOP/s outside the tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# Float operations per unit of work, counted from the CUDA sources (a
-# multiply and an add count two): the forward kernel's triangle slot test
-# (tri_t), AABB slab test, plane and sphere tests, per-cast setup; the
-# replay backward's per live hit node, per (node, light) and per counted
-# march step, forward and reverse sweeps together.
-OPS_TRI_SLOT, OPS_SLAB, OPS_PLANE, OPS_SPHERE, OPS_CAST = 38, 24, 12, 30, 20
-OPS_VJP_NODE, OPS_VJP_LIGHT, OPS_VJP_STEP = 310, 180, 60
-
-
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
-
-
-def dilate(g, n):
-    """An (H, W) mask grown n times by its 4-neighbours."""
-    for _ in range(n):
-        g2 = g.copy()
-        g2[1:, :] |= g[:-1, :]
-        g2[:-1, :] |= g[1:, :]
-        g2[:, 1:] |= g[:, :-1]
-        g2[:, :-1] |= g[:, 1:]
-        g = g2
-    return g
-
-
-def discontinuity_mask(ref_img, thr=1e-3):
-    """Pixels adjacent to a local jump in the reference image (the same
-    mask as tests/test_device_renderer.py discontinuity_mask)."""
-    v = ref_img if ref_img.ndim == 2 else np.linalg.norm(ref_img, axis=-1)
-    v = np.nan_to_num(v, posinf=1e9, neginf=-1e9)
-    g = np.zeros(v.shape, bool)
-    dx = np.abs(np.diff(v, axis=1)) > thr
-    dy = np.abs(np.diff(v, axis=0)) > thr
-    g[:, 1:] |= dx
-    g[:, :-1] |= dx
-    g[1:, :] |= dy
-    g[:-1, :] |= dy
-    return dilate(g, 1)
-
-
-def code_edges(codes_img):
-    """Pixels next to a change of any topology code row between
-    neighbours, in an (H, W, K) code image: where a winner, an occlusion
-    flag or a march occluder changes, float rounding may flip it."""
-    g = np.zeros(codes_img.shape[:2], bool)
-    dx = (np.diff(codes_img, axis=1) != 0).any(-1)
-    dy = (np.diff(codes_img, axis=0) != 0).any(-1)
-    g[:, 1:] |= dx
-    g[:, :-1] |= dx
-    g[1:, :] |= dy
-    g[:-1, :] |= dy
-    return dilate(g, 1)
-
-
-def mismatch(a, b):
-    """(H, W) pixels of two (H, W[, 3]) images outside isclose(atol=ATOL)
-    (misses on both sides agree)."""
-    ok = np.isclose(a, b, atol=ATOL) | (np.isinf(a) & np.isinf(b))
-    return ~ok.reshape(a.shape[0], a.shape[1], -1).all(-1)
-
-
-def gate(base, out, extra_edges=None):
-    """Per-buffer (off-edge mismatches, edge mismatches, edge pixels,
-    off-edge max |error|) under the _compare gate; `base` is the plain
-    version's (color, depth, normal) images; `extra_edges` joins the
-    discontinuity mask."""
-    stats = {}
-    for name, a, b in zip(("color", "depth", "normal"), base, out):
-        bad = mismatch(a, b)
-        edges = discontinuity_mask(a)
-        if extra_edges is not None:
-            edges = edges | extra_edges
-        off = ~edges
-        both = np.isfinite(a) & np.isfinite(b)
-        with np.errstate(invalid="ignore"):
-            err = np.where(both, np.abs(a - b), 0.0)
-        err = err.reshape(a.shape[0], a.shape[1], -1).max(-1)
-        stats[name] = (int((bad & off).sum()), int((bad & edges).sum()),
-                       int(edges.sum()), float(err[off].max(initial=0.0)))
-    return stats
 
 
 def check_parity(label, soa, inverse, kern, plain, to_image,
@@ -368,18 +310,6 @@ def check_parity(label, soa, inverse, kern, plain, to_image,
     return max(stats["color"][3], stats["normal"][3])
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over reps runs, timed with CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def reset_launches(fused, rv, pc):
     fused.LAUNCHES = fused.TOPO_LAUNCHES = rv.LAUNCHES = 0
     fused.GLOBAL_LAUNCHES = fused.GLOBAL_TOPO_LAUNCHES = 0
@@ -395,55 +325,6 @@ def read_launches(fused, rv, pc):
             "fused_forward_big_topo": fused.BIG_TOPO_LAUNCHES,
             "replay_vjp": rv.LAUNCHES,
             "cluster_cast": pc.LAUNCHES}
-
-
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
-def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
-    """Two (bound ms, what bounds it) of one forward launch: the bytes it
-    must move (rays, scene tables, outputs, codes) at the card's memory
-    rate against float operations at its float32 rate. "bound": the
-    operations these inputs need whatever the traversal: per cast, its
-    plane and sphere tests and C slot tests for each cluster it needs
-    (the tally's needed visits: clusters entered by the final winner's t,
-    or before the light). "bound_admitted": the kernel's own work, its
-    slab tests and its admitted visits (and the tree boxes of a tree
-    walk among the bytes), which a better cull lowers."""
-    m, c = accel.order.shape
-    names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
-    table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
-    nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
-    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
-    per_cast = (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
-                + OPS_CAST)
-    return {"bound": _bound(nbytes, needed * c * OPS_TRI_SLOT
-                            + casts * per_cast),
-            "bound_admitted": _bound(
-                nbytes + (tables.tree.numel() * 4 if m > 32 else 0),
-                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
-                + casts * per_cast)}
-
-
-def cast_bound(tables, n_rays, tally):
-    """Two (bound ms, what bounds it) of one culling-cast launch: rays in,
-    t and order out and the 18 cast rows of the slot table plus the
-    cluster boxes, against the float operations of the cluster visits
-    the casts need ("bound"), or ("bound_admitted") of the kernel's own
-    slab tests and admitted visits (the tree boxes of a tree walk among
-    the bytes)."""
-    m, c = tables.tri.shape[:2]
-    nbytes = n_rays * (8 + 2) * 4 + m * c * 18 * 4 + tables.aabb.numel() * 4
-    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
-    return {"bound": _bound(nbytes, needed * c * OPS_TRI_SLOT
-                            + casts * OPS_CAST),
-            "bound_admitted": _bound(
-                nbytes + (tables.tree.numel() * 4 if m > 32 else 0),
-                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
-                + casts * OPS_CAST)}
 
 
 def bound_text(b):
@@ -496,34 +377,6 @@ def library_ms(lib_name, fn_name, call, reps):
     torch.cuda.synchronize()
     total = sum(a.elapsed_time(b) for a, b in events)
     return total / reps, len(events) / reps
-
-
-def vjp_bound(soa, codes, bounces):
-    """(bound ms, what bounds it) of one replay-backward launch: rays,
-    codes, cotangents, table and their cotangents at the memory rate,
-    against the float operations of this run's live hit nodes, their
-    lights and the counted march steps at the float32 rate."""
-    from cutrace_tpu_torch.ops import replay as rp
-
-    r, k = codes.shape
-    _, nodes = rp.topo_layout(bounces, soa.any_reflective,
-                              soa.any_transparent, soa.n_lights,
-                              soa.shadow_steps)
-    cast_rows = [cr for _, cr, _ in nodes]
-    hit_nodes = int((codes[:, cast_rows] >= 0).sum())
-    steps = 0
-    if soa.any_transparent:
-        march = torch.ones(k, dtype=torch.bool, device=codes.device)
-        march[cast_rows] = False
-        steps = int((codes[:, march] >= 0).sum())
-    n_tab = (soa.tri_p1.shape[0] + soa.pl_point.shape[0]
-             + soa.sp_center.shape[0])
-    nbytes = r * (8 + k + 8 + 8) * 4 + 2 * n_tab * 17 * 4
-    ops = (hit_nodes * (OPS_VJP_NODE + soa.n_lights * OPS_VJP_LIGHT)
-           + steps * OPS_VJP_STEP)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def rays_to_pixels(soa, inverse, per_ray):
@@ -764,14 +617,6 @@ def big_prepared(m, levels, w, h):
     prepared = m.prepare(sc, accel="fused", device="cuda", bounces=5)
     mm, c = prepared.accel.order.shape
     return prepared, f"bunny/{n_tris // 1000}k {w}x{h} b5 M={mm} C={c}"
-
-
-def tally_of(fn):
-    """Run fn(tally) on a zeroed (4,) int64 tally; return it."""
-    tally = torch.zeros(4, dtype=torch.int64, device="cuda")
-    fn(tally)
-    torch.cuda.synchronize()
-    return tally
 
 
 def phase_k1_global(m, rec, launches):
@@ -1358,22 +1203,11 @@ def phase_cast(m, big_prepared_256k, smi, rec):
 
 
 def kernel_device_ms(fn, kernel):
-    """(device ms, launches) of the kernels whose names hold `kernel` in
+    """(device ms, records) of the kernels whose names hold `kernel` in
     one call of fn(), from a CUDA-only torch.profiler trace: their time
     on the card alone, with no host latency between launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "t.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    durs = [e["dur"] for e in events if e.get("ph") == "X"
-            and e.get("cat") == "kernel" and kernel in e["name"]]
-    return sum(durs) / 1e3, len(durs)
+    durs = kernel_records(fn, kernel)
+    return sum(durs), len(durs)
 
 
 def k4_in_frame(m, prepared, rec):
@@ -2722,6 +2556,45 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
     phase("multi", f"done in {time.perf_counter() - t0:.1f} s")
 
 
+def phase_bench(root, rec):
+    """The port's bench at its full sizes, --reps 10, in a subprocess
+    under BENCH_DEADLINE_S; its output goes to the log as it is. Every
+    line must parse, run on the card and pass its own check, the lines
+    must be BENCH_LINES in order, and the bench must exit 0."""
+    torch.cuda.empty_cache()  # the card's memory for the subprocess
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "cutrace_tpu_torch.bench", "--reps", "10"]
+    try:
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=BENCH_DEADLINE_S)
+    except subprocess.TimeoutExpired as e:
+        for out in (e.stdout, e.stderr):
+            if out:
+                print(out if isinstance(out, str) else out.decode(),
+                      flush=True)
+        raise AssertionError(f"the bench ran past {BENCH_DEADLINE_S} s")
+    print(proc.stdout, end="", flush=True)
+    print(proc.stderr, end="", file=sys.stderr, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
+    names = tuple(r["metric"] for r in rows)
+    if names != BENCH_LINES:
+        raise AssertionError(f"the bench printed {names}, not {BENCH_LINES}")
+    bad = [r["metric"] for r in rows
+           if r["backend"] != "cuda" or r["correct"] is not True]
+    if bad:
+        raise AssertionError(f"bench lines off the card or failing their "
+                             f"checks: {bad}")
+    rec["bench"] = {
+        "seconds": time.perf_counter() - t0, "headline": rows[-1],
+        "steps": [r for r in rows if r["unit"] == "s/step"]}
+    phase("bench", f"{len(rows)} lines, every check passed, in "
+          f"{rec['bench']['seconds']:.1f} s; headline "
+          f"{rows[-1]['value']:.1f} Mcasts/s (median frame "
+          f"{rows[-1]['median']:.3f} ms of {rows[-1]['n']})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--skip", nargs="*", default=[], choices=PHASES)
@@ -3033,6 +2906,8 @@ def main(argv=None) -> int:
         phase_determinism(m, main_prepared, smi, rec)
     if "multi" not in skip:
         phase_multi(m, main_prepared, root, smi, rec, launches)
+    if "bench" not in skip:
+        phase_bench(root, rec)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
 
     if skip:
@@ -3160,6 +3035,7 @@ def main(argv=None) -> int:
                   "grad_err": rec["multi_grad_err"],
                   "launches": {k: launches[k]
                                for k in ("multi", "multi_fit")}},
+        "bench": rec["bench"],
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

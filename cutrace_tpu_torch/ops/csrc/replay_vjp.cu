@@ -58,8 +58,9 @@
 //     to (nearest, ties to even), are the same whichever warp or block adds
 //     first. Every finite float32 fits (|v| < 2^128), so nothing overflows;
 //     a term below 2^-64 rounds to the grid (ties to even), the one rounding
-//     before the last. A word sums at most k_rows x n_pad <= 2^30 terms (the
-//     code buffer's bound, checked at the launch) of magnitude below 2^32,
+//     before the last. A word sums at most k_rows x n_rays <= 2^30 terms
+//     (the live rays' codes, checked at the launch; rays past n_rays add
+//     none) of magnitude below 2^32,
 //     so it cannot wrap. A NaN or infinity sets a flag bit instead, and the
 //     element is what a float sum gives: NaN, or that infinity;
 //   * the (N, 17) table cotangent: rows from `smem_lo` on are summed in a
@@ -1083,8 +1084,8 @@ constexpr long long kMaxTerms = 1ll << 30;
 // summed in shared memory (ops/replay_vjp.py vjp_instance picks it).
 // Refuses (cudaErrorInvalidValue) more than 8 lights, more than 63 tree
 // nodes, a two-branch tree deeper than the parked-frame stack, a ragged
-// n_pad or more than kMaxTerms codes; a shared-memory request past the
-// card's limit fails in the launch.
+// n_pad or more than kMaxTerms codes of live rays; a shared-memory request
+// past the card's limit fails in the launch.
 extern "C" int cutrace_replay_vjp(
     const float* rays, const int* codes, const float* cot,
     const float* table, const float* lights, const float* ambient,
@@ -1097,7 +1098,7 @@ extern "C" int cutrace_replay_vjp(
   if (n_lights < 0 || n_lights > kMaxLights || n_nodes > kMaxNodes ||
       (refl && transp && bounces >= kMaxParked) || n_pad % kPad != 0 ||
       n_rays > n_pad || smem_lo < 0 || smem_lo > n_tab ||
-      (long long)k_rows * n_pad > kMaxTerms)
+      (long long)k_rows * n_rays > kMaxTerms)
     return (int)cudaErrorInvalidValue;
   const int node_rows = 1 + n_lights * (transp ? shadow_steps : 1);
   if (n_nodes * node_rows != k_rows) return (int)cudaErrorInvalidValue;

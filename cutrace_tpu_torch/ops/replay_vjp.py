@@ -45,7 +45,9 @@ SHARED_SUMS_MAX = 112 * 1024
 # The kernel's exact sums (csrc/replay_vjp.cu split, exact_value): a float
 # term goes in on the grid 2**-_GRID_EXP, as _WORDS limbs of 32 bits, each
 # kept in an int64 word; every finite float32 fits. A word takes at most
-# MAX_TERMS terms, each under 2**32, so it cannot wrap.
+# MAX_TERMS terms, each under 2**32, so it cannot wrap. A launch adds at
+# most one term a code row of a live ray (vjp_terms): padding rays carry
+# code -1 and add none.
 _WORDS = 6
 _GRID_EXP = 64
 MAX_TERMS = 1 << 30
@@ -189,6 +191,14 @@ def replay_vjp_plain(soa, table, lights, ambient, o, d, codes, cot, fudge,
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def vjp_terms(soa, bounces: int, n_rays: int) -> int:
+    """The most terms one exact sum of a replay-backward launch over
+    `n_rays` live rays can take: one a code row of a ray. The launch's
+    padding rays carry code -1 and add none, so this is the count that
+    ops.fused.replay_supported bounds (rows * n_rays * 4 bytes of codes)."""
+    return rp.replay_rows(soa, bounces) * n_rays
 
 
 def _check_terms(n: int):
@@ -362,7 +372,7 @@ def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
     cot8[:r, 0:3] = g_c
     cot8[:r, 3] = g_dep
     cot8[:r, 4:7] = g_n
-    _check_terms(rows * n_pad)
+    _check_terms(vjp_terms(soa, bounces, r))
     d_rays = torch.empty((n_pad, 8), dtype=torch.float32, device=dev)
     n_el = n_tab * 17 + n_lights * 8 + 8
     acc = _acc(n_el, dev, n_tab)

@@ -69,6 +69,7 @@ from cutrace_tpu_torch.ops import _build, fused, pallas_cast
 from cutrace_tpu_torch.parallel.train import make_train_step
 from cutrace_tpu_torch.render.renderer import (block_rays, prepare, render,
                                                render_eager)
+from cutrace_tpu_torch.utils.profiling import event_ms, kernel_records
 
 SCENES = ("bunny.json", "mirror.json", "sphere_plane.json")
 BOUNCES = 5
@@ -80,18 +81,6 @@ def _smi():
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-
-
-def _event_ms(fn, reps):
-    """Mean milliseconds of fn() over reps calls, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def probe(path: pathlib.Path, plain: bool) -> dict:
@@ -113,10 +102,10 @@ def probe(path: pathlib.Path, plain: bool) -> dict:
     rec = {
         "scene": path.name, "width": soa.width, "height": soa.height,
         "bounces": BOUNCES, "clusters": int(accel.order.shape[0]),
-        "wrapper_ms": [_event_ms(wrapper, 10) for _ in range(3)],
-        "render_ms": [_event_ms(frame, 10) for _ in range(3)],
+        "wrapper_ms": [event_ms(wrapper, 10) for _ in range(3)],
+        "render_ms": [event_ms(frame, 10) for _ in range(3)],
     }
-    wall = _event_ms(frame, PROFILED)
+    wall = event_ms(frame, PROFILED)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED):
@@ -141,9 +130,9 @@ def probe(path: pathlib.Path, plain: bool) -> dict:
         def plain_fn():
             return fused.fused_render_rays_plain(soa, accel, o, d, 1e-3,
                                                  BOUNCES)
-        first = _event_ms(plain_fn, 1)
-        rec["wrapper_ms"].append(_event_ms(wrapper, 10))
-        rec["plain_ms"] = [first, _event_ms(plain_fn, 1)]
+        first = event_ms(plain_fn, 1)
+        rec["wrapper_ms"].append(event_ms(wrapper, 10))
+        rec["plain_ms"] = [first, event_ms(plain_fn, 1)]
     print(json.dumps(rec), flush=True)
     print(ops.table(sort_by="self_device_time_total", row_limit=10),
           flush=True)
@@ -225,7 +214,7 @@ def trace_summary(events, key_averages, wall_ms):
     }
 
 
-def _traced(fn, out_path=None) -> dict:
+def traced(fn, out_path=None) -> dict:
     """trace_summary of torch.profiler (host and device) over fn() and a
     closing synchronize; out_path (gzipped JSON) keeps the chrome
     trace."""
@@ -258,7 +247,7 @@ def pallas_trace(out_path=None) -> dict:
     prepared = _bunny("pallas")
     render(prepared, bounces=BOUNCES)
     torch.cuda.synchronize()
-    summary = _traced(lambda: render(prepared, bounces=BOUNCES), out_path)
+    summary = traced(lambda: render(prepared, bounces=BOUNCES), out_path)
     print(json.dumps({"pallas_trace": summary}), flush=True)
     return summary
 
@@ -267,10 +256,10 @@ def grad_step(prepared, bounces: int = BOUNCES, program: bool = True,
               lr: float = 0.0):
     """A training step over all 19 parameter groups of a prepared scene,
     loss mean((c - 0.9 c0)^2) with c0 the scene's render (chip_smoke.py
-    grad's), through make_train_step with a capturable Adam (eps 1e-8):
-    (step() -> loss, params). At lr 0 the update's arithmetic runs in
-    full and leaves the parameters as they are, so every call
-    differentiates at the same point."""
+    grad's), through make_train_step with Adam (eps 1e-8; capturable on
+    the card, as fit builds it): (step() -> loss, params). At lr 0 the
+    update's arithmetic runs in full and leaves the parameters as they
+    are, so every call differentiates at the same point."""
     soa, accel = prepared.soa, prepared.accel
     with torch.no_grad():
         c0, _, _ = render_image_flat(soa, bounces, 1e-3, accel)
@@ -278,7 +267,7 @@ def grad_step(prepared, bounces: int = BOUNCES, program: bool = True,
     params = {k: v.detach().clone().requires_grad_()
               for k, v in extract_params(soa).items()}
     opt = torch.optim.Adam(list(params.values()), lr=lr, eps=1e-8,
-                           capturable=True)
+                           capturable=soa.device.type == "cuda")
     step = make_train_step(opt, bounces, accel=accel, program=program)
     return (lambda: step(params, soa, target)), params
 
@@ -302,7 +291,7 @@ def step_trace(out_path=None) -> dict:
                 step()
             torch.cuda.synchronize()
             keep = out_path if program and name == "fused_1080p" else None
-            rec[name][key] = _traced(step, keep)
+            rec[name][key] = traced(step, keep)
             del step
     print(json.dumps({"step_trace": rec}), flush=True)
     return rec
@@ -310,17 +299,8 @@ def step_trace(out_path=None) -> dict:
 
 def _k4_records(fn):
     """(K4 kernel records, their device ms) in a CUDA-only trace of fn()."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    durs = [e["dur"] for e in events if e.get("ph") == "X"
-            and e.get("cat") == "kernel" and "cluster_cast" in e["name"]]
-    return len(durs), sum(durs) / 1e3
+    durs = kernel_records(fn, "cluster_cast")
+    return len(durs), sum(durs)
 
 
 def k4_records(frames: int) -> dict:

@@ -7,6 +7,11 @@ there. `timed_render` times one warm frame: by CUDA events on the card,
 by the host clock on the CPU. `device_trace` records a torch.profiler
 trace (host ops, and the card's kernels and copies where there is a
 card) as a chrome trace, and `summarize_trace` sums it by name.
+
+For benchmarks: `event_ms` (CUDA events around many calls),
+`sample_ms` (one time a call), `kernel_records` (a kernel's device time
+a launch from a CUDA-only trace) and `spread` (median, the highest
+percentile with ten samples beyond it, and the count).
 """
 
 from __future__ import annotations
@@ -129,6 +134,79 @@ def device_trace(log_dir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps calls, by one pair of CUDA
+    events around them all."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sample_ms(fn, n: int, device) -> list:
+    """Milliseconds of each of n calls of fn(): CUDA events around each
+    call on a CUDA `device`, the host clock on the CPU."""
+    out = []
+    for _ in range(n):
+        if torch.device(device).type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def kernel_records(fn, kernel: str) -> list:
+    """Device milliseconds of each record of a kernel whose name holds
+    `kernel` in a CUDA-only torch.profiler trace of one fn() call, in
+    launch order. Such a trace may drop a few records: it is a time, not
+    a count of launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    hits = sorted((e for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "kernel" and kernel in e["name"]),
+                  key=lambda e: e["ts"])
+    return [e["dur"] / 1e3 for e in hits]
+
+
+def spread(samples) -> dict:
+    """The median of `samples`, the highest percentile with at least ten
+    samples beyond it ("p80" of 50 samples, the 40th smallest; none of
+    ten or fewer: "percentile" is then None) and their count."""
+    xs = sorted(samples)
+    n = len(xs)
+    out = {"median": (xs[(n - 1) // 2] + xs[n // 2]) / 2 if n else None}
+    k = n - 10  # the k-th smallest has n - k = 10 samples beyond it
+    if k >= 1:
+        name = f"p{100 * k // n}"
+        out.update({"percentile": name, name: xs[k - 1]})
+    else:
+        out["percentile"] = None
+    out["n"] = n
+    return out
 
 
 # chrome-trace categories of the card's own activities

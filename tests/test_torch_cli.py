@@ -142,6 +142,31 @@ def test_port_never_loads_jax():
     assert "LOADED []" in proc.stdout
 
 
+def test_bench_and_example_never_load_jax():
+    """The port's bench (every group, tiny) and the inverse-rendering
+    example run on the CPU in one process without loading jax or the JAX
+    package (cutrace_tpu)."""
+    code = (
+        "import sys\n"
+        "from cutrace_tpu_torch import bench, inverse_rendering\n"
+        "assert bench.main(['--device', 'cpu', '--size', '8x6', "
+        "'--bounces', '1', '--reps', '2', '--levels', '1'], "
+        "fit_steps=(2, 2)) == 0\n"
+        "assert inverse_rendering.main(['--device', 'cpu', '--width', '8', "
+        "'--height', '6', '--steps', '2'], camera_steps=2) == 0\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'cutrace_tpu'))\n"
+        "print('LOADED', loaded)\n"
+        "assert not loaded, loaded\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+    assert '"metric": "bunny_1080p_ray_casts"' in proc.stdout
+    assert "eye error" in proc.stdout
+
+
 def test_perf_probe_needs_cuda(monkeypatch):
     """The frame-time probe refuses to run without a CUDA card."""
     from cutrace_tpu_torch import perf_probe

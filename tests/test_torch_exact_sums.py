@@ -167,6 +167,82 @@ def test_exact_sum_raises_past_its_bound(monkeypatch, scenes_dir):
                               FUDGE, 1)
 
 
+# sphere_plane b5: 441 code rows. ops.fused.replay_supported admits rows x
+# R <= 2**30 codes of R live rays: R <= 2,434,788. K2 counted R padded to
+# 128 before, and refused R from 2,434,689 (padded 2,434,816) on: the
+# window 2,434,689 to 2,434,788 passed the scope and failed in K2.
+_SP_ROWS = 441
+
+
+def _sphere_plane_cpu(scenes_dir):
+    from cutrace_tpu_torch.render.renderer import prepare
+    from cutrace_tpu_torch.scene.loader import load_scene as tload
+
+    sc = tload(str(scenes_dir / "sphere_plane.json"))
+    sc.camera.width, sc.camera.height = 8, 4
+    p = prepare(sc, accel="fused", device="cpu")
+    return p.soa, p.accel
+
+
+@pytest.mark.parametrize("n_rays, admitted", [
+    (2_434_688, True), (2_434_700, True), (2_434_788, True),
+    (2_434_789, False), (2_434_790, False)])
+def test_replay_scope_is_k2s_term_bound(n_rays, admitted, scenes_dir):
+    """Every ray count that the replay's scope admits (replay_supported:
+    rows x R x 4 B of codes within 4 GiB) passes K2's term check, which
+    counts the live rays' codes (vjp_terms), and the first count past the
+    scope is refused by both. R = 2,434,700 and 2,434,788 lie in the
+    window that the padded count refused; on its sides, 2,434,688 (a
+    multiple of 128) passes both counts and 2,434,789 is past the scope.
+    Arithmetic only: no buffer of R rays."""
+    from cutrace_tpu_torch.ops import fused as tfused
+
+    soa, accel = _sphere_plane_cpu(scenes_dir)
+    assert treplay.replay_rows(soa, 5) == _SP_ROWS
+    assert tvjp.vjp_terms(soa, 5, n_rays) == _SP_ROWS * n_rays
+    assert tfused.replay_supported(soa, accel, 5, n_rays=n_rays) is admitted
+    if admitted:
+        tvjp._check_terms(tvjp.vjp_terms(soa, 5, n_rays))
+    else:
+        with pytest.raises(ValueError, match="terms for one exact sum"):
+            tvjp._check_terms(tvjp.vjp_terms(soa, 5, n_rays))
+    padded = -(-n_rays // tvjp._PAD) * tvjp._PAD
+    in_window = admitted and padded != n_rays
+    assert (_SP_ROWS * padded > tvjp.MAX_TERMS) is (in_window
+                                                     or not admitted)
+
+
+def test_k2_wrapper_counts_live_rays(monkeypatch, scenes_dir):
+    """K2's wrapper checks the live rays' terms, not the padded buffer's:
+    with MAX_TERMS set to exactly rows x R it goes on to the launch (a
+    stand-in library stops it there), and one term less refuses it. The
+    CUDA entry checks the same count."""
+    case = _case(scenes_dir, "bunny.json", 8, 4, 1)
+    r = case.o.shape[0]
+    rows = tvjp.rp.replay_rows(case.soa, 1)
+    assert r % tvjp._PAD != 0  # padded, the buffer holds more rays
+    tables = tvjp.backward_tables(case.soa)
+    args = (case.soa, *tables, case.o, case.d, case.port_codes(),
+            (None,) * 3, FUDGE, 1)
+
+    class Reached(Exception):
+        pass
+
+    def stand_in(name):
+        raise Reached(name)
+
+    monkeypatch.setattr(_build, "load_library", stand_in)
+    monkeypatch.setattr(tvjp, "MAX_TERMS", rows * r)
+    with pytest.raises(Reached, match="replay_vjp"):
+        tvjp._replay_vjp_cuda(*args)
+    monkeypatch.setattr(tvjp, "MAX_TERMS", rows * r - 1)
+    with pytest.raises(ValueError, match="terms for one exact sum"):
+        tvjp._replay_vjp_cuda(*args)
+    src = _build.SOURCES["replay_vjp"].read_text()
+    assert "(long long)k_rows * n_rays > kMaxTerms" in src
+    assert "k_rows * n_pad > kMaxTerms" not in src
+
+
 def _split_scalar(v):
     """csrc/replay_vjp.cu split, line by line, for one float32."""
     b = int(np.float32(v).view(np.uint32))
