@@ -160,8 +160,9 @@ line) if any phase fails:
              a captured chunk program (renderer._chunk_rows), bit-identical
              to its eager loop with equal launches, K4 launched, no sync
              in a replay; fit(mesh=...) 3 steps at the train phase's
-             settings through one step program (its all-reduce
-             captured), losses within 1e-6 relative of the one-device
+             settings through one step program (its gradient sum
+             captured: an all-gather, then the adds in rank order),
+             losses within 1e-6 relative of the one-device
              fit, K1 with codes and K2 launched, and run twice: losses and
              parameters bit-equal. (b) two ranks on the one card
              over gloo (CUDA tensors go through the host for the
@@ -179,7 +180,24 @@ line) if any phase fails:
              before each run and must grow; no render_sharded over gloo
              captures a program (renderer.CAPTURES unchanged).
              The sharded frames' CUDA-event times beside render's
- 21. bench   `python -m cutrace_tpu_torch.bench --reps 10` in a
+ 21. scaling  `python -m cutrace_tpu_torch.scaling` at bunny 1920x1080
+             b5 over every card present (one torchrun a mesh size, the
+             (n, 1) tiles mesh, "fused"), in a subprocess within
+             SCALING_DEADLINE_S: one line a mesh size and the efficiency
+             line, every line correct, no pixel off one rank's render, the
+             work's invariance and balance measured from K1's tally, and
+             every rank's sampled program frames (the timed ones, the
+             counts set to 0 just before them) launching K1 once a frame
+             and no other kernel. With two or more cards,
+             `multihost --steps 3` fits on every card under
+             NCCL_ALGO=allreduce:ring and under allreduce:tree (the
+             all-reduce's algorithm; the all-gathers have no tree),
+             through cutrace_tpu_torch.compare_fits: each run's step a
+             program, its two program fits and two op-by-op fits
+             bit-equal, and the same parameters and losses under both
+             algorithms (the gradient sum's order is the code's, not
+             NCCL's)
+ 22. bench   `python -m cutrace_tpu_torch.bench --reps 10` in a
              subprocess at its full sizes, within BENCH_DEADLINE_S, its
              output passed on to the log as it is: exit code 0, every
              line a JSON object with backend "cuda" and correct true
@@ -188,14 +206,14 @@ line) if any phase fails:
              kernels launched, the example's losses falling, the kernels'
              outputs and launches), every line of the bench present, the
              headline bunny_1080p_ray_casts last
- 22. result  a JSON line of per-kernel numbers (each with its launches
+ 23. result  a JSON line of per-kernel numbers (each with its launches
              in one replayed step of each step-program case) and the
              bench's headline and step lines, then the contract line
              {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
 fit, the 256k bigscene run, the 256k step, the --accel pallas CLI, the
-sharded render and fit) runs
+sharded render and fit, each rank's frames of the scaling sweep) runs
 with every kernel's launch count set to 0 just before it and read just
 after; the counts of the result line come from those runs. A render or
 a training step on the card replays a captured program, which calls no
@@ -249,7 +267,7 @@ MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
           "cast", "pallas", "fallback", "program", "step-program",
-          "determinism", "multi", "bench")
+          "determinism", "multi", "scaling", "bench")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -273,6 +291,10 @@ CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
 FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
 MULTI_DEADLINE_S = 240  # the two spawned ranks of the multi phase, together
 BENCH_DEADLINE_S = 420  # the bench phase's subprocess
+SCALING_DEADLINE_S = 300  # the scaling phase's sweep
+# NCCL_ALGO of the scaling phase's fits: the all-reduce's algorithm alone
+# (the all-gathers, which have no tree, keep theirs)
+NCCL_ALGOS = {"Ring": "allreduce:ring", "Tree": "allreduce:tree"}
 # the bench's lines, in order (cutrace_tpu_torch.bench), the headline last
 BENCH_LINES = (
     "probe", "frame/mirror_1080p_b5", "frame/sphere_plane_1080p_b5",
@@ -2466,7 +2488,8 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
           f"{prims['chunk']}: bit-identical to its eager loop, launches "
           f"{prims['launches']}, {prims['differ_render']} buffers differ "
           f"from render; fit(mesh=...) 3 steps through the step "
-          f"program (its all-reduce captured): losses "
+          f"program (its gradient sum captured: an all-gather and the "
+          f"adds in rank order): losses "
           + " ".join(f"{x:.8f}" for x in losses) + " against "
           + " ".join(f"{x:.8f}" for x in ref_losses)
           + f" of the one-device program fit (max relative "
@@ -2554,6 +2577,113 @@ def phase_multi(m, main_prepared, root, smi, rec, launches):
           f"{rec['multi_world2_render_ms']:.3f} ms; overhead, not scaling "
           f"({smi})")
     phase("multi", f"done in {time.perf_counter() - t0:.1f} s")
+
+
+def nccl_algo_fits(root, n_cards):
+    """`multihost --steps 3` on bunny 1920x1080 b5 over every card, (n, 1),
+    under NCCL_ALGO=allreduce:ring, then allreduce:tree (NCCL_ALGOS),
+    through cutrace_tpu_torch.compare_fits: each run's line and the
+    summary of what differs between the two."""
+    from cutrace_tpu_torch import compare_fits
+    from cutrace_tpu_torch.scaling import DEADLINE_S
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, summary = compare_fits.compare(
+            [root], ["smoke"], list(NCCL_ALGOS.values()), n_cards,
+            pathlib.Path(tmp), [str(root / "scenes" / MAIN_SCENE),
+                                "--steps", "3", "--reps", "3"], DEADLINE_S)
+    zero = {"losses": 0, "params": 0}
+    for line in lines:
+        if (not line["step_program"] or line["pixels_differ"]
+                or line["fit_differ"] != {"program": zero, "eager": zero}
+                or line["params_sha256"] != line["fit_params_sha256"]):
+            raise AssertionError(f"multihost under NCCL_ALGO={line['algo']}"
+                                 f": {line['fit_differ']}, step program "
+                                 f"{line['step_program']}, "
+                                 f"{line['pixels_differ']} pixels differ, "
+                                 f"digests {line['params_sha256']} "
+                                 f"{line['fit_params_sha256']}")
+    ring, tree = lines
+    differ = summary["smoke"]["differ"]
+    if (ring["fit_params_sha256"] != tree["fit_params_sha256"]
+            or ring["fit_losses"] != tree["fit_losses"]
+            or any(d["losses"] or d["params"] for d in differ.values())):
+        raise AssertionError(f"the fit differs between NCCL_ALGO settings "
+                             f"{list(NCCL_ALGOS.values())}: {differ}; "
+                             f"{ring['fit_losses']} "
+                             f"{ring['fit_params_sha256']} against "
+                             f"{tree['fit_losses']} "
+                             f"{tree['fit_params_sha256']}")
+    return lines, summary
+
+
+def phase_scaling(root, smi, rec):
+    """The scaling sweep over every card present, and with two or more
+    the NCCL_ALGO fits (the docstring's phase 21)."""
+    from cutrace_tpu_torch.scaling import mesh_sizes
+    from cutrace_tpu_torch.utils.subprocs import failure_text, run_tree
+    k1 = "fused.LAUNCHES"  # multihost's key of K1's shared-memory instance
+
+    torch.cuda.empty_cache()  # the card's memory for the subprocesses
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    tag = "scaling/bunny_1920x1080_b5"
+    rc, out, err = run_tree(
+        [sys.executable, "-m", "cutrace_tpu_torch.scaling", "--width",
+         "1920", "--height", "1080", "--bounces", "5", "--reps", "10"],
+        root, timeout=SCALING_DEADLINE_S)
+    print(out, end="", flush=True)
+    if rc != 0:
+        print(failure_text(err), file=sys.stderr, flush=True)
+        raise AssertionError(f"the scaling sweep exited {rc}")
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    want = [f"{tag}/devices{n}" for n in mesh_sizes(n_cards)]
+    if [r["metric"] for r in rows] != want + [f"{tag}/efficiency"]:
+        raise AssertionError(f"the sweep printed "
+                             f"{[r['metric'] for r in rows]}")
+    for r in rows:
+        if r["correct"] is not True or r["backend"] != "cuda":
+            raise AssertionError(f"{r['metric']}: correct {r['correct']}, "
+                                 f"backend {r['backend']}")
+    for r in rows[:-1]:
+        # the timed program frames ran K1 once a rank a frame, nothing else
+        if (r["pixels_differ"] or not all(
+                isinstance(r[k], float) for k in ("work_invariance",
+                                                  "balance"))
+                or r["sample_launches"] != [{k1: r["n"]}] * r["devices"]
+                or r["frame_launches"]["program"] != {k1: 1}):
+            raise AssertionError(f"{r['metric']}: {r['pixels_differ']} "
+                                 f"pixels differ, work_invariance "
+                                 f"{r['work_invariance']}, balance "
+                                 f"{r['balance']}, launches over the "
+                                 f"{r['n']} sampled frames "
+                                 f"{r['sample_launches']}, in a program "
+                                 f"frame {r['frame_launches']['program']}")
+        phase("scaling", f"{r['metric']}: {r['value']:.1f} Mcasts/s "
+              f"(median frame {r['median']:.3f} ms of {r['n']}, the "
+              f"slowest rank's), efficiency {r['efficiency_vs_linear']:.3f}"
+              f", work_invariance {r['work_invariance']:.4f}, balance "
+              f"{r['balance']:.4f}, 0 pixels differ; each rank's sampled "
+              f"frames launched K1 {r['n']} times and nothing else ({smi})")
+    rec["scaling"] = {"lines": rows}
+    if n_cards >= 2:
+        lines, summary = nccl_algo_fits(root, n_cards)
+        rec["scaling"]["nccl_algo_fits"] = {
+            "runs": [{k: line[k] for k in ("algo", "mesh", "fit_losses",
+                                           "fit_params_sha256",
+                                           "fit_differ")}
+                     for line in lines], "summary": summary["smoke"]}
+        steps = summary["smoke"]["replayed_step_ms"]
+        phase("scaling", f"multihost --steps 3 at ({n_cards}, 1) under "
+              f"NCCL_ALGO={NCCL_ALGOS['Ring']} and {NCCL_ALGOS['Tree']} "
+              f"(compare_fits): the same losses {lines[0]['fit_losses']} "
+              f"and parameters (sha256 "
+              f"{lines[0]['fit_params_sha256'][:16]}...), two program "
+              f"fits and two op-by-op fits bit-equal in each; replayed "
+              f"step medians {steps} ms ({smi})")
+    else:
+        phase("scaling", "one card: the NCCL_ALGO fits need two or more")
+    phase("scaling", f"done in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_bench(root, rec):
@@ -2906,6 +3036,8 @@ def main(argv=None) -> int:
         phase_determinism(m, main_prepared, smi, rec)
     if "multi" not in skip:
         phase_multi(m, main_prepared, root, smi, rec, launches)
+    if "scaling" not in skip:
+        phase_scaling(root, smi, rec)
     if "bench" not in skip:
         phase_bench(root, rec)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
@@ -3035,6 +3167,7 @@ def main(argv=None) -> int:
                   "grad_err": rec["multi_grad_err"],
                   "launches": {k: launches[k]
                                for k in ("multi", "multi_fit")}},
+        "scaling": rec["scaling"],
         "bench": rec["bench"],
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,14 @@ tile assignment is a function of the rank alone and the shard combine is a
 Run as a module under torchrun it renders a scene over every rank and
 rank 0 prints one JSON line: every rank's frame time as the program
 (render_sharded) and op by op (render_sharded_eager), timed in turns in
-the same run, the programs captured, the time it took to prepare its
-shard, one rank's render of the same frame, and the pixels in which they
-differ:
+the same run (`frame_ms`, `eager_ms`: means of --reps), every rank's
+program frames one at a time (`frame_samples_ms`: --reps samples a rank,
+one CUDA-event pair a frame), every rank's kernel launches over those
+frames (`sample_launches`), every rank's forward-kernel tally of its
+run (`work`: casts, admitted cluster visits, slab tests, needed visits;
+"not measured" on the CPU or off the fused tiles route), the programs
+captured, the time it took to prepare its shard, one rank's render of
+the same frame, and the pixels in which they differ:
 
     torchrun --nproc_per_node 4 -m cutrace_tpu_torch.parallel.multihost \
         scenes/bunny.json [--prims 2] [--accel pallas] [--device cpu] \
@@ -22,13 +27,19 @@ one rank a card over NCCL, or with --device cpu over gloo (where both
 run op by op). With --steps it then fits the scene's material colors,
 perturbed by seeded noise, to that image over the mesh
 (train.fit(mesh=...)): over NCCL through the step program (one captured
-CUDA graph a step, its collectives inside), over gloo op by op, in turns
-with the same fit op by op (program=False) from the same start: op by
-op, program, op by op; the line adds the fits' losses, wall seconds
-(their setup included) and kernel launches. --subdivide splits every
-triangle of the scene's meshes into four, LEVELS times (the big scenes
-of cutrace_tpu_torch.bigscene: bunny.json at 4 levels holds 256k
-triangles, at 5 levels 1M).
+CUDA graph a step, its collectives inside), over gloo op by op, four
+times from the same start in turns: op by op (program=False), program,
+program, op by op. The line adds the fits' losses, wall seconds (their
+setup included) and kernel launches, `fit_differ` (the losses and
+parameter elements that differ between the two program fits and between
+the two op-by-op fits) and `fit_params_sha256` (params_sha256 of the
+program fit's parameters: equal digests from runs under different
+NCCL_ALGO settings show that the gradient sum's order is the code's,
+not the backend's). --subdivide splits every triangle of the scene's
+meshes into four, LEVELS times (the big scenes of
+cutrace_tpu_torch.bigscene: bunny.json at 4 levels holds 256k
+triangles, at 5 levels 1M). cutrace_tpu_torch.scaling runs it once a
+mesh size.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import sys
 import time
@@ -47,6 +59,11 @@ import torch.distributed as dist
 
 from cutrace_tpu_torch.parallel import sharding as sh
 from cutrace_tpu_torch.parallel.sharding import gather_image  # noqa: F401
+from cutrace_tpu_torch.utils.profiling import sample_ms
+
+NOT_MEASURED = "not measured"
+# a forward-kernel tally's counts (utils.roofline.tally_of)
+TALLY_KEYS = ("casts", "visits", "slabs", "needed")
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -131,6 +148,18 @@ def _launches(fn):
                  for m, n in counters if getattr(m, n)}
 
 
+def _every_rank(launches: dict, mesh: sh.Mesh) -> list:
+    """Every rank's launch counts (_launches), gathered over the mesh's
+    group, in rank order."""
+    from cutrace_tpu_torch.render import renderer
+
+    names = [f"{m.__name__.rsplit('.', 1)[-1]}.{n}"
+             for m, n in renderer._launch_counters()]
+    rows = sh._all_gather(torch.tensor(
+        [launches.get(k, 0) for k in names], device=mesh.device), mesh.group)
+    return [{k: c for k, c in zip(names, row) if c} for row in rows.tolist()]
+
+
 def _pixels_differ(a, b) -> int:
     """Pixels in which two (color, depth, normal) frames differ in any
     value (+inf equal to +inf)."""
@@ -142,13 +171,37 @@ def _pixels_differ(a, b) -> int:
     return differ
 
 
+def elements_differ(a, b) -> int:
+    """Elements in which two float32 tensors, arrays or lists of floats
+    differ in any bit (other dtypes: in value)."""
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def params_sha256(params) -> str:
+    """SHA-256 of a dict of tensors: each key, dtype, shape and bytes, in
+    key order; equal digests from separate processes mean equal bits."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        v = params[k].detach().cpu().contiguous()
+        h.update(f"{k} {v.dtype} {tuple(v.shape)}".encode())
+        h.update(v.numpy().tobytes())
+    return h.hexdigest()
+
+
 def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
     """fit(mesh=...) of mat_color, perturbed by default_rng(7) noise, to
-    `image` for args.steps Adam steps (lr 5e-2), in turns op by op,
-    through the step program where step_is_captured, op by op (the first
-    fit also pays each process's first-use costs): their losses, seconds
-    and kernel launches, and whether the second ran as the step
-    program."""
+    `image` for args.steps Adam steps (lr 5e-2), from the same start four
+    times in turns: op by op, through the step program where
+    step_is_captured, the program again, op by op (the first fit also
+    pays each process's first-use costs). Returns the first program fit's
+    and the first op-by-op fit's losses, every fit's seconds, the kernel
+    launches, whether the program ran, the elements (losses and
+    parameters) that differ between the two program fits and between the
+    two op-by-op fits, and a SHA-256 of the program fit's parameters
+    (params_sha256), which separate runs compare."""
     from cutrace_tpu_torch.parallel import train
 
     soa = prepared.soa
@@ -156,23 +209,53 @@ def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
     noise = np.random.default_rng(7).normal(0.0, 0.15, color.shape)
     start = dataclasses.replace(soa, mat_color=torch.from_numpy(
         np.clip(color + noise, 0.0, 1.0).astype(np.float32)).to(soa.device))
+    fits = {True: [], False: []}
     out = {"step_program": train.step_is_captured(mesh.device, mesh),
-           "fit_eager_s": []}
-    for program in (False, True, False):
+           "fit_program_s": [], "fit_eager_s": []}
+    for program in (False, True, True, False):
         sh.barrier(mesh)
         t0 = time.perf_counter()
-        (_, losses), counts = _launches(lambda: train.fit(
+        (params, losses), counts = _launches(lambda: train.fit(
             start, image, steps=args.steps, lr=5e-2, bounces=args.bounces,
             param_filter=("mat_color",), accel=args.accel, mesh=mesh,
             program=program))
         seconds = time.perf_counter() - t0
+        fits[program].append((params, losses))
+        out[f"fit{'_program' if program else '_eager'}_s"].append(seconds)
         out[f"fit{'' if program else '_eager'}_launches"] = counts
-        if program:
-            out.update(fit_losses=losses, fit_s=seconds)
-        else:
-            out.update(fit_eager_losses=losses)
-            out["fit_eager_s"].append(seconds)
+    params, losses = fits[True][0]
+    out.update(fit_losses=losses, fit_eager_losses=fits[False][0][1],
+               fit_s=out["fit_program_s"][0],
+               fit_params_sha256=params_sha256(params))
+    out["fit_differ"] = {
+        kind: {"losses": elements_differ(a[1], b[1]),
+               "params": sum(elements_differ(a[0][k], b[0][k])
+                          for k in a[0])}
+        for kind, (a, b) in (("program", fits[True]),
+                             ("eager", fits[False]))}
     return out
+
+
+def _rank_work(sharded: sh.ShardedScene, bounces: int):
+    """This rank's forward-kernel tally (utils.roofline.tally_of: casts,
+    admitted cluster visits, slab tests, needed visits) over its run of
+    one eager frame, the same launch render_sharded makes; None off the
+    card or off the fused tiles route."""
+    from cutrace_tpu_torch.ops import fused
+    from cutrace_tpu_torch.render import renderer
+    from cutrace_tpu_torch.utils.roofline import tally_of
+
+    soa, mesh = sharded.soa, sharded.mesh
+    if (mesh.device.type != "cuda" or mesh.n_prims > 1
+            or sharded.tables is None
+            or not fused.fused_supported(soa, sharded.accel, bounces)):
+        return None
+    run = sh.tile_run(soa, mesh)
+    bo = renderer.block_order_tensors(soa.width, soa.height,
+                                      run * mesh.n_tiles, mesh.device)
+    o, d = sh.tile_rays(sharded, bo, run)
+    return tally_of(lambda t: fused._fused_forward_cuda(
+        soa, sharded.tables, o, d, 1e-3, bounces, tally=t), mesh.device)
 
 
 def main(argv=None) -> int:
@@ -247,9 +330,18 @@ def main(argv=None) -> int:
         programs = renderer.CAPTURES - captures
         launches = {"program": _launches(frame)[1],
                     "eager": _launches(eager)[1]}
+        # each program frame alone, one CUDA-event pair a frame, and the
+        # launches those frames made, every rank's
+        samples, sampled = _launches(
+            lambda: sample_ms(frame, args.reps, mesh.device))
+        sample_launches = _every_rank(sampled, mesh)
         every = sh._all_gather(torch.tensor(
-            [np.mean(ms["program"]), np.mean(ms["eager"]), prepare_ms],
-            device=mesh.device), mesh.group)
+            [np.mean(ms["program"]), np.mean(ms["eager"]), prepare_ms]
+            + samples, dtype=torch.float64, device=mesh.device), mesh.group)
+        tally = _rank_work(sharded, args.bounces)
+        work = NOT_MEASURED if tally is None else [
+            dict(zip(TALLY_KEYS, row)) for row in
+            sh._all_gather(tally, mesh.group).tolist()]
         trained = _fit_rows(prepared, image[0], mesh, args) if args.steps \
             else {}
         if dist.get_rank() == 0:
@@ -268,7 +360,10 @@ def main(argv=None) -> int:
                 "device": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
                 "frame_ms": every[:, 0].tolist(),
-                "eager_ms": every[:, 1].tolist(), "programs": programs,
+                "eager_ms": every[:, 1].tolist(),
+                "frame_samples_ms": every[:, 3:].tolist(),
+                "sample_launches": sample_launches, "work": work,
+                "programs": programs,
                 "turns_ms": ms, "frame_launches": launches,
                 "one_rank_ms": one_ms,
                 "prepare_sharded_ms": every[:, 2].tolist(),

@@ -9,8 +9,8 @@ JAX package:
            replicated. The forward's one collective is the image's:
            each rank renders its run (through the fused kernels when its
            partition is "fused") and the pieces are gathered once to
-           assemble the image. Training all-reduces the gradients over
-           the tiles group (parallel.train).
+           assemble the image. Training sums the gradients over the
+           tiles group in rank order (all_reduce_sum, parallel.train).
   "prims"  the triangle buffer split into equal shards, padded with
            never-hit sentinels. Each rank casts its own shard, through its
            own partition (the culling cast, K4 on the card) when it has
@@ -157,15 +157,21 @@ def _all_gather(x, group):
 
 def all_reduce_sum(x, group):
     """The sum of x over the ranks of `group`, on every rank (x itself
-    without a group)."""
+    without a group), added in group-rank order: every rank's x gathered
+    (_all_gather), then ((x0 + x1) + x2) + ... elementwise, so the float
+    sum has the same bits on every rank and in every run, whatever order
+    NCCL's or gloo's own reduction would choose (its algorithm, protocol
+    and channels follow the environment and the message size). Not
+    .sum(0): a reduction kernel picks its own order. The JAX mesh's
+    contract: collectives in a fixed reduction order
+    (cutrace_tpu.parallel.sharding)."""
     if group is None:
         return x
-    dev = x.device
-    y = x.detach().clone()
-    if _staged(y, group):
-        y = y.cpu()
-    dist.all_reduce(y, group=group)
-    return y.to(dev)
+    rows = _all_gather(x, group)
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = acc + row
+    return acc
 
 
 def barrier(mesh: Mesh):
@@ -457,6 +463,19 @@ def _rank_parts(scene: ShardedScene):
                                   scene.tables)
 
 
+def tile_run(soa: SceneArrays, mesh: Mesh) -> int:
+    """Pixels of each tile rank's contiguous run: the image padded to a
+    multiple of n_tiles, split evenly."""
+    return _ceil_to(soa.width * soa.height, mesh.n_tiles) // mesh.n_tiles
+
+
+def tile_rays(scene: ShardedScene, bo, run: int):
+    """Camera rays (o, d) of this rank's run of `run` pixels of the block
+    order `bo` (renderer.block_order_tensors)."""
+    xy = bo.pxy[:, scene.mesh.tile * run:(scene.mesh.tile + 1) * run]
+    return renderer.camera_rays(scene.soa, xy[0], xy[1])
+
+
 def _fused_rank_frame(scene: ShardedScene, bo, run: int, bounces: int,
                       fudge: float):
     """The rank's frame through the fused kernels: camera rays of its run
@@ -467,8 +486,7 @@ def _fused_rank_frame(scene: ShardedScene, bo, run: int, bounces: int,
     from cutrace_tpu_torch.ops.fused import fused_render_rays
 
     soa, mesh = scene.soa, scene.mesh
-    xy = bo.pxy[:, mesh.tile * run:(mesh.tile + 1) * run]
-    o, d = renderer.camera_rays(soa, xy[0], xy[1])
+    o, d = tile_rays(scene, bo, run)
     color, depth, normal = fused_render_rays(
         soa, scene.accel, o, d, fudge, bounces, tables=scene.tables)
     rows = torch.cat([color, depth[:, None], normal], dim=1)
@@ -488,8 +506,7 @@ def _render_sharded(scene, mesh: Mesh, bounces: int, fudge: float,
                          "prepared for")
     program = program and mesh_captures(mesh)
     soa, accel = scene.soa, scene.accel
-    n = soa.width * soa.height
-    run = _ceil_to(n, mesh.n_tiles) // mesh.n_tiles
+    run = tile_run(soa, mesh)
     if mesh.n_prims == 1 and fused.fused_supported(soa, accel, bounces):
         bo = renderer.block_order_tensors(soa.width, soa.height,
                                           run * mesh.n_tiles, mesh.device)

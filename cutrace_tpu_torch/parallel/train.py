@@ -9,9 +9,10 @@ versions.
 
 With a parallel.sharding.Mesh the loss is split over its ranks: each tile
 rank renders its run of pixels and takes its part of the global mean, and
-the gradients are all-reduced over the tiles group, so every rank applies
-the same update; with PRIM_AXIS > 1 each rank holds and updates its
-triangle shard.
+the gradients are summed over the tiles group in tile-rank order
+(sharding.all_reduce_sum), so every rank applies the same update, with
+the same bits in every run; with PRIM_AXIS > 1 each rank holds and
+updates its triangle shard.
 
 Where the JAX package jits the whole step (`make_train_step`), the port
 captures it on a CUDA device as one CUDA graph and replays it step after
@@ -45,7 +46,7 @@ def sharded_loss(params, soa, mesh, target_flat, bounces: int,
     kernels with the replay backward (ops.fused.fused_render_rays)."""
     s = with_params(soa, params)
     n = s.width * s.height
-    run = sh._ceil_to(n, mesh.n_tiles) // mesh.n_tiles
+    run = sh.tile_run(s, mesh)
     start = mesh.tile * run
     idx = torch.arange(start, start + run, device=s.device)
     color, _, _ = sh.render_pixels_sharded(s, mesh, idx, bounces, fudge,
@@ -57,7 +58,9 @@ def sharded_loss(params, soa, mesh, target_flat, bounces: int,
 
 def _all_reduce_grads(params, loss, mesh):
     """Sum the gradients of the trainable parameters and the loss over the
-    tiles group, in one all-reduce; returns the global loss."""
+    tiles group, as one flat buffer in tile-rank order
+    (sharding.all_reduce_sum: one all-gather, then the adds), so every
+    rank and every run gets the same bits; returns the global loss."""
     live = [p for p in params.values() if p.requires_grad]
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in live]
     flat = torch.cat([g.reshape(-1) for g in grads]
@@ -80,7 +83,7 @@ def step_is_captured(device, mesh=None) -> bool:
     """Does make_train_step run its step on `device` over `mesh` as a
     captured program? On a CUDA device without a mesh, or over a mesh
     whose process groups are all NCCL's (sharding.mesh_captures): the
-    tiles group's all-reduce and, with PRIM_AXIS > 1, every cast's
+    tiles group's gradient sum and, with PRIM_AXIS > 1, every cast's
     all-gathers over the prims group are captured with the step. Not on
     the CPU; not over gloo, whose collectives of CUDA tensors go through
     the host, a synchronization that no capture holds."""
@@ -103,27 +106,28 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
     partition stays fixed across steps, which is correct for any vertex
     positions, merely less tight as geometry drifts. With a `mesh`
     (parallel.sharding) `soa`, `params` and `accel` are the rank's own
-    (sharded_loss), the gradients are all-reduced over the tiles group
-    before the update, and the loss returned is the global one.
+    (sharded_loss), the gradients are summed over the tiles group in
+    rank order before the update, and the loss returned is the global
+    one.
 
     With `program` (the default), where step_is_captured, the step runs
     as one captured CUDA graph (the counterpart of the JAX package's
     jitted step): camera rays, the kernels' tables, the forward with
     codes, the backward, the routing of the cotangents to the leaves, the
     mesh's collectives (the prims group's all-gathers of every cast, the
-    tiles group's all-reduce) and the optimizer's update. For one set of
-    (params, soa, target) objects, keyed on their identity (the graph
-    reads them by address), the first call runs the step eagerly on a
-    side stream (kernels built, caches filled, the optimizer's state
-    made), the second captures it and replays it once, and every later
-    call replays it: each call applies exactly one update. Other objects
-    start a new program, from an eager call. The loss of a replay is a
-    copy of the graph's. After capture the parameters' `.grad` are the
-    graph's tensors; the optimizer's state must not be replaced
-    (load_state_dict) under a program. The optimizer on a CUDA device
-    must be built with capturable=True, or this raises; a failure to
-    capture or replay raises. Without `program`, and elsewhere, the step
-    runs op by op, its plain version."""
+    tiles group's gather and ordered sum) and the optimizer's update. For
+    one set of (params, soa, target) objects, keyed on their identity
+    (the graph reads them by address), the first call runs the step
+    eagerly on a side stream (kernels built, caches filled, the
+    optimizer's state made), the second captures it and replays it once,
+    and every later call replays it: each call applies exactly one
+    update. Other objects start a new program, from an eager call. The
+    loss of a replay is a copy of the graph's. After capture the
+    parameters' `.grad` are the graph's tensors; the optimizer's state
+    must not be replaced (load_state_dict) under a program. The optimizer
+    on a CUDA device must be built with capturable=True, or this raises;
+    a failure to capture or replay raises. Without `program`, and
+    elsewhere, the step runs op by op, its plain version."""
     device = _optimizer_device(optimizer)
     captured = program and step_is_captured(device, mesh)
     if captured and device.type == "cuda" and not all(
@@ -236,12 +240,12 @@ def fit(
 
     `mesh` (parallel.sharding.make_mesh) trains over its ranks, on its
     device: pixels split over the tiles, the triangle buffer over the
-    prims (a partition built per shard), the gradients all-reduced over
-    the tiles group (make_train_step). Every rank calls fit with the same
-    arguments and gets the same losses and the whole parameters (the
-    triangle shards gathered, the padding dropped); a checkpoint holds the
-    whole parameters, written by the lowest rank, and every rank resumes
-    from it.
+    prims (a partition built per shard), the gradients summed in rank
+    order over the tiles group (make_train_step). Every rank calls fit
+    with the same arguments and gets the same losses and the whole
+    parameters (the triangle shards gathered, the padding dropped); a
+    checkpoint holds the whole parameters, written by the lowest rank,
+    and every rank resumes from it.
 
     `program`: train through make_train_step's step program where
     step_is_captured (the card, without a mesh or over an NCCL mesh): the

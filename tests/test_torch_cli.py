@@ -167,6 +167,29 @@ def test_bench_and_example_never_load_jax():
     assert "eye error" in proc.stdout
 
 
+def test_scaling_sweep_never_loads_jax():
+    """The scaling sweep on the CPU (two gloo meshes in torchrun
+    subprocesses, tiny) runs in a process that loads neither jax nor the
+    JAX package; so do the fit-bits tool and the subprocess helpers."""
+    code = (
+        "import sys\n"
+        "from cutrace_tpu_torch import compare_fits, scaling\n"
+        "from cutrace_tpu_torch.utils import subprocs\n"
+        "assert scaling.main(['--device', 'cpu', '--devices', '2', "
+        "'--width', '8', '--height', '6', '--bounces', '1', "
+        "'--reps', '1']) == 0\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'cutrace_tpu'))\n"
+        "print('LOADED', loaded)\n"
+        "assert not loaded, loaded\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+    assert '"metric": "scaling/bunny_8x6_b1/efficiency"' in proc.stdout
+
+
 def test_perf_probe_needs_cuda(monkeypatch):
     """The frame-time probe refuses to run without a CUDA card."""
     from cutrace_tpu_torch import perf_probe

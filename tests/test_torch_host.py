@@ -132,7 +132,8 @@ def test_no_cutrace_tpu_import_in_the_port():
     for name in ("sharding.py", "multihost.py", "train.py"):
         assert REPO / "cutrace_tpu_torch" / "parallel" / name in files
     for name in ("bench.py", "inverse_rendering.py", "utils/roofline.py",
-                 "utils/gates.py"):
+                 "utils/gates.py", "scaling.py", "compare_fits.py",
+                 "utils/subprocs.py"):
         assert REPO / "cutrace_tpu_torch" / name in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders

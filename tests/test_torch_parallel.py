@@ -17,6 +17,7 @@ process's."""
 
 import contextlib
 import dataclasses
+import inspect
 import os
 import pathlib
 import socket
@@ -37,6 +38,11 @@ GRAD_RTOL = 1e-5
 PROGRAM_MESHES = {4: ((4, 1), (2, 2)), 2: ((2, 1), (1, 2))}
 STEP_MESH = {4: (2, 2), 2: (1, 2)}
 STEPS = 3
+# the ordered gradient sum's test vector, and the meshes whose fits run
+# twice from one start (FIT_STEPS steps each)
+SUM_LEN = 64
+FIT_TWICE_MESHES = ((4, 1), (2, 2))
+FIT_STEPS = 3
 RANK_TIMEOUT = 120
 
 
@@ -69,7 +75,12 @@ class _Counting:
                 self.calls[_n] = self.calls.get(_n, 0) + 1
                 if a and torch.is_tensor(a[0]):
                     self.sizes.setdefault(_n, []).append(a[0].numel())
-                self.groups.setdefault(_n, []).append(k.get("group"))
+                try:  # the group, passed by keyword or by position
+                    group = inspect.signature(_fn).bind(
+                        *a, **k).arguments.get("group")
+                except TypeError:
+                    group = k.get("group")
+                self.groups.setdefault(_n, []).append(group)
                 return _fn(*a, **k)
             setattr(self.module, n, wrap)
         return self
@@ -225,9 +236,10 @@ def _prim_step(out, world):
     """STEPS Adam steps of all 19 groups on bunny 16x9 b1 over the "pallas"
     partition of each shard, at STEP_MESH[world]: through the step program
     (the stand-in graphs) and op by op, from one state. Each step's
-    all-reduces are counted; the third (a replay) runs with host tensors
-    refused, and its gradients are held against one device's at the
-    state it started from."""
+    gradient sums (sharding.all_reduce_sum) and dist.all_reduce calls are
+    counted; the third (a replay) runs with host tensors refused, and its
+    gradients are held against one device's at the state it started
+    from."""
     import torch.distributed as dist
 
     from cutrace_tpu_torch.diff import grad as tgrad
@@ -264,12 +276,14 @@ def _prim_step(out, world):
                     start = whole(params)
                 refuse = (_no_host_tensors() if i == STEPS - 1
                           else contextlib.nullcontext())
-                with _Counting(dist, ("all_reduce",)) as coll, refuse:
+                with _Counting(sh, ("all_reduce_sum",)) as sums, \
+                        _Counting(dist, ("all_reduce",)) as coll, refuse:
                     losses.append(step(params, local, target).clone())
-                reduces.append([coll.calls.get("all_reduce", 0)]
-                               + coll.sizes.get("all_reduce", [])
+                reduces.append([sums.calls.get("all_reduce_sum", 0)]
+                               + sums.sizes.get("all_reduce_sum", [])
                                + [g is mesh.tiles_group for g in
-                                  coll.groups.get("all_reduce", [])])
+                                  sums.groups.get("all_reduce_sum", [])]
+                               + [coll.calls.get("all_reduce", 0)])
             out[f"{prefix}/{label}/log"] = np.asarray(graphs.log)
         out[f"{prefix}/{label}/losses"] = torch.stack(losses).numpy()
         out[f"{prefix}/{label}/reduces"] = np.asarray(reduces)
@@ -285,6 +299,45 @@ def _prim_step(out, world):
                                     1e-3, ref_acc)
     for k, g in ref.items():
         out[f"{prefix}/ref/{k}"] = g.numpy()
+
+
+def _ordered_sum(out, rank):
+    """sharding.all_reduce_sum over the tiles group of a (4, 1) mesh of
+    SUM_LEN float32 values whose sum depends on the order of addition:
+    each element's four values across the ranks are 1e8, 1, -1e8 and a
+    seeded one in [0.25, 4), placed on the ranks by a seeded permutation
+    (1e8 + 1 rounds back to 1e8)."""
+    from cutrace_tpu_torch.parallel import sharding as sh
+
+    rng = np.random.default_rng(11)
+    vals = np.stack([np.full(SUM_LEN, 1e8), np.ones(SUM_LEN),
+                     np.full(SUM_LEN, -1e8),
+                     rng.uniform(0.25, 4.0, SUM_LEN)]).astype(np.float32)
+    perm = np.stack([rng.permutation(4) for _ in range(SUM_LEN)], axis=1)
+    x = np.take_along_axis(vals, perm, axis=0)[rank]
+    mesh = sh.make_mesh(4, 1, device="cpu")
+    out["sum/x"] = x
+    out["sum/got"] = sh.all_reduce_sum(torch.from_numpy(x),
+                                       mesh.tiles_group).numpy()
+
+
+def _fits_twice(out, soa, target, kw):
+    """FIT_STEPS steps of train.fit at each of FIT_TWICE_MESHES, twice
+    from the same start, and once on one device: losses and the whole
+    parameters."""
+    from cutrace_tpu_torch.parallel import sharding as sh
+    from cutrace_tpu_torch.parallel import train
+
+    kw = dict(kw, steps=FIT_STEPS)
+    fits = [("one", None, 0)] + [(f"{t}x{p}", (t, p), run)
+                                 for t, p in FIT_TWICE_MESHES
+                                 for run in (0, 1)]
+    for label, shape, run in fits:
+        mesh = None if shape is None else sh.make_mesh(*shape, device="cpu")
+        params, losses = train.fit(soa, target, mesh=mesh, **kw)
+        out[f"twice/{label}/{run}/losses"] = np.asarray(losses)
+        for k, v in params.items():
+            out[f"twice/{label}/{run}/param/{k}"] = v.numpy()
 
 
 def _world4(rank, out, tmp):
@@ -358,6 +411,7 @@ def _world4(rank, out, tmp):
     _grad_cases(out, 4, rank)
     _program_frames(out, 4)
     _prim_step(out, 4)
+    _ordered_sum(out, rank)
 
     # fit: three steps at (2, 2) with a checkpoint, then a resumed fourth,
     # against four steps on one device
@@ -377,6 +431,7 @@ def _world4(rank, out, tmp):
     params4, losses4 = train.fit(bunny, c0, steps=4, checkpoint_dir=ck,
                                  checkpoint_every=2, mesh=mesh22, **kw)
     ref4, ref_losses = train.fit(bunny, c0, steps=4, **kw)
+    _fits_twice(out, bunny, c0, kw)
     out["fit/losses"] = np.asarray(losses3 + losses4)
     out["fit/start"] = start
     out["fit/target"] = c0.numpy()
@@ -651,6 +706,47 @@ def test_fit_on_a_mesh(runs, scenes_dir):
             assert res[f"fit/params3/{k}"].shape == ref[f"fit/ref4/{k}"].shape
 
 
+def test_all_reduce_sum_in_rank_order(runs):
+    """sharding.all_reduce_sum over four gloo ranks gives, on every rank,
+    the float32 sum ((x0 + x1) + x2) + x3 of the ranks' vectors bit for
+    bit, whatever order gloo's own all-reduce would take; the same values
+    added in another order give other bits, so the check can fail."""
+    xs = [res["sum/x"] for res in runs[4]]
+    assert len({x.tobytes() for x in xs}) == 4
+    want = ((xs[0] + xs[1]) + xs[2]) + xs[3]
+    assert want.dtype == np.float32
+    for res in runs[4]:
+        assert _bits_equal(res["sum/got"], want)
+    assert not _bits_equal(((xs[3] + xs[2]) + xs[1]) + xs[0], want)
+
+
+@pytest.mark.parametrize("tiles,prims", FIT_TWICE_MESHES)
+def test_fit_on_a_mesh_twice_bit_equal(runs, tiles, prims):
+    """fit(mesh=) twice from the same start (bunny 16x9 b1, mat_color and
+    tri_p1 trained, FIT_STEPS steps over gloo): losses and every parameter
+    bit-equal between the runs and on every rank, and within GRAD_RTOL of
+    the one-device fit."""
+    prefix = f"twice/{tiles}x{prims}"
+    ref = runs[4][0]
+    keys = [k.split("/")[-1] for k in ref
+            if k.startswith(f"{prefix}/0/param/")]
+    assert len(keys) == 19
+    for res in runs[4]:
+        for run in (0, 1):
+            losses = res[f"{prefix}/{run}/losses"]
+            assert len(losses) == FIT_STEPS and np.isfinite(losses).all()
+            assert _bits_equal(losses, ref[f"{prefix}/0/losses"])
+            for k in keys:
+                assert _bits_equal(res[f"{prefix}/{run}/param/{k}"],
+                                   ref[f"{prefix}/0/param/{k}"]), (run, k)
+    np.testing.assert_allclose(ref[f"{prefix}/0/losses"],
+                               ref["twice/one/0/losses"], rtol=GRAD_RTOL)
+    for k in ("mat_color", "tri_p1"):
+        np.testing.assert_allclose(ref[f"{prefix}/0/param/{k}"],
+                                   ref[f"twice/one/0/param/{k}"],
+                                   rtol=GRAD_RTOL, atol=1e-6, err_msg=k)
+
+
 def test_mesh_over_a_group(runs):
     """make_mesh over a group of ranks 0 and 2: they render it, in rank
     order; ranks 1 and 3 get no mesh."""
@@ -744,6 +840,70 @@ def test_torchrun_times_program_and_eager(runs):
     # losses (over gloo both run op by op)
     assert row["fit_eager_losses"] == row["fit_losses"]
     assert row["fit_s"] > 0 and len(row["fit_eager_s"]) == 2
+
+
+def test_torchrun_fits_twice_and_samples_frames(runs):
+    """The entry point's --steps fits the program route twice from the
+    same start: no loss or parameter element differs between the two,
+    nor between the two op-by-op fits, and the line holds the SHA-256 of
+    the fit's parameters that separate runs compare; every rank's program
+    frames come one sample a frame (--reps of them); the kernels' tally
+    is not measured on the CPU."""
+    import json
+
+    row = json.loads(runs["torchrun"].strip().splitlines()[-1])
+    assert row["fit_differ"] == {"program": {"losses": 0, "params": 0},
+                                 "eager": {"losses": 0, "params": 0}}
+    sha = row["fit_params_sha256"]
+    assert len(sha) == 64 and int(sha, 16) >= 0
+    assert len(row["fit_program_s"]) == 2 and row["fit_s"] > 0
+    assert [len(x) for x in row["frame_samples_ms"]] == [1, 1]
+    assert all(x > 0 for x in row["frame_samples_ms"][0])
+    assert row["work"] == "not measured"
+    # every rank's launches over its sampled frames: none, plain versions
+    assert row["sample_launches"] == [{}, {}]
+
+
+def test_params_sha256_reads_keys_in_order_and_every_bit():
+    """multihost.params_sha256: the same tensors in another key order give
+    the same digest, one float32 step in one element another."""
+    from cutrace_tpu_torch.parallel.multihost import params_sha256
+
+    a = {"x": torch.arange(4, dtype=torch.float32),
+         "m": torch.tensor([True, False]), "y": torch.ones(2, 3)}
+    b = {k: a[k].clone() for k in ("y", "m", "x")}
+    assert params_sha256(a) == params_sha256(b)
+    b["x"][1] = torch.nextafter(b["x"][1], torch.tensor(2.0))
+    assert params_sha256(a) != params_sha256(b)
+
+
+def test_compare_fits_on_cpu(tmp_path):
+    """python -m cutrace_tpu_torch.compare_fits over one checkout, two
+    runs of a 2-rank gloo fit (mirror 32x16 b2): each run's parameters
+    digested alike by multihost and by the tool, nothing differing
+    between the runs, every program fit's step times kept."""
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "cutrace_tpu_torch.compare_fits", ".",
+         "--labels", "new", "--nproc", "2", "--algos", "default", "Ring",
+         "--out", str(tmp_path), "--", *TORCHRUN_ARGS[:7], "--accel",
+         "none", "--device", "cpu", "--reps", "1", "--steps", "3"],
+        cwd=REPO, capture_output=True, text=True, timeout=RANK_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    assert [r.get("algo") for r in rows[:2]] == ["default", "Ring"]
+    for r in rows[:2]:
+        assert r["params_sha256"] == r["fit_params_sha256"]
+        assert len(r["fit_losses"]) == 3
+        assert r["step_program"] is False and r["pixels_differ"] == 0
+        assert [len(s["ms"]) for s in r["steps_ms"]] == [3, 3, 3, 3]
+    summary = rows[-1]["summary"]["new"]
+    assert summary["differ"]["default/Ring#1"]["losses"] == 0
+    assert summary["differ"]["default/Ring#1"]["params"] == 0
+    assert summary["differ"]["default/Ring#1"]["param_elements"] > 0
+    assert [len(x) for x in summary["replayed_step_ms"]] == [2, 2]
 
 
 PROGRAM_CASES = [(w, t, p, label) for w, meshes in PROGRAM_MESHES.items()
@@ -869,8 +1029,10 @@ def test_prim_step_program_gradients(runs, world):
 @pytest.mark.parametrize("world", sorted(STEP_MESH))
 def test_prim_step_program_one_all_reduce(runs, world):
     """Every call of the prim-sharded step, program and op by op, makes
-    exactly one all-reduce, over the tiles group, of the trainable
-    parameters' size plus one (the loss): the counterpart of the JAX
+    exactly one gradient sum (sharding.all_reduce_sum: a gather, then the
+    adds in rank order), over the tiles group, of the trainable
+    parameters' size plus one (the loss), and no dist.all_reduce, whose
+    order of addition the backend chooses: the counterpart of the JAX
     package's gate on its step's collectives (tests/test_hlo.py)."""
     t, p = STEP_MESH[world]
     prefix = f"step/{t}x{p}"
@@ -879,8 +1041,9 @@ def test_prim_step_program_one_all_reduce(runs, world):
         for label in ("program", "eager"):
             reduces = res[f"{prefix}/{label}/reduces"]
             assert len(reduces) == STEPS
-            for calls, numel, tiles_group in reduces:
-                assert (calls, numel, tiles_group) == (1, size, 1), label
+            for calls, numel, tiles_group, all_reduce in reduces:
+                assert (calls, numel, tiles_group, all_reduce) == (
+                    1, size, 1, 0), label
 
 
 def test_capture_rule_nccl_and_gloo(monkeypatch):
