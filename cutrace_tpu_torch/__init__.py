@@ -23,6 +23,7 @@ module names so each counterpart is found at once:
                      <- cutrace_tpu.parallel        (meshes over
                                                      torch.distributed, fit)
   utils.profiling    <- cutrace_tpu.utils.profiling (timings, traces)
+  utils.tracing      the port's spans, counters and device phase marks
   cli                <- cutrace_tpu.cli             (python -m entry)
 
 Nothing here imports jax or cutrace_tpu. Entry points run on the CUDA card

@@ -22,11 +22,18 @@ Flags beyond the reference (all optional):
   --accel KIND     auto, none, clusters, pallas or fused (default auto:
                    the fused kernels on cuda, the composable torch path
                    on cpu); see render.renderer.prepare
+
+With CUTRACE_TRACE=1 in the environment the run is traced
+(utils.tracing) and, at exit, prints the trace's snapshot as one JSON
+line on standard error: the set-up spans (scene.load, prepare and its
+parts, kernels.load, program.build), the frame's spans and phases, and
+the counters.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -38,6 +45,7 @@ from cutrace_tpu_torch.scene import schema as S
 from cutrace_tpu_torch.scene import types as T
 from cutrace_tpu_torch.scene.loader import load_file
 from cutrace_tpu_torch.scene.soa import resolve_device
+from cutrace_tpu_torch.utils import tracing
 
 
 def dump_scene(scene: T.Scene, file=sys.stdout) -> None:
@@ -65,6 +73,14 @@ def dump_scene(scene: T.Scene, file=sys.stdout) -> None:
 
 
 def main(argv=None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        if tracing.FROM_ENV:
+            print(json.dumps(tracing.snapshot()), file=sys.stderr)
+
+
+def _main(argv) -> int:
     parser = argparse.ArgumentParser(
         prog="cutrace_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,

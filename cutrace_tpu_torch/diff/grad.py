@@ -21,6 +21,7 @@ import torch
 
 from cutrace_tpu_torch.render.renderer import camera_rays, render_rays
 from cutrace_tpu_torch.scene.soa import SceneArrays
+from cutrace_tpu_torch.utils import tracing
 
 # Continuous scene parameters. Integer index buffers, validity masks and
 # static metadata stay fixed (changing them is a topology change).
@@ -103,9 +104,13 @@ def render_image_flat(soa: SceneArrays, bounces: int, fudge, accel=None):
     n = soa.width * soa.height
     idx = torch.arange(n, device=soa.device)
     o, d = camera_rays(soa, idx % soa.width, idx // soa.width)
+    tracing.mark("rays")
     if fused.fused_supported(soa, accel, bounces):
+        # marks its own phases, the forward kernel's last
         return fused.fused_render_rays(soa, accel, o, d, fudge, bounces)
-    return render_rays(soa, o, d, bounces, fudge, bvh.candidates_fn(accel))
+    out = render_rays(soa, o, d, bounces, fudge, bvh.candidates_fn(accel))
+    tracing.mark("forward")
+    return out
 
 
 def render_loss(params: Dict[str, torch.Tensor], soa: SceneArrays, target,
@@ -115,7 +120,9 @@ def render_loss(params: Dict[str, torch.Tensor], soa: SceneArrays, target,
     ((H*W, 3) or (H, W, 3))."""
     color, _, _ = render_image_flat(with_params(soa, params), bounces,
                                     fudge, accel)
-    return torch.mean((color - target.reshape(-1, 3)) ** 2)
+    loss = torch.mean((color - target.reshape(-1, 3)) ** 2)
+    tracing.mark("loss")
+    return loss
 
 
 def grad_render_loss(soa, target, bounces: int = 2, fudge: float = 1e-3,

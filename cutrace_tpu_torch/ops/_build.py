@@ -8,7 +8,8 @@ Nothing is built or loaded at import. `build_all` starts one nvcc per
 source, all at once.
 
 nvcc is found through CUDA_HOME, else /usr/local/cuda/bin/nvcc; without it
-the build raises.
+the build raises. A library's load is the set-up span `kernels.load`
+(utils.tracing), and a build that runs nvcc `kernels.build`.
 """
 
 from __future__ import annotations
@@ -159,15 +160,19 @@ def build_all(names=None, verbose: bool = False) -> dict:
     """Compile the named kernel libraries (all by default) that do not
     exist yet, one nvcc each, all started together; returns name -> library
     path. Raises with nvcc's output when a build fails."""
+    from cutrace_tpu_torch.utils import tracing
+
     names = list(SOURCES) if names is None else list(names)
-    jobs = [(name, _start(SOURCES[name], verbose)) for name in names]
+    jobs = [job for job in (_start(SOURCES[name], verbose) for name in names)
+            if job is not None]
     try:
-        for _, job in jobs:
-            if job is not None:
-                _finish(job, verbose)
+        if jobs:
+            with tracing.setup_span("kernels.build"):
+                for job in jobs:
+                    _finish(job, verbose)
     finally:
-        for _, job in jobs:
-            if job is not None and job[3].poll() is None:
+        for job in jobs:
+            if job[3].poll() is None:
                 job[3].kill()
                 job[3].wait()
     return {name: library_path(SOURCES[name]) for name in names}
@@ -182,12 +187,15 @@ def load_library(name: str = "fused_forward") -> ctypes.CDLL:
     """A kernel library, built at first use, with its C entry points'
     signatures declared."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-        _libs[name] = lib
+        from cutrace_tpu_torch.utils import tracing
+
+        with tracing.setup_span("kernels.load"):
+            lib = ctypes.CDLL(str(build(name)))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+            _libs[name] = lib
     return _libs[name]
 
 

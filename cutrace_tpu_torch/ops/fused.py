@@ -49,6 +49,7 @@ from cutrace_tpu_torch.ops import replay as rp
 from cutrace_tpu_torch.ops import replay_vjp as rv
 from cutrace_tpu_torch.render import shading as sh
 from cutrace_tpu_torch.render.renderer import default_chunk, render_rays
+from cutrace_tpu_torch.utils import tracing
 
 # Partitions of at most this many clusters run K1 (the JAX lanes kernel's
 # bound); bigger ones run K3. The culling cast (K4) splits its flat loop
@@ -409,7 +410,9 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
     (K, R_pad) buffer; `tally`, a zeroed (4,) int64 CUDA tensor, receives
     the casts, admitted cluster visits, slab tests and the cluster visits
     the casts need whatever the traversal (csrc/cast.cuh
-    needed_visits)."""
+    needed_visits). Marks (utils.tracing) just before and after the
+    launch end the phases `pack` (the rays packed, the codes filled) and
+    `forward` (the kernel)."""
     from cutrace_tpu_torch.ops import _build
 
     global LAUNCHES, TOPO_LAUNCHES, GLOBAL_LAUNCHES, GLOBAL_TOPO_LAUNCHES
@@ -445,6 +448,7 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
     # the shared-memory instance's work counter
     next_chunk = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = _build.load_library("fused_forward")
+    tracing.mark("pack")
     rc = lib.cutrace_fused_forward(
         _ptr(rays), _ptr(tables.tri), _ptr(tables.aabb), _ptr(tables.plane),
         _ptr(tables.sphere), _ptr(tables.mat), _ptr(tables.lights),
@@ -462,6 +466,7 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
     if rc != 0:
         raise RuntimeError(f"fused forward kernel launch failed: CUDA "
                            f"error {rc}")
+    tracing.mark("forward")
     if codes is None:
         if instance == _K3:
             BIG_LAUNCHES += 1
@@ -482,20 +487,25 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
 @torch.no_grad()
 def _forward(soa, accel, o, d, fudge, bounces, tables):
     """(color, depth, normal): the kernel on CUDA tensors (tables built
-    here when None), the plain version on CPU tensors."""
+    here when None), the plain version on CPU tensors; either ends the
+    phases `pack` and `forward`."""
     if o.is_cuda:
         if tables is None:
             tables = kernel_tables(soa, accel)
         return _fused_forward_cuda(soa, tables, o, d, fudge, bounces)
     if o.device.type != "cpu":
         raise ValueError(f"unsupported device {o.device}")
-    return fused_render_rays_plain(soa, accel, o, d, fudge, bounces)
+    tracing.mark("pack")
+    out = fused_render_rays_plain(soa, accel, o, d, fudge, bounces)
+    tracing.mark("forward")
+    return out
 
 
 @torch.no_grad()
 def _forward_topo(soa, accel, o, d, fudge, bounces, tables):
     """(color, depth, normal, codes (R, K)): the kernel on CUDA tensors,
-    the plain version and the plain emitter on CPU tensors."""
+    the plain version and the plain emitter on CPU tensors; either ends
+    the phases `tables` (built here when None), `pack` and `forward`."""
     if not replay_supported(soa, accel, bounces, n_rays=o.shape[0]):
         raise NotImplementedError(
             f"topology codes for {o.shape[0]} rays at bounce depth "
@@ -504,12 +514,17 @@ def _forward_topo(soa, accel, o, d, fudge, bounces, tables):
     if o.is_cuda:
         if tables is None:
             tables = kernel_tables(soa, accel)
+        tracing.mark("tables")
         return _fused_forward_cuda(soa, tables, o, d, fudge, bounces,
                                    emit_topo=True)
     if o.device.type != "cpu":
         raise ValueError(f"unsupported device {o.device}")
-    return (*fused_render_rays_plain(soa, accel, o, d, fudge, bounces),
-            emit_topo_plain(soa, accel, o, d, fudge, bounces))
+    tracing.mark("tables")
+    tracing.mark("pack")
+    out = (*fused_render_rays_plain(soa, accel, o, d, fudge, bounces),
+           emit_topo_plain(soa, accel, o, d, fudge, bounces))
+    tracing.mark("forward")
+    return out
 
 
 class _FusedRender(torch.autograd.Function):

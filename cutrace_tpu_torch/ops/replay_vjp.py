@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from cutrace_tpu_torch.ops import replay as rp
+from cutrace_tpu_torch.utils import tracing
 
 # Kernel launches of the replay backward on CUDA tensors since import, or
 # since a caller last reset it.
@@ -379,6 +380,7 @@ def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
     out = torch.empty((n_el,), dtype=torch.float32, device=dev)
 
     lib = _build.load_library("replay_vjp")
+    tracing.mark("cotangents")
     rc = lib.cutrace_replay_vjp(
         _ptr(rays), _ptr(codes_kn), _ptr(cot8), _ptr(table), _ptr(lights),
         _ptr(ambient), _ptr(d_rays), _ptr(acc), _ptr(out),
@@ -390,6 +392,7 @@ def _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes, cot, fudge,
     if rc != 0:
         raise RuntimeError(f"replay backward kernel launch failed: CUDA "
                            f"error {rc}")
+    tracing.mark("backward")
     LAUNCHES += 1
     d_tbl = out[:n_tab * 17].view(n_tab, 17)
     d_misc = out[n_tab * 17:]
@@ -405,14 +408,21 @@ def vjp_tables(soa, table, lights, ambient, o, d, codes, cot, fudge,
                bounces: int):
     """Cotangents of (table, lights, ambient, o, d) from the output
     cotangents `cot` = (color, depth, normal; None for zero): the kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors. Inside a program
+    (utils.tracing) marks end the phases `cotangents` (everything since
+    the last mark: the loss's backward and, on the card, the rays and
+    cotangents packed for the kernel) and `backward` (the kernel and its
+    finalize, or the plain version)."""
     if o.is_cuda:
         return _replay_vjp_cuda(soa, table, lights, ambient, o, d, codes,
                                 cot, fudge, bounces)
     if o.device.type != "cpu":
         raise ValueError(f"unsupported device {o.device}")
-    return replay_vjp_plain(soa, table, lights, ambient, o, d, codes, cot,
-                            fudge, bounces)
+    tracing.mark("cotangents")
+    out = replay_vjp_plain(soa, table, lights, ambient, o, d, codes, cot,
+                           fudge, bounces)
+    tracing.mark("backward")
+    return out
 
 
 def replay_vjp(soa, o, d, codes, cot, fudge, bounces: int,

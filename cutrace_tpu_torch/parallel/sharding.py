@@ -41,6 +41,7 @@ from cutrace_tpu_torch.ops import bvh
 from cutrace_tpu_torch.ops import intersect as I
 from cutrace_tpu_torch.render import renderer
 from cutrace_tpu_torch.scene.soa import SceneArrays, resolve_device, soa_to
+from cutrace_tpu_torch.utils import tracing
 
 TILE_AXIS = "tiles"
 PRIM_AXIS = "prims"
@@ -416,11 +417,14 @@ def render_pixels_sharded(soa: SceneArrays, mesh: Mesh, idx, bounces: int,
     from cutrace_tpu_torch.ops import fused
 
     o, d = renderer.camera_rays(soa, idx % soa.width, idx // soa.width)
+    tracing.mark("rays")
     if mesh.n_prims == 1 and fused.fused_supported(soa, accel, bounces):
         return fused.fused_render_rays(soa, accel, o, d, fudge, bounces,
                                        tables=tables)
-    return renderer.render_rays(soa, o, d, bounces, fudge,
-                                _rank_query(soa, mesh, accel, tables))
+    out = renderer.render_rays(soa, o, d, bounces, fudge,
+                               _rank_query(soa, mesh, accel, tables))
+    tracing.mark("forward")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,19 +446,20 @@ def prepare_sharded(scene, mesh: Mesh) -> ShardedScene:
     > 1 and a partition, the partition rebuilt over the rank's shard
     (shard_accel) and its culling-cast tables. Every rank of the prims
     group calls it together (shard_accel's all-gather)."""
-    accel = tables = None
-    if isinstance(scene, renderer.PreparedScene):
-        accel, tables, scene = scene.accel, scene.tables, scene.soa
-    if scene.device != mesh.device:
-        scene, tables = soa_to(scene, mesh.device), None
-    soa = shard_scene(scene, mesh)
-    if mesh.n_prims > 1 and accel is not None:
-        from cutrace_tpu_torch.ops.pallas_cast import cluster_tables
+    with tracing.setup_span("prepare_sharded"):
+        accel = tables = None
+        if isinstance(scene, renderer.PreparedScene):
+            accel, tables, scene = scene.accel, scene.tables, scene.soa
+        if scene.device != mesh.device:
+            scene, tables = soa_to(scene, mesh.device), None
+        soa = shard_scene(scene, mesh)
+        if mesh.n_prims > 1 and accel is not None:
+            from cutrace_tpu_torch.ops.pallas_cast import cluster_tables
 
-        accel = shard_accel(scene, mesh, accel.kind)
-        tables = (None if accel.kind == "clusters"
-                  else cluster_tables(soa, accel))
-    return ShardedScene(soa, mesh, accel, tables)
+            accel = shard_accel(scene, mesh, accel.kind)
+            tables = (None if accel.kind == "clusters"
+                      else cluster_tables(soa, accel))
+        return ShardedScene(soa, mesh, accel, tables)
 
 
 def _rank_parts(scene: ShardedScene):
@@ -482,15 +487,21 @@ def _fused_rank_frame(scene: ShardedScene, bo, run: int, bounces: int,
     of `run` pixels of the block order `bo`, K1 or K3
     (ops.fused.fused_render_rays), the (R, 7) rows gathered over the
     tiles group (the frame's one collective) and put back in scanline
-    order."""
+    order; marks end the phases rays, pack and forward (ops.fused),
+    gather, unpermute."""
     from cutrace_tpu_torch.ops.fused import fused_render_rays
 
     soa, mesh = scene.soa, scene.mesh
     o, d = tile_rays(scene, bo, run)
+    tracing.mark("rays")
     color, depth, normal = fused_render_rays(
         soa, scene.accel, o, d, fudge, bounces, tables=scene.tables)
     rows = torch.cat([color, depth[:, None], normal], dim=1)
-    return renderer._unpack(soa, bo.inverse, gather_image(rows, mesh))
+    rows = gather_image(rows, mesh)
+    tracing.mark("gather")
+    images = renderer._unpack(soa, bo.inverse, rows)
+    tracing.mark("unpermute")
+    return images
 
 
 def _render_sharded(scene, mesh: Mesh, bounces: int, fudge: float,
@@ -516,6 +527,7 @@ def _render_sharded(scene, mesh: Mesh, bounces: int, fudge: float,
         def build():
             kept = renderer._detached(scene)
             return renderer._Program(
+                "sharded_frame",
                 lambda: _fused_rank_frame(kept, bo, run, bounces, fudge),
                 None, (kept, bo), mesh.device)
 
@@ -563,8 +575,11 @@ def render_sharded(scene, mesh: Mesh, bounces: int = 5, fudge: float = 1e-3):
     the rank's run (renderer._chunk_rows), then the gather. A failure to
     capture or replay raises. Free the programs (renderer.drop_programs)
     before torch.distributed.destroy_process_group. On the CPU and over
-    gloo the same frame runs op by op (render_sharded_eager)."""
-    return _render_sharded(scene, mesh, bounces, float(fudge), True)
+    gloo the same frame runs op by op (render_sharded_eager). While
+    tracing is on (utils.tracing) the call is the request span
+    `render_sharded`."""
+    with tracing.request("render_sharded"):
+        return _render_sharded(scene, mesh, bounces, float(fudge), True)
 
 
 @torch.no_grad()

@@ -32,6 +32,11 @@ from cutrace_tpu_torch.diff.grad import (extract_params, render_loss,
 from cutrace_tpu_torch.parallel import sharding as sh
 from cutrace_tpu_torch.render import renderer
 from cutrace_tpu_torch.scene.soa import SceneArrays, resolve_device, soa_to
+from cutrace_tpu_torch.utils import tracing
+
+# Step programs started anew since import because a step function was
+# handed other params, soa or target objects than its program's.
+REKEYS = 0
 
 
 def sharded_loss(params, soa, mesh, target_flat, bounces: int,
@@ -53,7 +58,9 @@ def sharded_loss(params, soa, mesh, target_flat, bounces: int,
                                            accel)
     k = max(0, min(run, n - start))  # pixels past the image are padding
     diff = color[:k] - target_flat.reshape(-1, 3)[idx[:k]]
-    return (diff ** 2).sum() / (3 * n)
+    loss = (diff ** 2).sum() / (3 * n)
+    tracing.mark("loss")
+    return loss
 
 
 def _all_reduce_grads(params, loss, mesh):
@@ -127,7 +134,14 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
     must not be replaced (load_state_dict) under a program. The optimizer
     on a CUDA device must be built with capturable=True, or this raises;
     a failure to capture or replay raises. Without `program`, and
-    elsewhere, the step runs op by op, its plain version."""
+    elsewhere, the step runs op by op, its plain version.
+
+    While tracing is on (utils.tracing) a call of the program's step is
+    the request span `step`: `step.key` (the identity check),
+    `program.replay`, `step.copy_out`. The step's marks end the phases
+    rays, tables, pack, forward (the forward kernel), loss, cotangents,
+    backward (the replay backward's kernels), routing (the rest of
+    autograd), with a mesh reduce (the gradient sum), and optimizer."""
     device = _optimizer_device(optimizer)
     captured = program and step_is_captured(device, mesh)
     if captured and device.type == "cuda" and not all(
@@ -142,16 +156,20 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
         if mesh is None:
             loss = render_loss(params, soa, target, bounces, fudge, accel)
             loss.backward()
+            tracing.mark("routing")
         else:
             loss = sharded_loss(params, soa, mesh, target, bounces, fudge,
                                 accel)
             loss.backward()
+            tracing.mark("routing")
             loss = _all_reduce_grads(params, loss, mesh)
+            tracing.mark("reduce")
         if param_filter is not None:
             for k, v in params.items():
                 if k not in param_filter:
                     v.grad = None
         optimizer.step()
+        tracing.mark("optimizer")
         return loss.detach()
 
     if not captured:
@@ -159,21 +177,30 @@ def make_train_step(optimizer: torch.optim.Optimizer, bounces: int = 2,
     held = {}  # "key": the objects of the program's calls; "program"
 
     def step(params, soa, target):
-        key = (params, soa, target, *params.values())
-        old = held.get("key", ())
-        if len(old) != len(key) or any(a is not b
-                                       for a, b in zip(old, key)):
-            held.clear()
-            held["key"] = key
-            return renderer.GRAPHS.warm(lambda: eager(params, soa, target),
-                                        device)
-        prog = held.get("program")
-        if prog is None:
-            prog = held["program"] = renderer._Program(
-                lambda: (eager(params, soa, target),), None,
-                (key, optimizer), device, warm=False)
-        prog.replay()
-        return prog.outputs[0].clone()
+        global REKEYS
+        with tracing.request("step"):
+            with tracing.span("step.key"):
+                key = (params, soa, target, *params.values())
+                old = held.get("key", ())
+                same = len(old) == len(key) and all(
+                    a is b for a, b in zip(old, key))
+            if not same:
+                if old:
+                    REKEYS += 1
+                held.clear()
+                held["key"] = key
+                with tracing.setup_span("program.build"), \
+                        tracing.setup_span("program.warm"):
+                    return renderer.GRAPHS.warm(
+                        lambda: eager(params, soa, target), device)
+            prog = held.get("program")
+            if prog is None:
+                prog = held["program"] = renderer._Program(
+                    "step", lambda: (eager(params, soa, target),), None,
+                    (key, optimizer), device, warm=False)
+            prog.replay()
+            with tracing.span("step.copy_out"):
+                return prog.outputs[0].clone()
 
     return step
 

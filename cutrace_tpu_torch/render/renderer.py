@@ -30,6 +30,7 @@ from cutrace_tpu_torch.ops import intersect as I
 from cutrace_tpu_torch.render import shading as sh
 from cutrace_tpu_torch.scene.soa import (SceneArrays, host_triangle_soup,
                                          resolve_device, scene_to_soa)
+from cutrace_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,33 +71,38 @@ def prepare(scene_or_soa, accel: str = "auto", device="cuda",
     (K1), else C = 256 (K3), and C = 512 past 262,144 triangles."""
     from cutrace_tpu_torch.ops import fused
 
-    host_tris = None
-    if isinstance(scene_or_soa, SceneArrays):
-        soa = scene_or_soa
-    else:
-        host_tris = host_triangle_soup(scene_or_soa)
-        soa = scene_to_soa(scene_or_soa, device=resolve_device(device))
-    if accel == "auto":
-        accel = "fused" if soa.device.type == "cuda" else "none"
-    if accel == "none":
-        return PreparedScene(soa=soa)
-    if accel not in bvh.KINDS:
-        raise ValueError(f"unknown accel {accel!r}")
-    size = bvh.CLUSTER_SIZE
-    if accel == "fused":
-        n_tris = int(soa.tri_p1.shape[0])
-        size = 256
-        for c in (64, 128):
-            if n_tris <= fused.LANES_MAX_M * c:
-                size = c
-                break
-        if n_tris > BIG_TABLE_TRIANGLES:
-            size = 512
-    acc = bvh.build_accel(soa, cluster_size=size, host_tris=host_tris,
-                          kind=accel)
-    tables = (fused.kernel_tables(soa, acc) if soa.device.type == "cuda"
-              else None)
-    return PreparedScene(soa=soa, accel=acc, tables=tables)
+    with tracing.setup_span("prepare"):
+        host_tris = None
+        with tracing.setup_span("prepare.soa"):
+            if isinstance(scene_or_soa, SceneArrays):
+                soa = scene_or_soa
+            else:
+                host_tris = host_triangle_soup(scene_or_soa)
+                soa = scene_to_soa(scene_or_soa, device=resolve_device(device))
+        if accel == "auto":
+            accel = "fused" if soa.device.type == "cuda" else "none"
+        if accel == "none":
+            return PreparedScene(soa=soa)
+        if accel not in bvh.KINDS:
+            raise ValueError(f"unknown accel {accel!r}")
+        size = bvh.CLUSTER_SIZE
+        if accel == "fused":
+            n_tris = int(soa.tri_p1.shape[0])
+            size = 256
+            for c in (64, 128):
+                if n_tris <= fused.LANES_MAX_M * c:
+                    size = c
+                    break
+            if n_tris > BIG_TABLE_TRIANGLES:
+                size = 512
+        with tracing.setup_span("prepare.accel"):
+            acc = bvh.build_accel(soa, cluster_size=size, host_tris=host_tris,
+                                  kind=accel)
+        tables = None
+        if soa.device.type == "cuda":
+            with tracing.setup_span("prepare.tables"):
+                tables = fused.kernel_tables(soa, acc)
+        return PreparedScene(soa=soa, accel=acc, tables=tables)
 
 
 def _device_key(device) -> torch.device:
@@ -260,6 +266,10 @@ PROGRAM_CACHE_SIZE = 4
 # Programs captured since import: a second render of the same scene
 # replays and adds none.
 CAPTURES = 0
+# _program's cache misses (each builds a program) and its entries dropped
+# past PROGRAM_CACHE_SIZE, since import.
+PROGRAM_MISSES = 0
+PROGRAM_EVICTIONS = 0
 _PROGRAMS: "collections.OrderedDict" = collections.OrderedDict()
 _OWNERS: dict = {}  # id(scene) -> its weakref.finalize
 
@@ -313,7 +323,8 @@ GRAPHS = _CudaGraphs()
 
 class _Program:
     """One program captured as a CUDA graph: a frame, a composable chunk
-    or a training step (parallel.train.make_train_step).
+    or a training step (parallel.train.make_train_step); `name` is the
+    program's in tracing's snapshot.
 
     With `warm` fn() first runs once eagerly on a side stream (a frame's
     warm-up, as torch.cuda.graph requires); a caller whose eager run is
@@ -325,16 +336,22 @@ class _Program:
     graph reads, so no address is freed and reused under it. The kernel
     wrappers count their launches in Python, which a replay never runs:
     the counts the capture added are taken back and added again on
-    every replay."""
+    every replay. The capture records fn's phase marks (tracing.Marks),
+    read after traced replays."""
 
-    def __init__(self, fn, inputs, keep, device, warm=True):
+    def __init__(self, name, fn, inputs, keep, device, warm=True):
         global CAPTURES
         counters = _launch_counters()
         self.inputs, self.keep = inputs, keep
-        if warm:
-            GRAPHS.warm(fn, device)
-        before = [getattr(m, n) for m, n in counters]
-        self.graph, self.outputs = GRAPHS.capture(fn, device)
+        self.marks = tracing.Marks(name, device)
+        with tracing.setup_span("program.build"):
+            if warm:
+                with tracing.setup_span("program.warm"):
+                    GRAPHS.warm(fn, device)
+            before = [getattr(m, n) for m, n in counters]
+            with tracing.setup_span("program.capture"):
+                self.graph, self.outputs = GRAPHS.capture(
+                    self.marks.wrap(fn), device)
         self.counts = []
         for (m, n), b in zip(counters, before):
             if getattr(m, n) != b:
@@ -343,7 +360,10 @@ class _Program:
         CAPTURES += 1
 
     def replay(self):
-        self.graph.replay()
+        self.marks.before_replay()
+        with tracing.span("program.replay"):
+            self.graph.replay()
+        self.marks.after_replay()
         for m, n, k in self.counts:
             setattr(m, n, getattr(m, n) + k)
 
@@ -368,17 +388,20 @@ def _program(owner, key, build) -> _Program:
     on a miss. Scenes are keyed by identity, never by value (their tensor
     fields do not compare); an entry goes when its scene is freed, or as
     the least recently used past PROGRAM_CACHE_SIZE."""
+    global PROGRAM_MISSES, PROGRAM_EVICTIONS
     full = (id(owner),) + tuple(key)
     prog = _PROGRAMS.get(full)
     if prog is not None:
         _PROGRAMS.move_to_end(full)
         return prog
+    PROGRAM_MISSES += 1
     prog = build()
     _PROGRAMS[full] = prog
     if id(owner) not in _OWNERS:
         _OWNERS[id(owner)] = weakref.finalize(owner, _forget, id(owner))
     while len(_PROGRAMS) > PROGRAM_CACHE_SIZE:
         _PROGRAMS.popitem(last=False)
+        PROGRAM_EVICTIONS += 1
     return prog
 
 
@@ -394,40 +417,54 @@ def _detached(owner):
 
 def _fused_frame(prepared: PreparedScene, bounces: int, fudge: float):
     """The fused frame: camera rays in block order, ray packing and K1 or
-    K3 (ops.fused.fused_render_rays), un-permute."""
+    K3 (ops.fused.fused_render_rays), un-permute; marks end the phases
+    rays, pack and forward (the kernel; marked in ops.fused), unpermute."""
     from cutrace_tpu_torch.ops.fused import fused_render_rays
 
     soa = prepared.soa
     bo = block_order_tensors(soa.width, soa.height, soa.width * soa.height,
                              soa.device)
     o, d = camera_rays(soa, bo.px, bo.py)
+    tracing.mark("rays")
     color, depth, normal = fused_render_rays(
         soa, prepared.accel, o, d, fudge, bounces, tables=prepared.tables)
-    return to_image(soa, bo.inverse, color, depth, normal)
+    images = to_image(soa, bo.inverse, color, depth, normal)
+    tracing.mark("unpermute")
+    return images
 
 
-@torch.no_grad()
+def _replay_frame(prog: _Program):
+    """Replay a frame's program and copy its images out of the graph's
+    memory (the span `render.copy_out`; after a traced replay an eager
+    mark ends the phase `copy_out`)."""
+    prog.replay()
+    with tracing.span("render.copy_out"):
+        images = tuple(x.clone() for x in prog.outputs)
+        prog.marks.tail("copy_out")
+    return images
+
+
 def _render_fused(prepared: PreparedScene, bounces: int, fudge: float,
-                  program: bool = True):
-    """The whole frame through the fused kernels: on a CUDA device one
-    captured program per (scene, bounces, fudge), replayed (the
-    counterpart of the JAX package's jitted `_render_fused`); op by op
-    without `program` and on the CPU. The images are the frame's own
-    tensors, never the graph's memory."""
+                  program: bool):
+    """The whole frame through the fused kernels, as a call: on a CUDA
+    device one captured program per (scene, bounces, fudge), looked up
+    (built on a miss) here and replayed by the call (the counterpart of
+    the JAX package's jitted `_render_fused`); op by op without `program`
+    and on the CPU. The images are the frame's own tensors, never the
+    graph's memory."""
     if not program or not GRAPHS.captures(prepared.soa.device):
-        return _fused_frame(prepared, bounces, fudge)
+        return functools.partial(_fused_frame, prepared, bounces, fudge)
 
     def build():
         scene = _detached(prepared)
         soa = scene.soa
         bo = block_order_tensors(soa.width, soa.height,
                                  soa.width * soa.height, soa.device)
-        return _Program(lambda: _fused_frame(scene, bounces, fudge), None,
-                        (scene, bo), soa.device)
+        return _Program("frame", lambda: _fused_frame(scene, bounces, fudge),
+                        None, (scene, bo), soa.device)
 
     prog = _program(prepared, ("fused", bounces, fudge), build)
-    prog.replay()
-    return tuple(x.clone() for x in prog.outputs)
+    return functools.partial(_replay_frame, prog)
 
 
 def _chunk(soa, xy, bounces: int, fudge, tri_candidates):
@@ -465,7 +502,8 @@ def _chunk_rows(owner, parts, pxy, bounces: int, fudge: float, chunk: int,
         kept = _detached(owner)
         k_soa, k_tc = parts(kept)
         xy = pxy[:, :chunk].clone()
-        return _Program(lambda: _chunk(k_soa, xy, bounces, fudge, k_tc), xy,
+        return _Program("chunk",
+                        lambda: _chunk(k_soa, xy, bounces, fudge, k_tc), xy,
                         (kept, k_tc), pxy.device)
 
     prog = _program(owner, ("chunks", parts, bounces, fudge, chunk), build)
@@ -502,11 +540,12 @@ def _render_padded(owner, bounces: int, fudge: float, chunk: int,
     return _unpack(soa, bo.inverse, rows)
 
 
-def _render(scene_or_soa, bounces, fudge, chunk, device, program):
-    """render's dispatch, as the programs (`program`) or op by op: the
-    fused frame for a "fused" partition in the kernels' scope, else the
-    composable frame, keyed on the PreparedScene when it has a partition
-    and on its SceneArrays when not."""
+def _dispatch(scene_or_soa, bounces, fudge, chunk, device, program):
+    """render's route, as a call that renders the frame, through the
+    programs (`program`) or op by op: the fused frame for a "fused"
+    partition in the kernels' scope, else the composable frame, keyed on
+    the PreparedScene when it has a partition and on its SceneArrays
+    when not."""
     from cutrace_tpu_torch.ops import fused
 
     owner = scene_or_soa
@@ -527,7 +566,8 @@ def _render(scene_or_soa, bounces, fudge, chunk, device, program):
         culls = accel is not None and accel.kind != "clusters"
         chunk = default_chunk(soa, bounces, lights=not culls)
     chunk = max(8, min(chunk, _ceil_to(n, 8)))
-    return _render_padded(owner, bounces, float(fudge), chunk, program)
+    return functools.partial(_render_padded, owner, bounces, float(fudge),
+                             chunk, program)
 
 
 @torch.no_grad()
@@ -546,8 +586,14 @@ def render(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
     (`_render_padded`). On a CUDA device each runs as a captured program,
     built at a scene's first render and replayed after; a failure to
     capture or replay raises. On the CPU both run op by op
-    (`render_eager`)."""
-    return _render(scene_or_soa, bounces, fudge, chunk, device, True)
+    (`render_eager`). While tracing is on (utils.tracing) the call is the
+    request span `render`: `render.dispatch` (the route and the program's
+    lookup), `program.replay`, `render.copy_out`."""
+    with tracing.request("render"):
+        with tracing.span("render.dispatch"):
+            frame = _dispatch(scene_or_soa, bounces, fudge, chunk, device,
+                              True)
+        return frame()
 
 
 @torch.no_grad()
@@ -557,4 +603,4 @@ def render_eager(scene_or_soa, bounces: int = 5, fudge: float = 1e-3,
     same kernels, dispatched op by op from Python on any device. It is
     render on the CPU; on the card it is what the programs are held
     against."""
-    return _render(scene_or_soa, bounces, fudge, chunk, device, False)
+    return _dispatch(scene_or_soa, bounces, fudge, chunk, device, False)()

@@ -124,21 +124,25 @@ def load_from(
 def load_file(
     path: str, compat: bool = True, quiet: bool = False
 ) -> LoadResult:
-    """Load a scene from a JSON file (loader.hpp:763-781)."""
-    try:
-        with open(path, "r") as f:
-            data = json.load(f)
-    except (OSError, json.JSONDecodeError) as e:
-        msg = f"Error while loading file '{path}': {e}"
-        if not quiet:
-            print(msg, file=sys.stderr)
-        return LoadResult(T.Scene(), ok=False, errors=[msg])
-    if not isinstance(data, dict):
-        msg = f"Error while loading file '{path}': expected a JSON object"
-        if not quiet:
-            print(msg, file=sys.stderr)
-        return LoadResult(T.Scene(), ok=False, errors=[msg])
-    return load_from(data, scene_path=path, compat=compat, quiet=quiet)
+    """Load a scene from a JSON file (loader.hpp:763-781), under the
+    set-up span `scene.load` (utils.tracing)."""
+    from cutrace_tpu_torch.utils import tracing
+
+    with tracing.setup_span("scene.load"):
+        try:
+            with open(path, "r") as f:
+                data = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            msg = f"Error while loading file '{path}': {e}"
+            if not quiet:
+                print(msg, file=sys.stderr)
+            return LoadResult(T.Scene(), ok=False, errors=[msg])
+        if not isinstance(data, dict):
+            msg = f"Error while loading file '{path}': expected a JSON object"
+            if not quiet:
+                print(msg, file=sys.stderr)
+            return LoadResult(T.Scene(), ok=False, errors=[msg])
+        return load_from(data, scene_path=path, compat=compat, quiet=quiet)
 
 
 def load_scene(path: str, compat: bool = True) -> T.Scene:

@@ -4,9 +4,8 @@ cutrace_tpu.utils.profiling).
 `RenderTimings` is the reference's render_ms / total_ms pair plus the JAX
 package's derived cast throughput, so that Mcasts/s means what it means
 there. `timed_render` times one warm frame: by CUDA events on the card,
-by the host clock on the CPU. `device_trace` records a torch.profiler
-trace (host ops, and the card's kernels and copies where there is a
-card) as a chrome trace, and `summarize_trace` sums it by name.
+by the host clock on the CPU. Spans, counters and device phase marks
+inside the port are utils.tracing's.
 
 For benchmarks: `event_ms` (CUDA events around many calls),
 `sample_ms` (one time a call), `kernel_records` (a kernel's device time
@@ -16,10 +15,7 @@ percentile with ten samples beyond it, and the count).
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
-import glob
 import json
 import os
 import time
@@ -116,26 +112,6 @@ def timed_render(prepared_or_scene, bounces: int = 5, fudge: float = 1e-3,
     return out, timings
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """torch.profiler over the block: host ops, and the card's kernels,
-    copies and memsets where a card is present. Yields log_dir; on exit
-    the chrome trace is written there as trace_<ns>.json, for
-    `summarize_trace(log_dir)`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield log_dir
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(
-        os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
-
-
 def event_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps calls, by one pair of CUDA
     events around them all."""
@@ -207,29 +183,3 @@ def spread(samples) -> dict:
         out["percentile"] = None
     out["n"] = n
     return out
-
-
-# chrome-trace categories of the card's own activities
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def summarize_trace(log_dir: str, top: int = 20):
-    """Durations summed by name over the newest trace in log_dir: the
-    card's activities (DEVICE_CATEGORIES) when the trace holds any, else
-    the host's torch ops. Returns [(name, total_ms, count)] by total time,
-    at most `top` of them."""
-    paths = sorted(glob.glob(os.path.join(log_dir, "trace_*.json")),
-                   key=os.path.getmtime)
-    if not paths:
-        return []
-    with open(paths[-1]) as f:
-        events = [e for e in json.load(f).get("traceEvents", [])
-                  if e.get("ph") == "X" and "dur" in e]
-    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
-    chosen = device or [e for e in events if e.get("cat") == "cpu_op"]
-    tot = collections.Counter()
-    cnt = collections.Counter()
-    for e in chosen:
-        tot[e["name"]] += e["dur"]
-        cnt[e["name"]] += 1
-    return [(n, d / 1000.0, cnt[n]) for n, d in tot.most_common(top)]

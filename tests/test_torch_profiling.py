@@ -1,6 +1,6 @@
 """The port's profiling module (cutrace_tpu_torch.utils.profiling) against
 the JAX package's: RenderTimings' numbers and text, timed_render, and a
-torch.profiler trace of a CPU render summed by name."""
+torch.profiler trace summary."""
 
 import pytest
 import torch
@@ -57,24 +57,6 @@ def test_timed_render_prepares_a_scene(scenes_dir):
     (c, _, _), t = TP.timed_render(port_scene(sc), bounces=1, warmup=False,
                                    device="cpu")
     assert tuple(c.shape) == (8, 8, 3) and t.total_ms >= t.render_ms
-
-
-def test_device_trace_summary_of_a_cpu_render(scenes_dir, tmp_path):
-    """device_trace writes a chrome trace of a CPU render; summarize_trace
-    sums its host ops by name, longest first."""
-    p = _prepared(scenes_dir, "pallas")
-    with TP.device_trace(str(tmp_path)) as log_dir:
-        TR.render(p, bounces=2)
-    assert log_dir == str(tmp_path)
-    rows = TP.summarize_trace(str(tmp_path), top=5)
-    assert 0 < len(rows) <= 5
-    names = [r[0] for r in rows]
-    assert all(isinstance(x, str) and x for x in names)
-    assert len(set(names)) == len(names)
-    ms = [r[1] for r in rows]
-    assert ms == sorted(ms, reverse=True) and ms[0] > 0.0
-    assert all(isinstance(r[2], int) and r[2] >= 1 for r in rows)
-    assert TP.summarize_trace(str(tmp_path / "none")) == []
 
 
 def test_trace_summary_counts_launches_and_syncs():
