@@ -63,7 +63,8 @@ line) if any phase fails:
              triangle rows' exact sums in global memory)
  12. big-frame  a cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and
              1M, 960x540 b5, with K3's time, both bounds, launches, and
-             slab tests, admitted and needed visits a cast. The 256k
+             slab tests, admitted and needed visits, sub-box tests and
+             groups scanned a cast (and groups an admitted visit). The 256k
              and 1M frames (K3) against the 1k bunny's through K1 (the
              surface is the same): zero mismatches off the discontinuities
              and the rays whose topology codes differ between the two
@@ -221,7 +222,7 @@ wrapper: the program adds the counts its capture recorded on every
 replay. Each bound is
 given twice: the work these inputs need whatever the traversal ("bound":
 the tally's needed cluster visits) and the kernel's own work
-("bound_admitted": its slab tests and admitted visits). `--skip` leaves
+("bound_admitted": its slab tests and the slots it tested). `--skip` leaves
 phases out while developing; the result line is printed only when nothing
 was skipped. Nothing here imports jax.
 """
@@ -357,10 +358,16 @@ def bound_text(b):
 
 
 def tally_text(tally):
-    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
+    casts, visits, slabs, needed, sub_slabs, groups = (
+        int(x) for x in tally.tolist())
     n = max(casts, 1)
-    return (f"casts {casts}, a cast: slab tests {slabs / n:.2f}, admitted "
+    text = (f"casts {casts}, a cast: slab tests {slabs / n:.2f}, admitted "
             f"visits {visits / n:.3f}, needed visits {needed / n:.3f}")
+    if sub_slabs:
+        text += (f", sub-box tests {sub_slabs / n:.2f}, groups scanned "
+                 f"{groups / n:.3f} ({groups / max(visits, 1):.3f} an "
+                 f"admitted visit)")
+    return text
 
 
 def resources_text(res):
@@ -1066,6 +1073,10 @@ def phase_big_frame(m, smi, rec, launches):
         row["slabs_per_cast"] = int(tally[2]) / casts
         row["visits_per_cast"] = int(tally[1]) / casts
         row["needed_per_cast"] = int(tally[3]) / casts
+        row["sub_slabs_per_cast"] = int(tally[4]) / casts
+        row["groups_per_cast"] = int(tally[5]) / casts
+        row["groups_per_visit"] = int(tally[5]) / max(int(tally[1]), 1)
+        row["slot_tests_per_cast"] = int(tally[5]) * 32 / casts
         b = forward_bound(soa, accel, prepared.tables, o.shape[0], tally, 0)
         row["bound_ms"], row["bound_by"] = b["bound"]
         row["bound_ms_admitted"], row["bound_by_admitted"] = (
@@ -1251,7 +1262,8 @@ def k4_in_frame(m, prepared, rec):
 
     class Tallied:
         def cutrace_cluster_cast(self, *args):
-            t = torch.zeros(4, dtype=torch.int64, device="cuda")
+            t = torch.zeros(m.pc.TALLY_COUNTS, dtype=torch.int64,
+                            device="cuda")
             tallies.append((args[6], t))
             args = (*args[:11], m.fused._ptr(t), args[12])
             return lib.cutrace_cluster_cast(*args)

@@ -542,7 +542,7 @@ def _k4_line(b):
     tallies = []
 
     def tallied(tables, o, d, min_dist, tally=None):
-        t = torch.zeros(4, dtype=torch.int64, device=o.device)
+        t = torch.zeros(pc.TALLY_COUNTS, dtype=torch.int64, device=o.device)
         tallies.append((tables, o.shape[0], t))
         return cast(tables, o, d, min_dist, t)
 

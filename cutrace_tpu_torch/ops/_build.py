@@ -48,7 +48,7 @@ SIGNATURES = {
             + [_F]  # fudge
             + [_P, _I, _I, _P]  # codes t_cnt p_cnt tally
             + [_P, _I, _I]  # tree leaves instance
-            + [_P, _P]  # next_chunk stream
+            + [_P, _P, _P]  # next_chunk sub stream
         ),
         "cutrace_shared_limit": [_P],  # bytes (int *)
         "cutrace_fused_forward_attributes": [_I, _P],  # instance out[4]

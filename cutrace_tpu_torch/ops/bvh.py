@@ -18,7 +18,12 @@ The cull kernels (csrc/cast.cuh) walk big partitions through a
 hierarchy. Clusters are median-split leaves in tree order, so consecutive
 clusters are spatially compact and their union box is tight: `tree_boxes`
 builds a complete binary tree of such unions (the ordered walk of K3 and
-of K4 past 32 clusters), widened by `widen_tree`.
+of K4 past 32 clusters), widened by `widen_tree`. Below the clusters, K3
+tests a box per group of SUB_GROUP consecutive slots (`sub_boxes`); a
+partition of more than 32 clusters carries, in `Accel.slots`, the order
+of each cluster's slots that makes those groups compact (`group_slots`:
+the median split carried on down to groups), which only the kernels'
+tables follow.
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ TREE_ARITY = 2
 # cosine of about 1e-3, and widens a 256k-triangle cluster (about 1/32 of
 # the extent) by 0.3 %.
 TREE_MARGIN = 1e-4
+# Slots under one box of the level below the clusters (csrc/cast.cuh
+# kSubSlots): a warp's 32 lanes test a group's slots in one step.
+SUB_GROUP = 32
 KINDS = ("clusters", "pallas", "fused")
 
 _FAR = 1.0e8
@@ -75,11 +83,15 @@ class Accel:
     `valid` masks live slots. `kind` selects the triangle query of the
     composable path (`candidates_fn`): "clusters" the dense cast with no
     culling, "pallas" and "fused" the culling cast (K4); a "fused"
-    partition also drives the fused kernels."""
+    partition also drives the fused kernels. `slots`, made with a
+    partition of more than 32 clusters, orders each cluster's slots for
+    the kernels' tables (group_slots): row j of cluster m holds slot
+    slots[m, j]; None keeps `order`'s slots."""
 
     order: torch.Tensor  # (M, C) i32
     valid: torch.Tensor  # (M, C) bool
     kind: str = "fused"
+    slots: torch.Tensor | None = None  # (M, C) i64
 
 
 def build_partition(centroids: np.ndarray, cluster_size: int):
@@ -113,6 +125,38 @@ def build_partition(centroids: np.ndarray, cluster_size: int):
     return leaves
 
 
+def group_slots(centroids, valid):
+    """(M, C) int64: each cluster's slots reordered so that every run of
+    SUB_GROUP consecutive slots is spatially compact, from the (M, C, 3)
+    float32 slot centroids and (M, C) valid mask, on their device:
+    build_partition's median split carried on inside each cluster, a
+    level at a time over every cluster at once, down to groups of
+    SUB_GROUP (each run of slots sorted, stably, along the widest axis of
+    its valid centroids, then split in halves; the slots padded to a power
+    of two of groups). Invalid slots sort last, so they end a cluster."""
+    m, c = valid.shape
+    width = SUB_GROUP << max(-(-c // SUB_GROUP) - 1, 0).bit_length()
+    pad = width - c
+    pts = torch.nn.functional.pad(centroids, (0, 0, 0, pad))
+    ok = torch.nn.functional.pad(valid, (0, pad))
+    perm = torch.arange(width, device=valid.device).repeat(m, 1)
+    run = width
+    while run > SUB_GROUP:
+        idx = perm.reshape(m, width // run, run)
+        p = pts.gather(1, perm[..., None].expand(-1, -1, 3)).reshape(
+            m, width // run, run, 3)
+        v = ok.gather(1, perm).reshape(m, width // run, run)
+        lo = torch.where(v[..., None], p, math.inf).amin(dim=2)
+        hi = torch.where(v[..., None], p, -math.inf).amax(dim=2)
+        axis = (hi - lo).argmax(dim=-1)[..., None, None]
+        key = torch.where(
+            v, p.gather(3, axis.expand(-1, -1, run, 1))[..., 0], math.inf)
+        order = torch.sort(key, dim=2, stable=True).indices
+        perm = idx.gather(2, order).reshape(m, width)
+        run //= 2
+    return perm[:, :c]
+
+
 def accel_from_numpy(order, valid, device="cuda", kind="fused") -> Accel:
     """An Accel on `device` (the card unless the caller asks for the CPU)
     from numpy partition arrays (e.g. the JAX package's Accel leaves read
@@ -135,7 +179,11 @@ def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
     (scene.soa.host_triangle_soup) that skips reading the triangles back
     from the device. `min_clusters` pads the cluster axis with empty
     clusters, so the partitions of equal triangle shards share one M
-    (parallel.sharding.build_sharded_accel)."""
+    (parallel.sharding.build_sharded_accel). Past 32 clusters (K3's and
+    K4's tree walks) it also orders each cluster's slots into compact
+    groups for the kernels' tables (group_slots)."""
+    from cutrace_tpu_torch.ops.pallas_cast import FLAT_MAX_M
+
     if host_tris is not None:
         p1, p2, p3, valid = (np.asarray(a) for a in host_tris)
     else:
@@ -143,14 +191,21 @@ def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
             t.cpu().numpy()
             for t in (soa.tri_p1, soa.tri_p2, soa.tri_p3, soa.tri_valid)
         )
-    leaves = build_partition((p1 + p2 + p3) / 3.0, cluster_size)
+    centroids = (p1 + p2 + p3) / 3.0
+    leaves = build_partition(centroids, cluster_size)
     m = max(len(leaves), min_clusters, 1)
     order = np.full((m, cluster_size), _BIG, np.int32)
     vmask = np.zeros((m, cluster_size), bool)
     for mi, idx in enumerate(leaves):
         order[mi, :len(idx)] = idx
         vmask[mi, :len(idx)] = valid[idx]
-    return accel_from_numpy(order, vmask, soa.device, kind)
+    accel = accel_from_numpy(order, vmask, soa.device, kind)
+    if m <= FLAT_MAX_M or not len(centroids):
+        return accel
+    slot_cent = np.asarray(centroids, np.float32)[
+        np.minimum(order, len(centroids) - 1)]
+    slots = group_slots(torch.from_numpy(slot_cent), torch.from_numpy(vmask))
+    return dataclasses.replace(accel, slots=slots.to(accel.order.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,16 +300,44 @@ def tree_boxes(bmin, bmax, live):
     return rows
 
 
-def widen_tree(rows, margin: float = TREE_MARGIN):
-    """`tree_boxes` rows with every node widened outward by `margin` times
-    the root box's longest side (none when no cluster is live)."""
+def widening(rows, margin: float = TREE_MARGIN):
+    """How far `widen_tree` moves every face of `tree_boxes` rows outward:
+    `margin` times the root box's longest side (0 when no cluster is
+    live), a 0-d tensor."""
     root = rows[1]
     extent = (root[3:6] - root[0:3]).amax()
-    delta = margin * extent
+    return margin * extent
+
+
+def widen_tree(rows, margin: float = TREE_MARGIN):
+    """`tree_boxes` rows with every node widened outward by `widening`."""
+    delta = widening(rows, margin)
     out = rows.clone()
     out[1:, 0:3] -= delta
     out[1:, 3:6] += delta
     return out
+
+
+def sub_boxes(lo, hi, valid, delta):
+    """(M, G, 8) rows [bmin xyz, bmax xyz, 0, 0] of each cluster's groups
+    of SUB_GROUP consecutive slots, G = ceil(C / SUB_GROUP): the union of
+    the (M, C, 3) corner boxes lo..hi of the group's valid slots, widened
+    outward by `delta` (the tree's `widening`). A group without a valid
+    slot sits at the never-hit _FAR point, as an empty cluster does."""
+    m, c = valid.shape
+    g = -(-c // SUB_GROUP)
+    pad = (0, 0, 0, g * SUB_GROUP - c)
+    v3 = valid[..., None]
+    lo = torch.nn.functional.pad(torch.where(v3, lo, math.inf), pad,
+                                 value=math.inf)
+    hi = torch.nn.functional.pad(torch.where(v3, hi, -math.inf), pad,
+                                 value=-math.inf)
+    lo = lo.reshape(m, g, SUB_GROUP, 3).amin(dim=2)
+    hi = hi.reshape(m, g, SUB_GROUP, 3).amax(dim=2)
+    rows = torch.zeros((m, g, 8), dtype=torch.float32, device=lo.device)
+    rows[..., 0:3] = torch.where(torch.isfinite(lo), lo - delta, _FAR)
+    rows[..., 3:6] = torch.where(torch.isfinite(hi), hi + delta, _FAR)
+    return rows
 
 
 def slab_entry(bmin, bmax, o, d):

@@ -32,6 +32,16 @@
 // rounding of either t at the scene's scale, so the walk only admits
 // more than an exact cull would: its winners are the flat loop's, or a
 // triangle the flat loop's rounding dropped.
+//
+// K3's walk has a second level of boxes below the cluster: each run of
+// kSubSlots = 32 consecutive slots (a group, spatially compact: ops/bvh.py
+// group_slots orders a cluster's slots so) has its own box, widened by
+// the same margin (ops/bvh.py sub_boxes). An admitted cluster's
+// rays test its groups' boxes against the same cull and read only the
+// slot rows of the groups they enter, skipping a group entered past the
+// best t found so far (visit_nearest_sub, visit_any_sub). The widening
+// keeps the argument above: the sub-box walk only admits more than an
+// exact cull of the groups would. K1 and K4 visit whole clusters.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +58,8 @@ constexpr int kPsRows = 12;     // floats per plane / sphere row
 constexpr int kAabbRows = 8;    // floats per cluster or tree box row
 constexpr int kTreeArity = 2;   // children per node (ops/bvh.py TREE_ARITY)
 constexpr int kTreeStack = 32;  // deferred nodes: one per tree level at most
+constexpr int kSubSlots = 32;   // slots a sub-box covers (bvh.py SUB_GROUP)
+constexpr int kMaxGroups = 32;  // groups a cluster: one bit each in a mask
 constexpr float kBig = 1073741824.0f;  // 2^30: key of "no winner"
 
 // triangle slot rows (cutrace_tpu_torch/ops/pallas_cast.py _TRI_NAMES)
@@ -76,12 +88,18 @@ __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]};
 
 // Work counts of one thread: casts (nearest or any-hit queries), the
 // (ray, cluster) visits their culls admitted, the slab tests done (cluster
-// or tree boxes) and, when `count_needed`, the visits the casts
-// need whatever the traversal (needed_visits).
+// or tree boxes), when `count_needed` the visits the casts need whatever
+// the traversal (needed_visits), and in the sub-box walk the sub-box slab
+// tests of the admitted visits and the groups whose slots were tested (0
+// in K1 and K4).
 struct Tally {
   unsigned long long casts = 0, visits = 0, slabs = 0, needed = 0;
+  unsigned long long sub_slabs = 0, groups = 0;
   bool count_needed = false;
 };
+
+// The tally's counts (ops/pallas_cast.py TALLY_COUNTS).
+constexpr int kTallyCounts = 6;
 
 __device__ __forceinline__ void flush_tally(unsigned long long* out,
                                             const Tally& tl) {
@@ -90,6 +108,8 @@ __device__ __forceinline__ void flush_tally(unsigned long long* out,
   atomicAdd(out + 1, tl.visits);
   atomicAdd(out + 2, tl.slabs);
   atomicAdd(out + 3, tl.needed);
+  atomicAdd(out + 4, tl.sub_slabs);
+  atomicAdd(out + 5, tl.groups);
 }
 
 // Slab entry of a ray against one box (rows bmin xyz, bmax xyz, read as
@@ -186,14 +206,22 @@ __device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 nd,
 // A cluster partition: (M, C, kTriRows) slot rows and (M, kAabbRows)
 // cluster boxes; (2L, kAabbRows) widened tree boxes for the tree walk, L the
 // power of two >= M, node n at row n (row 1 the root, rows L..L+M-1 the
-// clusters), null for the flat loop. Slot offsets are size_t: a
+// clusters), null for the flat loop; (M, G, kAabbRows) widened sub-boxes,
+// G = ceil(C / kSubSlots), box g over slots kSubSlots g onwards, for the
+// sub-box walk (K3), null otherwise. Slot offsets are size_t: a
 // 1M-triangle table holds 25M floats.
 struct Clusters {
   const float* tri;
   const float* aabb;
   const float* tree;
   int m, c, leaves;
+  const float* sub;
 };
+
+// Groups of a cluster's slots, each under one sub-box.
+__device__ __forceinline__ int sub_groups(const Clusters& cl) {
+  return (cl.c + kSubSlots - 1) / kSubSlots;
+}
 
 // The nearest winner: t, its key (original index) and its slot
 // (cluster * C + slot), -1 when nothing won.
@@ -364,6 +392,241 @@ __device__ __forceinline__ bool visit_any_warp(const Clusters& cl, int mi,
   return found;
 }
 
+// ---- the sub-box walk (K3): a cluster's groups, each under a box ------
+//
+// A visit first finds, for each admitting lane, the groups of the cluster
+// whose (widened) box its ray enters before its cut: the warp tests one
+// admitting lane's ray at a time, lane rank taking groups rank, rank + n,
+// ..., or each lane tests every group for its own ray, whichever takes
+// fewer steps (entered_groups). Then, as for whole clusters, whichever
+// takes fewer steps of slot tests, now counted over the entered groups:
+//   * in turn: for each admitting lane, the warp scans that lane's entered
+//     groups one after another, a group's 32 slots spread over the lanes,
+//     and one warp reduction at the end keeps the (t, key) minimum;
+//   * together: the warp runs over the union of the entered groups, each
+//     lane scanning a group's 32 slots itself if its ray entered it.
+// Either way a group is scanned in index order and skipped when its entry
+// lies past the best t found so far (nearest casts), or once a hit is
+// found (any-hit queries).
+
+// A float from its sortable() bits.
+__device__ __forceinline__ float unsortable(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// A bit per group g = first, first + step, ... of cluster mi whose sub-box
+// the ray enters at or before `cut` (kAny: strictly before it).
+template <bool kAny>
+__device__ __forceinline__ unsigned sub_entered(const Clusters& cl, int mi,
+                                                int first, int step, V3 o,
+                                                V3 inv, float cut) {
+  const int groups = sub_groups(cl);
+  const float* box = cl.sub + (size_t)mi * groups * kAabbRows;
+  unsigned bits = 0;
+  float entry;
+  for (int g = first; g < groups; g += step)
+    if (slab(box + (size_t)g * kAabbRows, o, inv, &entry) &&
+        (kAny ? entry < cut : entry <= cut))
+      bits |= 1u << g;
+  return bits;
+}
+
+// For each lane of `todo` (the admitting lanes of `mask`): the groups of
+// cluster mi its ray enters before its `cut`; 0 in the other lanes.
+template <bool kAny>
+__device__ __forceinline__ unsigned entered_groups(const Clusters& cl,
+                                                   int mi, unsigned mask,
+                                                   unsigned todo, int rank,
+                                                   int n, V3 o, V3 inv,
+                                                   float cut) {
+  const int groups = sub_groups(cl);
+  const unsigned lane_bit = 1u << (threadIdx.x & 31);
+  if (__popc(todo) * ((groups + n - 1) / n) > groups)
+    return (todo & lane_bit) ? sub_entered<kAny>(cl, mi, 0, 1, o, inv, cut)
+                             : 0u;
+  unsigned mine = 0;
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const V3 so = shfl3(mask, o, src), sinv = shfl3(mask, inv, src);
+    const float scut = __shfl_sync(mask, cut, src);
+    const unsigned got = __reduce_or_sync(
+        mask, sub_entered<kAny>(cl, mi, rank, n, so, sinv, scut));
+    if (lane_bit == (1u << src)) mine = got;
+  }
+  return mine;
+}
+
+// In turn (true) or together (false), from the entered groups: k
+// admitting lanes whose rays entered `total` groups in all, `distinct` of
+// them different, over n lanes (see visit_in_turn).
+__device__ __forceinline__ bool groups_in_turn(int k, int total,
+                                               int distinct, int n) {
+  return total * ((kSubSlots + n - 1) / n) + k * kReduceSteps <
+         distinct * kSubSlots;
+}
+
+// visit_nearest_warp's work for K3: the nearest triangle of cluster mi for
+// each lane of `mask` with `visit` set, over the groups its ray enters
+// at or before min(limit, its best t), merged into its `b`.
+__device__ __forceinline__ void visit_nearest_sub(
+    const Clusters& cl, int mi, unsigned mask, bool visit, V3 o, V3 d, V3 w,
+    V3 inv, float mind, float limit, TriWinner& b, Tally& tl) {
+  const unsigned lane_bit = 1u << (threadIdx.x & 31);
+  const int rank = __popc(mask & (lane_bit - 1));
+  const int n = __popc(mask);
+  const int groups = sub_groups(cl);
+  const float* base = cl.tri + (size_t)mi * cl.c * kTriRows;
+  const float* boxes = cl.sub + (size_t)mi * groups * kAabbRows;
+  unsigned todo = __ballot_sync(mask, visit);
+  const float cut = fminf(limit, b.t);
+  const unsigned gm =
+      entered_groups<false>(cl, mi, mask, todo, rank, n, o, inv, cut);
+  if (visit) tl.sub_slabs += groups;
+  const unsigned entered = __reduce_or_sync(mask, gm);
+  const int total = (int)__reduce_add_sync(mask, (unsigned)__popc(gm));
+  if (!groups_in_turn(__popc(todo), total, __popc(entered), n)) {
+    float entry;
+    for (unsigned left = entered; left; left &= left - 1) {
+      const int g = __ffs(left) - 1;
+      bool scan = (gm >> g) & 1u;
+      // a winner found since the test may put the group past it
+      if (scan && b.t < cut)
+        scan = slab(boxes + (size_t)g * kAabbRows, o, inv, &entry) &&
+               entry <= fminf(limit, b.t);
+      if (!scan) continue;
+      tl.groups += 1;
+      const int end = min(cl.c, (g + 1) * kSubSlots);
+      for (int ci = g * kSubSlots; ci < end; ++ci) {
+        float key;
+        const float t =
+            tri_t(base + (size_t)ci * kTriRows, o, d, w, mind, &key);
+        if (isfinite(t) && (t < b.t || (t == b.t && key < b.key))) {
+          b.t = t;
+          b.key = key;
+          b.slot = mi * cl.c + ci;
+        }
+      }
+    }
+    return;
+  }
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const V3 so = shfl3(mask, o, src), sd = shfl3(mask, d, src);
+    const V3 sw = shfl3(mask, w, src), sinv = shfl3(mask, inv, src);
+    const float smind = __shfl_sync(mask, mind, src);
+    const float scut = __shfl_sync(mask, cut, src);
+    float bt = INFINITY, bk = kBig;
+    int bs = -1;
+    bool first = true;
+    for (unsigned left = __shfl_sync(mask, gm, src); left;
+         left &= left - 1) {
+      const int g = __ffs(left) - 1;
+      if (!first) {
+        // skip the group if its entry lies past the best t so far
+        const float best =
+            fminf(scut, unsortable(__reduce_min_sync(mask, sortable(bt))));
+        float entry;
+        slab(boxes + (size_t)g * kAabbRows, so, sinv, &entry);
+        if (entry > best) continue;
+      }
+      first = false;
+      if (lane_bit == (1u << src)) tl.groups += 1;
+      const int end = min(cl.c, (g + 1) * kSubSlots);
+      for (int ci = g * kSubSlots + rank; ci < end; ci += n) {
+        float key;
+        const float t =
+            tri_t(base + (size_t)ci * kTriRows, so, sd, sw, smind, &key);
+        if (isfinite(t) && (t < bt || (t == bt && key < bk))) {
+          bt = t;
+          bk = key;
+          bs = ci;
+        }
+      }
+    }
+    const unsigned ut = sortable(bt);
+    const unsigned tmin = __reduce_min_sync(mask, ut);
+    const unsigned kmin =
+        __reduce_min_sync(mask, ut == tmin ? (unsigned)bk : 0xffffffffu);
+    const unsigned smin = __reduce_min_sync(
+        mask, (ut == tmin && (unsigned)bk == kmin) ? (unsigned)bs
+                                                   : 0xffffffffu);
+    if (lane_bit == (1u << src) && smin != 0xffffffffu) {
+      const float wt = unsortable(tmin);
+      const float wk = (float)kmin;
+      if (wt < b.t || (wt == b.t && wk < b.key)) {
+        b.t = wt;
+        b.key = wk;
+        b.slot = mi * cl.c + (int)smin;
+      }
+    }
+  }
+}
+
+// visit_any_warp's work for K3: for each lane of `mask` with `visit` set,
+// does a group of cluster mi its ray enters before ldist hold a triangle
+// with mind < t < ldist? Lanes without a visit get false.
+__device__ __forceinline__ bool visit_any_sub(const Clusters& cl, int mi,
+                                              unsigned mask, bool visit,
+                                              V3 o, V3 d, V3 w, V3 inv,
+                                              float mind, float ldist,
+                                              Tally& tl) {
+  const unsigned lane_bit = 1u << (threadIdx.x & 31);
+  const int rank = __popc(mask & (lane_bit - 1));
+  const int n = __popc(mask);
+  const int groups = sub_groups(cl);
+  const float* base = cl.tri + (size_t)mi * cl.c * kTriRows;
+  unsigned todo = __ballot_sync(mask, visit);
+  const unsigned gm =
+      entered_groups<true>(cl, mi, mask, todo, rank, n, o, inv, ldist);
+  if (visit) tl.sub_slabs += groups;
+  const unsigned entered = __reduce_or_sync(mask, gm);
+  const int total = (int)__reduce_add_sync(mask, (unsigned)__popc(gm));
+  if (!groups_in_turn(__popc(todo), total, __popc(entered), n)) {
+    bool hit = false;
+    for (unsigned left = entered; left && !hit; left &= left - 1) {
+      const int g = __ffs(left) - 1;
+      if (!((gm >> g) & 1u)) continue;
+      tl.groups += 1;
+      const int end = min(cl.c, (g + 1) * kSubSlots);
+      float key;
+      for (int ci = g * kSubSlots; ci < end && !hit; ++ci)
+        hit = tri_t(base + (size_t)ci * kTriRows, o, d, w, mind, &key) <
+              ldist;
+    }
+    return hit;
+  }
+  bool found = false;
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const V3 so = shfl3(mask, o, src), sd = shfl3(mask, d, src);
+    const V3 sw = shfl3(mask, w, src);
+    const float smind = __shfl_sync(mask, mind, src);
+    const float sld = __shfl_sync(mask, ldist, src);
+    bool hit = false;
+    for (unsigned left = __shfl_sync(mask, gm, src); left && !hit;
+         left &= left - 1) {
+      const int g = __ffs(left) - 1;
+      if (lane_bit == (1u << src)) tl.groups += 1;
+      for (int c0 = g * kSubSlots; c0 < (g + 1) * kSubSlots; c0 += n) {
+        const int ci = c0 + rank;
+        float key;
+        hit = ci < min(cl.c, (g + 1) * kSubSlots) &&
+              tri_t(base + (size_t)ci * kTriRows, so, sd, sw, smind, &key) <
+                  sld;
+        if (__any_sync(mask, hit)) {
+          hit = true;
+          break;
+        }
+      }
+    }
+    if (lane_bit == (1u << src)) found = hit;
+  }
+  return found;
+}
+
 // K1's flat loop: the nearest triangle with t > mind over every cluster
 // in index order, each lane culling against min(bound, its best t).
 template <bool kInTurn = false>
@@ -426,11 +689,11 @@ __device__ __forceinline__ bool any_triangle_flat(const Clusters& cl, V3 o,
 // deferred nodes are the same in every lane (each decision is a vote), and
 // each lane keeps its own cull, its entry of each deferred node (NaN where
 // it did not admit it) and its best t. A node is entered when any lane
-// admits it, and a cluster is visited (visit_nearest_warp) for the lanes
-// that admitted it. When a lane admits both children, the
-// nearer one is its preference, and the child most lanes prefer goes
-// first.
-template <bool kAny, bool kInTurn = false>
+// admits it, and a cluster is visited (visit_nearest_warp, or with kSub
+// the sub-box walk's visit_nearest_sub) for the lanes that admitted it.
+// When a lane admits both children, the nearer one is its preference, and
+// the child most lanes prefer goes first.
+template <bool kAny, bool kInTurn = false, bool kSub = false>
 __device__ __forceinline__ bool walk_tree(const Clusters& cl, V3 o, V3 d,
                                           float mind, float limit,
                                           TriWinner& b, Tally& tl) {
@@ -454,7 +717,13 @@ __device__ __forceinline__ bool walk_tree(const Clusters& cl, V3 o, V3 d,
       const int mi = node - cl.leaves;
       if (mi < cl.m) {
         if (mine) tl.visits += 1;
-        if (kAny)
+        if (kSub && kAny)
+          found |= visit_any_sub(cl, mi, mask, mine, o, d, w, inv, mind,
+                                 limit, tl);
+        else if (kSub)
+          visit_nearest_sub(cl, mi, mask, mine, o, d, w, inv, mind, limit, b,
+                            tl);
+        else if (kAny)
           found |= visit_any_warp(cl, mi, mask, mine, o, d, w, mind, limit);
         else
           visit_nearest_warp<kInTurn>(cl, mi, mask, mine, o, d, w, mind, b);

@@ -100,9 +100,9 @@ cluster_cast_kernel(const float* __restrict__ rays, Clusters cl,
 // (ops/pallas_cast.py picks it from the partition's size); the tree
 // instance without a tree of at least m leaves, or another instance, is
 // refused (cudaErrorInvalidValue). t_out receives +inf and ord_out 2^30
-// where no triangle is hit. `tally` (4 x u64, zeroed by the caller, may be
-// null) receives the casts, admitted cluster visits, slab tests and needed
-// visits.
+// where no triangle is hit. `tally` (kTallyCounts x u64, zeroed by the
+// caller, may be null) receives the casts, admitted cluster visits, slab
+// tests and needed visits; the sub-box counts stay 0.
 extern "C" int cutrace_cluster_cast(const float* rays, const float* tri,
                                     const float* aabb, const float* tree,
                                     float* t_out, int* ord_out, int n_rays,
@@ -113,7 +113,7 @@ extern "C" int cutrace_cluster_cast(const float* rays, const float* tri,
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   const int grid = (n_rays + kBlock - 1) / kBlock;
-  const Clusters cl{tri, aabb, tree, m, c, leaves};
+  const Clusters cl{tri, aabb, tree, m, c, leaves, nullptr};
   cudaStream_t st = (cudaStream_t)stream;
   if (instance == kInstanceTree)
     cluster_cast_kernel<true><<<grid, kBlock, 0, st>>>(rays, cl, t_out,

@@ -29,12 +29,18 @@
 //   * K3, which replaces cutrace_tpu/ops/fused.py:_make_kernel (the
 //     big-scene kernel, more than 32 clusters of C = 256 or 512 slots),
 //     runs the warp-coherent ordered walk over the widened cluster tree of
-//     csrc/cast.cuh: its winners are the flat loop's over all M clusters
-//     (or a triangle the flat loop's rounding dropped). Its tables stay in
+//     csrc/cast.cuh, and below each admitted cluster a second level of
+//     boxes: one per group of 32 consecutive slots (C / 32 = 8 or 16 a
+//     cluster), the slots ordered so that each group is compact, widened
+//     as the tree is. A ray reads only the slot rows of the groups whose
+//     box it enters before its best t (visit_nearest_sub, visit_any_sub):
+//     its winners are still the flat loop's over all M clusters (or a
+//     triangle the flat loop's rounding dropped). Its tables stay in
 //     global memory (up to 2048 x 512 x 24 floats = 100.7 MB at 1M
-//     triangles, past the 50 MB L2; the tree 128 KB). A visit reads a
-//     cluster's rows from L2 or HBM: a lone lane scanning its C slots
-//     waits on C loads in a row, a warp visiting in turn on C / 32.
+//     triangles, past the 50 MB L2; the tree 128 KB, the sub-boxes 1 MB).
+//     A visit reads a cluster's rows from L2 or HBM: a lone lane scanning
+//     a group waits on 32 loads in a row, a warp visiting in turn on one
+//     a group; the sub-boxes cost one step of 32-byte rows a visit.
 // All keep the TPU kernels' contract, not their TPU layout:
 //   * nearest hit = the (t, key) lexicographic minimum: triangles by their
 //     original flat index, then planes and spheres by scene object index
@@ -78,7 +84,8 @@
 // light), whatever order visits them. An optional tally counts casts,
 // admitted visits, slab tests and those needed visits (a post-pass per
 // cast over the unwidened cluster boxes, run only with a tally), from
-// which chip_smoke.py computes that bound.
+// which chip_smoke.py computes that bound, and in K3 the sub-box tests and
+// the groups whose slots were tested.
 
 #include "cast.cuh"
 
@@ -165,7 +172,7 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
   TriWinner b;
   tl.casts += 1;
   if (kTree)
-    walk_tree<false>(s.cl, o, d, mind, bound, b, tl);
+    walk_tree<false, false, true>(s.cl, o, d, mind, bound, b, tl);
   else
     nearest_triangle_flat(s.cl, o, d, mind, bound, b, tl);
 
@@ -196,7 +203,8 @@ __device__ bool occluded_any(const Scene& s, V3 o, V3 d, float mind,
       if (sphere_t(s.spheres + i * kPsRows, o, nd, mind) < ldist) return true;
   }
   TriWinner unused;
-  return kTree ? walk_tree<true>(s.cl, o, d, mind, ldist, unused, tl)
+  return kTree ? walk_tree<true, false, true>(s.cl, o, d, mind, ldist, unused,
+                                             tl)
                : any_triangle_flat(s.cl, o, d, mind, ldist, tl);
 }
 
@@ -553,11 +561,13 @@ extern "C" int cutrace_shared_limit(int* bytes) {
 // parked-frame stack is refused (cudaErrorInvalidValue), never run as
 // another instance. `codes` (K x n_rays int32, pre-filled by the caller)
 // receives the topology codes, with t_cnt and p_cnt the padded triangle
-// and plane leaf lengths; `tally` (4 x u64, zeroed by the caller) receives
-// the casts, admitted cluster visits, slab tests and needed visits. Either
-// may be null. `tree` holds K3's (2 * leaves, 8) tree boxes; `next_chunk`
-// (one int, zeroed by the caller) is the shared-memory instance's work
-// counter.
+// and plane leaf lengths; `tally` (kTallyCounts x u64, zeroed by the
+// caller) receives the casts, admitted cluster visits, slab tests, needed
+// visits, sub-box tests and groups scanned. Either may be null. `tree`
+// holds K3's (2 * leaves, 8) tree boxes and `sub` its (m, ceil(c / 32), 8)
+// sub-boxes (K3 without them, or with more than 32 groups a cluster, is
+// refused); `next_chunk` (one int, zeroed by the caller) is the
+// shared-memory instance's work counter.
 extern "C" int cutrace_fused_forward(
     const float* rays, const float* tri, const float* aabb,
     const float* planes, const float* spheres, const float* mats,
@@ -566,14 +576,15 @@ extern "C" int cutrace_fused_forward(
     int bounces, int shadow_steps, int any_refl, int any_transp, float fudge,
     int* codes, int t_cnt, int p_cnt, unsigned long long* tally,
     const float* tree, int leaves, int instance, int* next_chunk,
-    void* stream) {
+    const float* sub, void* stream) {
   if (any_refl && any_transp && bounces >= kMaxParked)
     return (int)cudaErrorInvalidValue;
-  if ((instance == kInstanceK3 && (!tree || leaves < m)) ||
+  if ((instance == kInstanceK3 &&
+       (!tree || leaves < m || !sub || c > kMaxGroups * kSubSlots)) ||
       (instance == kInstanceK1Shared && !next_chunk))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Scene s{Clusters{tri, aabb, tree, m, c, leaves},
+  Scene s{Clusters{tri, aabb, tree, m, c, leaves, sub},
           planes, spheres, mats, lights,
           n_planes, n_spheres, n_lights, n_mats};
   Topo tp{codes, n_rays, t_cnt, p_cnt};

@@ -120,9 +120,9 @@ def check_scope(soa, accel, bounces):
 @dataclasses.dataclass(frozen=True)
 class KernelTables(pc.ClusterTables):
     """The kernels' scene operands: the partition's ClusterTables (slot
-    rows, cluster and tree boxes) and the rows below, contiguous float32
-    tensors on the scene's device, positions recentered by the scene
-    center."""
+    rows, cluster, tree and K3's group boxes) and the rows below,
+    contiguous float32 tensors on the scene's device, positions
+    recentered by the scene center."""
 
     plane: torch.Tensor  # (P, _PS_ROWS)
     sphere: torch.Tensor  # (S, _PS_ROWS)
@@ -147,8 +147,8 @@ def kernel_tables(soa, accel) -> KernelTables:
     """The kernels' tables for a scene and its cluster partition (the
     counterpart of cutrace_tpu.ops.fused._tables and _light_table, holding
     only the rows the kernels read; the tree boxes take the place of its
-    supercluster rows `aabb2`). The tree is built here from
-    the live leaves on every call, as the rest."""
+    supercluster rows `aabb2`). The tree, and K3's group boxes, are
+    built here from the live leaves on every call, as the rest."""
     o0 = soa.scene_center
     dev = o0.device
     f32 = torch.float32
@@ -405,12 +405,13 @@ def _code_fill_on(bounces, any_refl, any_transp, n_lights, shadow_steps,
 def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
                         emit_topo=False, tally=None):
     """Launch the kernel's instance `k1_instance` picks: K1 (shared or
-    global memory) for at most LANES_MAX_M clusters, K3 past that. With
-    `emit_topo` it also returns the codes as an (R, K) view of its
-    (K, R_pad) buffer; `tally`, a zeroed (4,) int64 CUDA tensor, receives
-    the casts, admitted cluster visits, slab tests and the cluster visits
-    the casts need whatever the traversal (csrc/cast.cuh
-    needed_visits). Marks (utils.tracing) just before and after the
+    global memory) for at most LANES_MAX_M clusters, K3 (with the tables'
+    tree and sub-boxes) past that. With `emit_topo` it also returns the
+    codes as an (R, K) view of its (K, R_pad) buffer; `tally`, a zeroed
+    (pc.TALLY_COUNTS,) int64 CUDA tensor, receives the casts, admitted
+    cluster visits, slab tests, the cluster visits the casts need
+    whatever the traversal (csrc/cast.cuh needed_visits), and K3's sub-box
+    tests and groups scanned. Marks (utils.tracing) just before and after the
     launch end the phases `pack` (the rays packed, the codes filled) and
     `forward` (the kernel)."""
     from cutrace_tpu_torch.ops import _build
@@ -422,7 +423,8 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
     r = o.shape[0]
     m, c = tables.tri.shape[:2]
     instance = k1_instance(soa, tables)
-    for f in ("tri", "aabb", "plane", "sphere", "mat", "lights", "tree"):
+    for f in ("tri", "aabb", "plane", "sphere", "mat", "lights", "tree",
+              *(("sub",) if instance == _K3 else ())):
         if getattr(tables, f).data_ptr() % 16:
             raise ValueError(f"tables.{f}: the kernel reads 16-byte rows; "
                              f"the tensor must start on a 16-byte boundary")
@@ -441,9 +443,10 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         codes = _code_fill(soa, bounces, dev)[:, None].expand(
             -1, r_pad).contiguous()
     if tally is not None and (tally.dtype != torch.int64
-                              or tuple(tally.shape) != (4,)
+                              or tuple(tally.shape) != (pc.TALLY_COUNTS,)
                               or tally.device != dev):
-        raise ValueError("tally: expected a (4,) int64 tensor on the card")
+        raise ValueError(f"tally: expected a ({pc.TALLY_COUNTS},) int64 "
+                         f"tensor on the card")
 
     # the shared-memory instance's work counter
     next_chunk = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -461,6 +464,7 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         _ptr(tables.tree) if instance == _K3 else None,
         tables.tree.shape[0] // 2, instance,
         _ptr(next_chunk) if instance == _K1_SHARED else None,
+        _ptr(tables.sub) if instance == _K3 else None,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:

@@ -18,8 +18,10 @@ ops, so autograd reaches the vertices with no custom backward.
 Both read the per-slot rows `cluster_tables` builds from the scene and its
 partition (the (M, C, 24) triangle table of the fused kernels, whose first
 18 rows are the cast constants of `_cluster_constants`, the cluster boxes
-and the widened tree boxes of ops.bvh.tree_boxes, which K3 and K4 walk),
-all positions recentered by the scene center.
+and the widened tree boxes of ops.bvh.tree_boxes, which K3 and K4 walk,
+and past FLAT_MAX_M clusters the widened boxes of each cluster's groups of
+32 slots, ops.bvh.sub_boxes, which K3 tests), all positions recentered by
+the scene center.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ LAUNCHES = 0
 FLAT_MAX_M = 32
 # The kernel's instances (csrc/cluster_cast.cu kInstance*).
 _K4_FLAT, _K4_TREE = 0, 1
+# Counts of a kernel tally (csrc/cast.cuh Tally, kTallyCounts): casts,
+# admitted cluster visits, slab tests (cluster and tree boxes), needed
+# visits, sub-box slab tests and groups whose slots were tested (the last
+# two K3's alone).
+TALLY_COUNTS = 6
 
 _BIG = 2**30
 # per-slot rows of the (M, C, _TRI_ROWS) triangle table; row 23 is zero.
@@ -89,14 +96,24 @@ class ClusterTables:
     tri: torch.Tensor  # (M, C, _TRI_ROWS) per-slot rows
     aabb: torch.Tensor  # (M, _AABB_ROWS) cluster boxes
     tree: torch.Tensor  # (2 * bvh.tree_leaves(M), _AABB_ROWS) widened tree
+    # (M, ceil(C / bvh.SUB_GROUP), _AABB_ROWS) widened group boxes past
+    # FLAT_MAX_M clusters, else None
+    sub: torch.Tensor | None = dataclasses.field(default=None, kw_only=True)
 
 
 @torch.no_grad()
 def cluster_tables(soa, accel) -> ClusterTables:
     """The partition's slot rows and boxes, gathered from the live scene
-    tensors."""
+    tensors. Past FLAT_MAX_M clusters the slots of each cluster follow
+    `accel.slots` (compact groups; every row keeps its original index)
+    and each group of bvh.SUB_GROUP slots gets a box, widened as the tree
+    is."""
     o0 = soa.scene_center
     f32 = torch.float32
+    if accel.slots is not None:
+        accel = dataclasses.replace(
+            accel, order=accel.order.gather(-1, accel.slots),
+            valid=accel.valid.gather(-1, accel.slots), slots=None)
     clusters = bvh.clusters_from_accel(soa, accel)
     rows = _cluster_constants(clusters, o0)
     sn = -torch.linalg.cross(clusters.p2 - clusters.p3,
@@ -113,8 +130,16 @@ def cluster_tables(soa, accel) -> ClusterTables:
     aabb[:, 0:3] = bmin
     aabb[:, 3:6] = bmax
     live = clusters.valid.any(dim=1)
-    tree = bvh.widen_tree(bvh.tree_boxes(bmin, bmax, live))
-    return ClusterTables(tri=tri, aabb=aabb, tree=tree)
+    tree = bvh.tree_boxes(bmin, bmax, live)
+    sub = None
+    if m > FLAT_MAX_M:
+        lo = torch.minimum(torch.minimum(clusters.p1, clusters.p2),
+                           clusters.p3) - o0
+        hi = torch.maximum(torch.maximum(clusters.p1, clusters.p2),
+                           clusters.p3) - o0
+        sub = bvh.sub_boxes(lo, hi, clusters.valid, bvh.widening(tree))
+    return ClusterTables(tri=tri, aabb=aabb, tree=bvh.widen_tree(tree),
+                         sub=sub)
 
 
 @torch.no_grad()
@@ -173,10 +198,10 @@ def k4_instance(tables) -> int:
 
 @torch.no_grad()
 def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
-    """Launch the kernel; `tally`, a zeroed (4,) int64 CUDA tensor,
-    receives the casts, admitted cluster visits, slab tests and the
-    cluster visits the casts need (those whose box the ray enters by its
-    winner's t)."""
+    """Launch the kernel; `tally`, a zeroed (TALLY_COUNTS,) int64 CUDA
+    tensor, receives the casts, admitted cluster visits, slab tests and
+    the cluster visits the casts need (those whose box the ray enters by
+    its winner's t); its sub-box counts stay 0."""
     from cutrace_tpu_torch.ops import _build
 
     global LAUNCHES
@@ -189,9 +214,10 @@ def _cast_clusters_cuda(tables, o, d, min_dist, tally=None):
             raise ValueError(f"{name}: expected float32 {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if tally is not None and (tally.dtype != torch.int64
-                              or tuple(tally.shape) != (4,)
+                              or tuple(tally.shape) != (TALLY_COUNTS,)
                               or tally.device != dev):
-        raise ValueError("tally: expected a (4,) int64 tensor on the card")
+        raise ValueError(f"tally: expected a ({TALLY_COUNTS},) int64 tensor "
+                         f"on the card")
     for f in ("tri", "aabb", "tree"):
         if getattr(tables, f).data_ptr() % 16:
             raise ValueError(f"tables.{f}: the kernel reads 16-byte rows; "

@@ -63,7 +63,7 @@ from cutrace_tpu_torch.utils.profiling import sample_ms
 
 NOT_MEASURED = "not measured"
 # a forward-kernel tally's counts (utils.roofline.tally_of)
-TALLY_KEYS = ("casts", "visits", "slabs", "needed")
+TALLY_KEYS = ("casts", "visits", "slabs", "needed", "sub_slabs", "groups")
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -238,7 +238,8 @@ def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
 
 def _rank_work(sharded: sh.ShardedScene, bounces: int):
     """This rank's forward-kernel tally (utils.roofline.tally_of: casts,
-    admitted cluster visits, slab tests, needed visits) over its run of
+    admitted cluster visits, slab tests, needed visits, K3's sub-box tests
+    and groups scanned) over its run of
     one eager frame, the same launch render_sharded makes; None off the
     card or off the fused tiles route."""
     from cutrace_tpu_torch.ops import fused

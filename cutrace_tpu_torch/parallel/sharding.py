@@ -287,8 +287,11 @@ def build_sharded_accel(soa: SceneArrays, mesh: Mesh, kind: str = "pallas",
              else bvh.build_accel(soa, cluster_size, host_tris=v, kind=kind,
                                   min_clusters=m)
              for a, v in zip(parts, views)]
+    slots = (None if any(a.slots is None for a in parts)
+             else torch.stack([a.slots for a in parts]))
     return bvh.Accel(order=torch.stack([a.order for a in parts]),
-                     valid=torch.stack([a.valid for a in parts]), kind=kind)
+                     valid=torch.stack([a.valid for a in parts]), kind=kind,
+                     slots=slots)
 
 
 def shard_accel(soa: SceneArrays, mesh: Mesh, kind: str = "pallas",

@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from cutrace_tpu_torch.ops.bvh import SUB_GROUP
+from cutrace_tpu_torch.ops.pallas_cast import TALLY_COUNTS
+
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # float32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -42,20 +45,28 @@ def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
     plane and sphere tests and C slot tests for each cluster it needs
     (the tally's needed visits: clusters entered by the final winner's t,
     or before the light). "bound_admitted": the kernel's own work, its
-    slab tests and its admitted visits (and the tree boxes of a tree
-    walk among the bytes), which a better cull lowers."""
+    slab tests and the slots it tested (C a visit; in K3's sub-box walk,
+    whose tables carry group boxes, SUB_GROUP a group scanned, and the
+    sub-box tests among the slab tests), and the tree and group boxes of
+    a tree walk among the bytes, which a better cull lowers."""
     m, c = accel.order.shape
     names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
     table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
-    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
+    casts, visits, slabs, needed, sub_slabs, groups = (
+        int(x) for x in tally.tolist())
     per_cast = (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
                 + OPS_CAST)
+    walk_bytes = 0
+    slot_tests = visits * c
+    if m > 32:
+        walk_bytes = tables.tree.numel() * 4 + tables.sub.numel() * 4
+        slot_tests = groups * SUB_GROUP
     return {"bound": bound(nbytes, needed * c * OPS_TRI_SLOT
                            + casts * per_cast),
             "bound_admitted": bound(
-                nbytes + (tables.tree.numel() * 4 if m > 32 else 0),
-                visits * c * OPS_TRI_SLOT + slabs * OPS_SLAB
+                nbytes + walk_bytes,
+                slot_tests * OPS_TRI_SLOT + (slabs + sub_slabs) * OPS_SLAB
                 + casts * per_cast)}
 
 
@@ -68,7 +79,7 @@ def cast_bound(tables, n_rays, tally):
     the bytes)."""
     m, c = tables.tri.shape[:2]
     nbytes = n_rays * (8 + 2) * 4 + m * c * 18 * 4 + tables.aabb.numel() * 4
-    casts, visits, slabs, needed = (int(x) for x in tally.tolist())
+    casts, visits, slabs, needed = (int(x) for x in tally.tolist()[:4])
     return {"bound": bound(nbytes, needed * c * OPS_TRI_SLOT
                            + casts * OPS_CAST),
             "bound_admitted": bound(
@@ -104,10 +115,11 @@ def vjp_bound(soa, codes, bounces):
 
 
 def tally_of(fn, device="cuda"):
-    """Run fn(tally) on a zeroed (4,) int64 tally on `device` (a kernel
-    wrapper's `tally=`: casts, admitted visits, slab tests, needed
-    visits); return it once the card is done."""
-    tally = torch.zeros(4, dtype=torch.int64, device=device)
+    """Run fn(tally) on a zeroed (TALLY_COUNTS,) int64 tally on `device`
+    (a kernel wrapper's `tally=`: casts, admitted visits, slab tests,
+    needed visits, sub-box tests, groups scanned); return it once the card
+    is done."""
+    tally = torch.zeros(TALLY_COUNTS, dtype=torch.int64, device=device)
     fn(tally)
     if tally.is_cuda:
         torch.cuda.synchronize(tally.device)

@@ -26,6 +26,7 @@ from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
 from cutrace_tpu_torch import bigscene
 from cutrace_tpu_torch.ops import bvh as tbvh
 from cutrace_tpu_torch.ops import fused as tfused
+from cutrace_tpu_torch.ops import pallas_cast as tpc
 from cutrace_tpu_torch.render import renderer as TR
 from cutrace_tpu_torch.scene.soa import scene_to_soa
 from test_fused import _compare
@@ -225,6 +226,116 @@ def test_tree_boxes_skip_empty_clusters():
     assert empty.shape == (2, 8) and empty[1, :6].tolist() == far
 
 
+_ORDER = tpc._TRI_NAMES.index("order")
+
+
+def _table_rows(accel):
+    """(order, valid) of the kernel tables' rows: the accel's slots in the
+    order `accel.slots` gives them."""
+    if accel.slots is None:
+        return accel.order, accel.valid
+    return (accel.order.gather(1, accel.slots),
+            accel.valid.gather(1, accel.slots))
+
+
+@pytest.mark.parametrize("levels,size", [(2, 256), (3, 512)])
+def test_sub_boxes_hold_their_slots(scenes_dir, levels, size):
+    """Past 32 clusters (the 16k bunny at C=256, M=64; the 64k bunny at
+    C=512, M=128) the kernel tables carry a box per group of 32 slots:
+    each holds the corners of every valid slot of its group, widened by
+    the tree's margin, and no more. The rows follow accel.slots: each
+    cluster keeps its set of original indices (T_ORDER), its invalid
+    slots last."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, levels, 8, 8)),
+                      device="cpu")
+    accel = tbvh.build_accel(ts, size)
+    kt = tfused.kernel_tables(ts, accel)
+    m, c = accel.order.shape
+    assert m > tfused.LANES_MAX_M and accel.slots is not None
+    assert kt.sub.shape == (m, c // tbvh.SUB_GROUP, 8)
+    assert not kt.sub[..., 6:].any()
+    order, valid = _table_rows(accel)
+    assert torch.equal(kt.tri[..., _ORDER][valid], order[valid].float())
+    assert torch.equal((kt.tri[..., tpc._TRI_NAMES.index("valid")] > 0),
+                       valid)
+    big = torch.full_like(accel.order, 2**30)
+    assert torch.equal(
+        torch.where(valid, order, big).sort(dim=1).values,
+        torch.where(accel.valid, accel.order, big).sort(dim=1).values)
+    assert (valid.int().diff(dim=1) <= 0).all()
+    idx = order.long().clamp(max=ts.tri_p1.shape[0] - 1)
+    corners = torch.stack([ts.tri_p1[idx], ts.tri_p2[idx],
+                           ts.tri_p3[idx]]) - ts.scene_center
+    lo, hi = corners.amin(dim=0).numpy(), corners.amax(dim=0).numpy()
+    live = accel.valid.any(dim=1)
+    ext = kt.aabb[live, 3:6].amax(dim=0) - kt.aabb[live, 0:3].amin(dim=0)
+    delta = np.float32(tbvh.TREE_MARGIN * float(ext.max()))
+    sub, v = kt.sub.numpy(), valid.numpy()
+    for g in range(sub.shape[1]):
+        rows = slice(g * 32, (g + 1) * 32)
+        vg = v[:, rows]
+        glo = np.where(vg[..., None], lo[:, rows], np.inf).min(axis=1)
+        ghi = np.where(vg[..., None], hi[:, rows], -np.inf).max(axis=1)
+        full = vg.any(axis=1)
+        assert full.sum() > m // 2
+        assert (sub[full, g, 0:3] < glo[full]).all()
+        assert (sub[full, g, 3:6] > ghi[full]).all()
+        np.testing.assert_allclose(sub[full, g, 0:3], glo[full] - delta,
+                                   rtol=1e-6, atol=1e-6 * float(delta))
+        np.testing.assert_allclose(sub[full, g, 3:6], ghi[full] + delta,
+                                   rtol=1e-6, atol=1e-6 * float(delta))
+
+
+def test_empty_groups_are_entered_by_no_ray(scenes_dir):
+    """A group with no valid slot (one 32-slot group knocked out of a
+    cluster, and every group of the empty clusters min_clusters pads
+    with) sits at the never-hit far point, as an empty cluster does: none
+    of 4,096 seeded rays enters it (bvh.slab_entry, the kernels' slab
+    test), while the live groups are entered."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 1, 8, 8)), device="cpu")
+    built = tbvh.build_accel(ts, 256, min_clusters=40)
+    valid = built.valid.clone()
+    valid[3, built.slots[3, 32:64]] = False
+    accel = tbvh.Accel(order=built.order, valid=valid, slots=built.slots)
+    kt = tfused.kernel_tables(ts, accel)
+    _, rows_valid = _table_rows(accel)
+    empty = ~rows_valid.reshape(40, 8, 32).any(dim=2)
+    assert empty[3, 1] and empty[3].sum() == 1
+    assert empty[20:].all() and empty.sum() > 8 * 20
+    assert (kt.sub[empty][:, :6] == 1e8).all()
+    rng = np.random.default_rng(11)
+    o = torch.from_numpy(rng.normal(0.0, 1.0, (4096, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32))
+    d[:64, 2] = 0.0  # axis-parallel rays: 0 * inf bounds
+    boxes = kt.sub.reshape(-1, 8)
+    lo, hi = tbvh.slab_entry(boxes[:, 0:3], boxes[:, 3:6], o, d)
+    entered = (lo <= hi).reshape(4096, 40, 8)
+    assert not entered[:, empty].any()
+    assert entered[:, ~empty].any(dim=0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("levels,size", [(0, 64), (1, 128)])
+def test_k1_tables_carry_no_sub_boxes(scenes_dir, levels, size):
+    """A partition of at most 32 clusters (K1's: bunny C=64 M=16, the 4k
+    bunny C=128 M=32) gets no slot order and no group boxes, and its
+    kernel tables hold the accel's slots row for row: every table equals,
+    bit for bit, those of an Accel of its order and valid alone."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, levels, 8, 8)),
+                      device="cpu")
+    accel = tbvh.build_accel(ts, size)
+    assert accel.order.shape[0] <= tfused.LANES_MAX_M
+    assert accel.slots is None
+    kt = tfused.kernel_tables(ts, accel)
+    assert kt.sub is None
+    assert torch.equal(kt.tri[..., _ORDER][accel.valid],
+                       accel.order[accel.valid].float())
+    plain = tfused.kernel_tables(ts, tbvh.accel_from_numpy(
+        accel.order.numpy(), accel.valid.numpy(), device="cpu"))
+    for f in ("tri", "aabb", "tree", "plane", "sphere", "mat", "lights",
+              "ambient"):
+        assert torch.equal(getattr(kt, f), getattr(plain, f)), f
+
+
 def _slab_np(box, o, inv):
     """csrc/cast.cuh slab in float32 numpy: (R, 8) boxes, (R, 3) rays."""
     with np.errstate(invalid="ignore"):
@@ -287,13 +398,35 @@ def _flat_loop_np(kt, o, d, mind):
     return best_t, best_k
 
 
-def _tree_walk_np(kt, o, d, mind, warp=32):
+def _visit_groups_np(tri, sub, mi, sel, o, d, inv, mind, best_t, best_k,
+                     tested):
+    """csrc/cast.cuh visit_nearest_sub for the rays `sel` that admitted
+    cluster mi: its groups in index order, a group's slots tested when the
+    ray entered the group's box at or before its best t at the visit's
+    start, and still does at or before its best t so far. Counts the slots
+    tested into `tested`."""
+    c = tri.shape[1]
+    cut = best_t[sel]
+    for g in range(sub.shape[1]):
+        hit, entry = _slab_np(np.broadcast_to(sub[mi, g], (len(sel), 8)),
+                              o[sel], inv[sel])
+        rows = sel[hit & (entry <= cut) & (entry <= best_t[sel])]
+        if rows.size:
+            group = tri[:, g * 32:min(c, (g + 1) * 32)]
+            tested[rows] += group.shape[1]
+            _merge(best_t, best_k, rows,
+                   *_visit_np(group, mi, o[rows], d[rows], mind))
+
+
+def _tree_walk_np(kt, o, d, mind, warp=32, sub=False):
     """K3's ordered walk (csrc/cast.cuh walk_tree) for warps of `warp`
     consecutive rays, all warps at once: a warp enters a node when any of
     its lanes admits it, the child most lanes enter first goes first and
     the other is deferred on the warp's stack with each lane's entry (NaN
     where the lane did not admit it); a lane tests a cluster's slots only
-    if it admitted the cluster. Returns (t, key, slab tests per ray)."""
+    if it admitted the cluster, all of them, or with `sub` those of the
+    groups whose boxes it enters (_visit_groups_np). Returns (t, key, slab
+    tests per ray, slot tests per ray)."""
     tri, tree = kt.tri.numpy(), kt.tree.numpy()
     m, leaves = tri.shape[0], tree.shape[0] // 2
     r = o.shape[0]
@@ -303,6 +436,7 @@ def _tree_walk_np(kt, o, d, mind, warp=32):
     best_t = np.full(r, np.inf, np.float32)
     best_k = np.full(r, 2**30, np.float32)
     slabs = np.ones(r, np.int64)
+    tested = np.zeros(r, np.int64)
     stack_node = np.zeros((n_w, 32), np.int64)
     stack_entry = np.zeros((n_w, 32, warp), np.float32)
     sp = np.zeros(n_w, np.int64)
@@ -325,6 +459,11 @@ def _tree_walk_np(kt, o, d, mind, warp=32):
         for mi in np.unique(mi_of):
             if mi < m:
                 sel = rays[mi_of == mi]
+                if sub:
+                    _visit_groups_np(tri, kt.sub.numpy(), mi, sel, o, d,
+                                     inv, mind, best_t, best_k, tested)
+                    continue
+                tested[sel] += tri.shape[1]
                 _merge(best_t, best_k, sel,
                        *_visit_np(tri, mi, o[sel], d[sel], mind))
         inner = ws[node[ws] < leaves]
@@ -369,15 +508,19 @@ def _tree_walk_np(kt, o, d, mind, warp=32):
             ok = adm.any(axis=1)
             node[popping[ok]] = stack_node[popping[ok], sp[popping[ok]]]
             popping = popping[~ok]
-    return best_t, best_k, slabs
+    return best_t, best_k, slabs, tested
 
 
-def test_ordered_walk_finds_the_flat_winners(scenes_dir):
+@pytest.mark.parametrize("sub", [False, True])
+def test_ordered_walk_finds_the_flat_winners(scenes_dir, sub):
     """A float32 numpy emulation of K3's ordered walk over the 16k bunny's
     widened tree (M=64, C=256), by warps of 32 rays, gives K1's flat
     loop's (t, key) winners on 65,536 seeded rays aimed at the mesh
     (neighbouring rays aimed at neighbouring points, as a warp's pixels
-    are), and tests far fewer boxes than the flat loop's M a cast."""
+    are), and tests far fewer boxes than the flat loop's M a cast. With
+    the sub-box level (`sub`, K3's walk) the winners are the same, bit
+    for bit, and it tests fewer than half the slots a cast of the walk
+    that tests every slot of an admitted cluster."""
     ts = scene_to_soa(port_scene(_bunny(scenes_dir, 2, 8, 8)), device="cpu")
     kt = tfused.kernel_tables(ts, tbvh.build_accel(ts, 256))
     root = kt.tree[1].numpy()
@@ -397,11 +540,14 @@ def test_ordered_walk_finds_the_flat_winners(scenes_dir):
     d[:256, 1] = 0.0  # axis-parallel rays: 0 * inf slab bounds
     mind = np.float32(1e-3)
     flat_t, flat_k = _flat_loop_np(kt, o, d, mind)
-    walk_t, walk_k, slabs = _tree_walk_np(kt, o, d, mind)
+    walk_t, walk_k, slabs, tested = _tree_walk_np(kt, o, d, mind, sub=sub)
     assert np.isfinite(flat_t).sum() > n // 4
     assert np.array_equal(walk_k, flat_k)
     assert np.array_equal(walk_t, flat_t)
     assert slabs.mean() < kt.aabb.shape[0] / 2
+    if sub:
+        *_, whole = _tree_walk_np(kt, o, d, mind)
+        assert tested.mean() < whole.mean() / 2
 
 
 def test_big_plain_matches_jax_fused(scenes_dir):

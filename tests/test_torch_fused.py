@@ -217,6 +217,9 @@ def test_kernel_row_layout_matches_source():
     }
     assert f"kPsRows = {tfused._PS_ROWS};" in src
     assert f"kAabbRows = {tpc._AABB_ROWS};" in src
+    # K3's group boxes and the tally the wrappers allocate
+    assert f"kSubSlots = {tbvh.SUB_GROUP};" in src
+    assert f"kTallyCounts = {tpc.TALLY_COUNTS};" in src
     assert "kGroup" not in src and not hasattr(tbvh, "GROUP")
     # the tree K3 walks is ops.bvh's
     assert f"kTreeArity = {tbvh.TREE_ARITY};" in src
@@ -339,7 +342,7 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     assert calls[0][24] is None and calls[0][25] is None
     # the shared-memory instance gets its work counter
     assert calls[0][26:28] == (16, tfused._K1_SHARED)
-    assert calls[0][28] is not None
+    assert calls[0][28] is not None and calls[0][29] is None
     topo_before = tfused.TOPO_LAUNCHES
     *_, codes = tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5,
                                            emit_topo=True)
@@ -349,16 +352,19 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     assert (codes[:, 0::5] == -1).all() and (codes[:, 1:5] == 0).all()
     assert calls[1][21] is not None
     calls.pop()
-    # past 32 clusters the same entry point runs K3 with the tree boxes:
-    # M = 125 clusters, 128 leaves
+    # past 32 clusters the same entry point runs K3 with the tree boxes
+    # and the group boxes: M = 128 clusters, 128 leaves, one group of 8
+    # slots a cluster
     wide = tbvh.build_accel(soa, 8)
     big_tables = tfused.kernel_tables(soa, wide)
     assert big_tables.tree.shape == (256, 8)
+    assert big_tables.sub.shape == (wide.order.shape[0], 1, 8)
     tfused._fused_forward_cuda(soa, big_tables, o, d, 1e-3, 5)
     assert tfused.BIG_LAUNCHES == big_before + 1
     assert calls[-1][10:12] == (wide.order.shape[0], 8)
     assert calls[-1][25].value == big_tables.tree.data_ptr()
     assert calls[-1][26:28] == (128, tfused._K3) and calls[-1][28] is None
+    assert calls[-1][29].value == big_tables.sub.data_ptr()
     calls.pop()
     lib.rc = 700
     with pytest.raises(RuntimeError, match="CUDA error 700"):

@@ -66,17 +66,20 @@ def test_chip_smoke_takes_the_package_helpers(module, names):
 @pytest.mark.parametrize("levels, code_rows", [(0, 0), (0, 7), (2, 0)])
 def test_forward_bound_is_its_formula(levels, code_rows):
     """One forward launch's two bounds on CPU tables (the bunny, C=64
-    M=16; the 16k bunny, C=256 M=64, whose tree boxes count among the
-    admitted bytes) and a hand-made tally: bytes of rays, outputs, codes
-    and the seven tables; operations of the needed (or admitted) cluster
-    visits' slot tests, the slab tests and each cast's planes, spheres
-    and set-up."""
+    M=16; the 16k bunny, C=256 M=64, whose tree and group boxes count
+    among the admitted bytes) and a hand-made tally: bytes of rays,
+    outputs, codes and the seven tables; operations of the needed
+    cluster visits' slot tests, or of the slots tested (C an admitted
+    visit in K1, 32 a group scanned in K3's sub-box walk), the slab tests
+    (and K3's sub-box tests) and each cast's planes, spheres and
+    set-up."""
     p = _prepared("bunny.json", 16, 9, levels)
     soa, accel = p.soa, p.accel
     tables = tfused.kernel_tables(soa, accel)
     m, c = accel.order.shape
     casts, visits, slabs, needed = 1200, 5300, 9100, 2100
-    tally = torch.tensor([casts, visits, slabs, needed])
+    sub_slabs, groups = (42400, 9000) if levels else (0, 0)
+    tally = torch.tensor([casts, visits, slabs, needed, sub_slabs, groups])
     n_rays = 144
     got = roofline.forward_bound(soa, accel, tables, n_rays, tally,
                                  code_rows)
@@ -84,11 +87,13 @@ def test_forward_bound_is_its_formula(levels, code_rows):
         "tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"))
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
     per_cast = soa.n_planes * 12 + soa.n_spheres * 30 + 20
-    tree = tables.tree.numel() * 4 if m > 32 else 0
-    assert (m > 32) == bool(levels)
+    assert (m > 32) == bool(levels) == (tables.sub is not None)
+    walk = (tables.tree.numel() + tables.sub.numel()) * 4 if levels else 0
+    slots = groups * 32 if levels else visits * c
     assert got["bound"] == _ms(nbytes, needed * c * 38 + casts * per_cast)
     assert got["bound_admitted"] == _ms(
-        nbytes + tree, visits * c * 38 + slabs * 24 + casts * per_cast)
+        nbytes + walk,
+        slots * 38 + (slabs + sub_slabs) * 24 + casts * per_cast)
 
 
 @pytest.mark.parametrize("levels", [0, 2])
@@ -146,11 +151,12 @@ def test_tally_of_hands_over_a_zeroed_tally():
 
     def fill(t):
         seen.append(t.clone())
-        t += torch.tensor([4, 3, 2, 1])
+        t += torch.tensor([6, 5, 4, 3, 2, 1])
 
     got = roofline.tally_of(fill, device="cpu")
     assert seen[0].dtype == torch.int64 and not seen[0].any()
-    assert got.tolist() == [4, 3, 2, 1]
+    assert tuple(seen[0].shape) == (tpc.TALLY_COUNTS,) == (6,)
+    assert got.tolist() == [6, 5, 4, 3, 2, 1]
 
 
 def _images(step=True):
