@@ -366,7 +366,7 @@ def tally_text(tally):
     if sub_slabs:
         text += (f", sub-box tests {sub_slabs / n:.2f}, groups scanned "
                  f"{groups / n:.3f} ({groups / max(visits, 1):.3f} an "
-                 f"admitted visit)")
+                 f"admitted visit), slot tests {groups * 32 / n:.2f}")
     return text
 
 

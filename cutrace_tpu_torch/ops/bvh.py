@@ -18,9 +18,9 @@ The cull kernels (csrc/cast.cuh) walk big partitions through a
 hierarchy. Clusters are median-split leaves in tree order, so consecutive
 clusters are spatially compact and their union box is tight: `tree_boxes`
 builds a complete binary tree of such unions (the ordered walk of K3 and
-of K4 past 32 clusters), widened by `widen_tree`. Below the clusters, K3
-tests a box per group of SUB_GROUP consecutive slots (`sub_boxes`); a
-partition of more than 32 clusters carries, in `Accel.slots`, the order
+of K4 past 32 clusters), widened by `widen_tree`. Below the clusters, K1
+and K3 test a box per group of SUB_GROUP consecutive slots
+(`sub_boxes`); a "fused" partition carries, in `Accel.slots`, the order
 of each cluster's slots that makes those groups compact (`group_slots`:
 the median split carried on down to groups), which only the kernels'
 tables follow.
@@ -29,6 +29,7 @@ tables follow.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -84,14 +85,25 @@ class Accel:
     composable path (`candidates_fn`): "clusters" the dense cast with no
     culling, "pallas" and "fused" the culling cast (K4); a "fused"
     partition also drives the fused kernels. `slots`, made with a
-    partition of more than 32 clusters, orders each cluster's slots for
-    the kernels' tables (group_slots): row j of cluster m holds slot
-    slots[m, j]; None keeps `order`'s slots."""
+    "fused" partition, orders each cluster's slots for the kernels'
+    tables (group_slots): row j of cluster m holds slot slots[m, j]; None
+    keeps `order`'s slots."""
 
     order: torch.Tensor  # (M, C) i32
     valid: torch.Tensor  # (M, C) bool
     kind: str = "fused"
     slots: torch.Tensor | None = None  # (M, C) i64
+
+    @functools.cached_property
+    def table_rows(self):
+        """(order, valid) of the kernels' table rows: each cluster's slots
+        in the order `slots` gives them (`order`'s own without). Made once
+        per Accel, as the partition is fixed: a training step's tables
+        reuse them."""
+        if self.slots is None:
+            return self.order, self.valid
+        return (self.order.gather(-1, self.slots),
+                self.valid.gather(-1, self.slots))
 
 
 def build_partition(centroids: np.ndarray, cluster_size: int):
@@ -179,11 +191,9 @@ def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
     (scene.soa.host_triangle_soup) that skips reading the triangles back
     from the device. `min_clusters` pads the cluster axis with empty
     clusters, so the partitions of equal triangle shards share one M
-    (parallel.sharding.build_sharded_accel). Past 32 clusters (K3's and
-    K4's tree walks) it also orders each cluster's slots into compact
-    groups for the kernels' tables (group_slots)."""
-    from cutrace_tpu_torch.ops.pallas_cast import FLAT_MAX_M
-
+    (parallel.sharding.build_sharded_accel). A "fused" partition (K1's
+    and K3's group boxes) also gets the order of each cluster's slots
+    into compact groups for the kernels' tables (group_slots)."""
     if host_tris is not None:
         p1, p2, p3, valid = (np.asarray(a) for a in host_tris)
     else:
@@ -200,7 +210,7 @@ def build_accel(soa, cluster_size: int = CLUSTER_SIZE,
         order[mi, :len(idx)] = idx
         vmask[mi, :len(idx)] = valid[idx]
     accel = accel_from_numpy(order, vmask, soa.device, kind)
-    if m <= FLAT_MAX_M or not len(centroids):
+    if kind != "fused" or not len(centroids):
         return accel
     slot_cent = np.asarray(centroids, np.float32)[
         np.minimum(order, len(centroids) - 1)]
@@ -318,26 +328,24 @@ def widen_tree(rows, margin: float = TREE_MARGIN):
     return out
 
 
-def sub_boxes(lo, hi, valid, delta):
+def sub_boxes(lo, hi, o0, delta):
     """(M, G, 8) rows [bmin xyz, bmax xyz, 0, 0] of each cluster's groups
     of SUB_GROUP consecutive slots, G = ceil(C / SUB_GROUP): the union of
-    the (M, C, 3) corner boxes lo..hi of the group's valid slots, widened
-    outward by `delta` (the tree's `widening`). A group without a valid
-    slot sits at the never-hit _FAR point, as an empty cluster does."""
-    m, c = valid.shape
+    the (M, C, 3) corner boxes lo..hi of the group's valid slots (+inf
+    and -inf at the others), recentered by o0 and widened outward by
+    `delta` (the tree's `widening`). A group without a valid slot sits at
+    the never-hit _FAR point, as an empty cluster does."""
+    m, c, _ = lo.shape
     g = -(-c // SUB_GROUP)
-    pad = (0, 0, 0, g * SUB_GROUP - c)
-    v3 = valid[..., None]
-    lo = torch.nn.functional.pad(torch.where(v3, lo, math.inf), pad,
-                                 value=math.inf)
-    hi = torch.nn.functional.pad(torch.where(v3, hi, -math.inf), pad,
-                                 value=-math.inf)
-    lo = lo.reshape(m, g, SUB_GROUP, 3).amin(dim=2)
-    hi = hi.reshape(m, g, SUB_GROUP, 3).amax(dim=2)
-    rows = torch.zeros((m, g, 8), dtype=torch.float32, device=lo.device)
-    rows[..., 0:3] = torch.where(torch.isfinite(lo), lo - delta, _FAR)
-    rows[..., 3:6] = torch.where(torch.isfinite(hi), hi + delta, _FAR)
-    return rows
+    if g * SUB_GROUP != c:
+        pad = (0, 0, 0, g * SUB_GROUP - c)
+        lo = torch.nn.functional.pad(lo, pad, value=math.inf)
+        hi = torch.nn.functional.pad(hi, pad, value=-math.inf)
+    lo = lo.reshape(m, g, SUB_GROUP, 3).amin(dim=2) - o0 - delta
+    hi = hi.reshape(m, g, SUB_GROUP, 3).amax(dim=2) - o0 + delta
+    return torch.cat([torch.nan_to_num(lo, posinf=_FAR),
+                      torch.nan_to_num(hi, neginf=_FAR),
+                      lo.new_zeros((m, g, 2))], dim=-1)
 
 
 def slab_entry(bmin, bmax, o, d):

@@ -33,15 +33,21 @@
 // more than an exact cull would: its winners are the flat loop's, or a
 // triangle the flat loop's rounding dropped.
 //
-// K3's walk has a second level of boxes below the cluster: each run of
+// K1 and K3 have a second level of boxes below the cluster: each run of
 // kSubSlots = 32 consecutive slots (a group, spatially compact: ops/bvh.py
 // group_slots orders a cluster's slots so) has its own box, widened by
-// the same margin (ops/bvh.py sub_boxes). An admitted cluster's
-// rays test its groups' boxes against the same cull and read only the
-// slot rows of the groups they enter, skipping a group entered past the
-// best t found so far (visit_nearest_sub, visit_any_sub). The widening
-// keeps the argument above: the sub-box walk only admits more than an
-// exact cull of the groups would. K1 and K4 visit whole clusters.
+// the same margin (ops/bvh.py sub_boxes). An admitted cluster's rays test
+// its groups' boxes against the same cull and read only the slot rows of
+// the groups they enter, skipping a group entered past the best t found
+// so far. K3's walk does so through visit_nearest_sub and visit_any_sub
+// (8 or 16 groups a cluster); K1's flat loop, at C = 64 or 128 (2 or 4
+// groups), loops over an admitted cluster's groups as over clusters,
+// each lane testing its own ray against each group box and the group's
+// slots visited as a cluster's are (visit_nearest_warp over the group's
+// slot range). The widening keeps the argument above: the group cull
+// only admits more than an exact cull of the groups would, so K1's
+// winners stay the flat loop's (t, key) minimum. K4 visits whole
+// clusters.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -89,9 +95,9 @@ __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]};
 // Work counts of one thread: casts (nearest or any-hit queries), the
 // (ray, cluster) visits their culls admitted, the slab tests done (cluster
 // or tree boxes), when `count_needed` the visits the casts need whatever
-// the traversal (needed_visits), and in the sub-box walk the sub-box slab
-// tests of the admitted visits and the groups whose slots were tested (0
-// in K1 and K4).
+// the traversal (needed_visits), and in the group culls (K1, K3) the
+// group box tests of the admitted visits and the groups whose slots were
+// tested (0 in K4).
 struct Tally {
   unsigned long long casts = 0, visits = 0, slabs = 0, needed = 0;
   unsigned long long sub_slabs = 0, groups = 0;
@@ -208,7 +214,7 @@ __device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 nd,
 // power of two >= M, node n at row n (row 1 the root, rows L..L+M-1 the
 // clusters), null for the flat loop; (M, G, kAabbRows) widened sub-boxes,
 // G = ceil(C / kSubSlots), box g over slots kSubSlots g onwards, for the
-// sub-box walk (K3), null otherwise. Slot offsets are size_t: a
+// group culls (K1, K3), null otherwise (K4). Slot offsets are size_t: a
 // 1M-triangle table holds 25M floats.
 struct Clusters {
   const float* tri;
@@ -235,13 +241,17 @@ __device__ __forceinline__ V3 cross_do(V3 d, V3 o) {
             d.x * o.y - d.y * o.x);
 }
 
-// ---- one lane a ray (a cluster that many lanes of a warp visit) --------
+// ---- one lane a ray (slots that many lanes of a warp visit) -----------
+//
+// A visit reads slots lo..hi-1 of cluster mi: all C of them, or one
+// group's.
 
 __device__ __forceinline__ void visit_nearest(const Clusters& cl, int mi,
-                                              V3 o, V3 d, V3 w, float mind,
+                                              int lo, int hi, V3 o, V3 d,
+                                              V3 w, float mind,
                                               TriWinner& b) {
-  const float* slot = cl.tri + (size_t)mi * cl.c * kTriRows;
-  for (int ci = 0; ci < cl.c; ++ci, slot += kTriRows) {
+  const float* slot = cl.tri + ((size_t)mi * cl.c + lo) * kTriRows;
+  for (int ci = lo; ci < hi; ++ci, slot += kTriRows) {
     float key;
     float t = tri_t(slot, o, d, w, mind, &key);
     if (!isfinite(t)) continue;
@@ -253,41 +263,40 @@ __device__ __forceinline__ void visit_nearest(const Clusters& cl, int mi,
   }
 }
 
-__device__ __forceinline__ bool visit_any(const Clusters& cl, int mi, V3 o,
-                                          V3 d, V3 w, float mind,
-                                          float ldist) {
-  const float* slot = cl.tri + (size_t)mi * cl.c * kTriRows;
+__device__ __forceinline__ bool visit_any(const Clusters& cl, int mi, int lo,
+                                          int hi, V3 o, V3 d, V3 w,
+                                          float mind, float ldist) {
+  const float* slot = cl.tri + ((size_t)mi * cl.c + lo) * kTriRows;
   float key;
-  for (int ci = 0; ci < cl.c; ++ci, slot += kTriRows)
+  for (int ci = lo; ci < hi; ++ci, slot += kTriRows)
     if (tri_t(slot, o, d, w, mind, &key) < ldist) return true;
   return false;
 }
 
-// ---- the lanes of a warp together (K1, K3, K4) -------------------------
+// ---- the lanes of a warp together (K1, K4) ----------------------------
 //
 // The lanes of `mask` (those that entered the loop together) walk the
-// same clusters at the same time, each with its own cull. A cluster that
-// k lanes admit is visited in one of two ways, whichever issues fewer
-// warp steps (a step is one slot test in every lane):
-//   * together: the k lanes scan its C slots side by side, C steps whose
+// same clusters at the same time, each with its own cull. L slots (a
+// cluster's C, or a group's) that k lanes admit are visited in one of two
+// ways, whichever issues fewer warp steps (a step is one slot test in
+// every lane):
+//   * together: the k lanes scan the L slots side by side, L steps whose
 //     loads are broadcasts of one row;
 //   * in turn: for each admitting lane, its ray is handed to every lane
 //     of the mask, which test slots rank, rank + n, ... (n lanes), and a
-//     warp reduction keeps the (t, key) minimum: k (C / n + kReduceSteps)
+//     warp reduction keeps the (t, key) minimum: k (L / n + kReduceSteps)
 //     steps, with n independent rows loaded at once.
 // Coherent rays (bunny's primary rays, many lanes a cluster, L1-resident
 // tables) favour the first; scattered secondary rays over tables in L2 or
-// HBM (one or two lanes a visit, where a lone lane's scan waits on C loads
+// HBM (one or two lanes a visit, where a lone lane's scan waits on L loads
 // in a row) the second. Either finds the winner a lane's own scan of the
-// C slots finds. K1 and K3 choose per visit by that count; K4, whose
-// launches are mostly shadow and bounce rays, visits in turn always
-// (kInTurn).
+// L slots finds. K1 chooses per visit by that count; K4, whose launches
+// are mostly shadow and bounce rays, visits in turn always (kInTurn).
 constexpr int kReduceSteps = 2;  // a visit's reductions, in slot-test steps
 
-// Visit in turn (true) or together (false)?
-__device__ __forceinline__ bool visit_in_turn(const Clusters& cl, int k,
-                                              int n) {
-  return k * ((cl.c + n - 1) / n + kReduceSteps) < cl.c;
+// Visit `len` slots in turn (true) or together (false)?
+__device__ __forceinline__ bool visit_in_turn(int len, int k, int n) {
+  return k * ((len + n - 1) / n + kReduceSteps) < len;
 }
 
 // A float's bits as an unsigned that orders like the float.
@@ -301,19 +310,20 @@ __device__ __forceinline__ V3 shfl3(unsigned mask, V3 a, int src) {
             __shfl_sync(mask, a.z, src));
 }
 
-// The nearest triangle of cluster mi for each lane of `mask` with
-// `visit` set, merged into its `b`; kInTurn: in turn whatever the count.
+// The nearest triangle of slots lo..hi-1 of cluster mi for each lane of
+// `mask` with `visit` set, merged into its `b`; kInTurn: in turn whatever
+// the count.
 template <bool kInTurn = false>
 __device__ __forceinline__ void visit_nearest_warp(
-    const Clusters& cl, int mi, unsigned mask, bool visit, V3 o, V3 d, V3 w,
-    float mind, TriWinner& b) {
+    const Clusters& cl, int mi, int lo, int hi, unsigned mask, bool visit,
+    V3 o, V3 d, V3 w, float mind, TriWinner& b) {
   const unsigned lane_bit = 1u << (threadIdx.x & 31);
   const int rank = __popc(mask & (lane_bit - 1));
   const int n = __popc(mask);
   const float* base = cl.tri + (size_t)mi * cl.c * kTriRows;
   unsigned todo = __ballot_sync(mask, visit);
-  if (!kInTurn && !visit_in_turn(cl, __popc(todo), n)) {
-    if (visit) visit_nearest(cl, mi, o, d, w, mind, b);
+  if (!kInTurn && !visit_in_turn(hi - lo, __popc(todo), n)) {
+    if (visit) visit_nearest(cl, mi, lo, hi, o, d, w, mind, b);
     return;
   }
   while (todo) {
@@ -324,7 +334,7 @@ __device__ __forceinline__ void visit_nearest_warp(
     const float smind = __shfl_sync(mask, mind, src);
     float bt = INFINITY, bk = kBig;
     int bs = -1;
-    for (int ci = rank; ci < cl.c; ci += n) {
+    for (int ci = lo + rank; ci < hi; ci += n) {
       float key;
       const float t =
           tri_t(base + (size_t)ci * kTriRows, so, sd, sw, smind, &key);
@@ -355,9 +365,11 @@ __device__ __forceinline__ void visit_nearest_warp(
   }
 }
 
-// For each lane of `mask` with `visit` set: does cluster mi hold a
-// triangle with mind < t < ldist? Lanes without a visit get false.
+// For each lane of `mask` with `visit` set: do slots lo..hi-1 of cluster
+// mi hold a triangle with mind < t < ldist? Lanes without a visit get
+// false.
 __device__ __forceinline__ bool visit_any_warp(const Clusters& cl, int mi,
+                                               int lo, int hi,
                                                unsigned mask, bool visit,
                                                V3 o, V3 d, V3 w, float mind,
                                                float ldist) {
@@ -366,8 +378,8 @@ __device__ __forceinline__ bool visit_any_warp(const Clusters& cl, int mi,
   const int n = __popc(mask);
   const float* base = cl.tri + (size_t)mi * cl.c * kTriRows;
   unsigned todo = __ballot_sync(mask, visit);
-  if (!visit_in_turn(cl, __popc(todo), n))
-    return visit && visit_any(cl, mi, o, d, w, mind, ldist);
+  if (!visit_in_turn(hi - lo, __popc(todo), n))
+    return visit && visit_any(cl, mi, lo, hi, o, d, w, mind, ldist);
   bool found = false;
   while (todo) {
     const int src = __ffs(todo) - 1;
@@ -377,11 +389,11 @@ __device__ __forceinline__ bool visit_any_warp(const Clusters& cl, int mi,
     const float smind = __shfl_sync(mask, mind, src);
     const float sld = __shfl_sync(mask, ldist, src);
     bool hit = false;
-    for (int c0 = 0; c0 < cl.c; c0 += n) {
+    for (int c0 = lo; c0 < hi; c0 += n) {
       const int ci = c0 + rank;
       float key;
-      hit = ci < cl.c && tri_t(base + (size_t)ci * kTriRows, so, sd, sw,
-                               smind, &key) < sld;
+      hit = ci < hi && tri_t(base + (size_t)ci * kTriRows, so, sd, sw,
+                             smind, &key) < sld;
       if (__any_sync(mask, hit)) {
         hit = true;
         break;
@@ -392,7 +404,7 @@ __device__ __forceinline__ bool visit_any_warp(const Clusters& cl, int mi,
   return found;
 }
 
-// ---- the sub-box walk (K3): a cluster's groups, each under a box ------
+// ---- K3's sub-box walk: a cluster's groups, each under a box ----------
 //
 // A visit first finds, for each admitting lane, the groups of the cluster
 // whose (widened) box its ray enters before its cut: the warp tests one
@@ -627,9 +639,12 @@ __device__ __forceinline__ bool visit_any_sub(const Clusters& cl, int mi,
   return found;
 }
 
-// K1's flat loop: the nearest triangle with t > mind over every cluster
-// in index order, each lane culling against min(bound, its best t).
-template <bool kInTurn = false>
+// The flat loop: the nearest triangle with t > mind over every cluster
+// in index order, each lane culling against min(bound, its best t). With
+// kSub (K1) an admitted cluster's groups are culled the same way, one
+// after another, and each admitted group's slots visited, in turn or
+// together by the count; else (K4) the cluster's C slots are, in turn.
+template <bool kSub>
 __device__ __forceinline__ void nearest_triangle_flat(const Clusters& cl,
                                                       V3 o, V3 d, float mind,
                                                       float bound,
@@ -646,12 +661,31 @@ __device__ __forceinline__ void nearest_triangle_flat(const Clusters& cl,
                       entry <= fminf(bound, b.t);
     if (!__any_sync(mask, mine)) continue;
     if (mine) tl.visits += 1;
-    visit_nearest_warp<kInTurn>(cl, mi, mask, mine, o, d, w, mind, b);
+    if (!kSub) {
+      visit_nearest_warp<true>(cl, mi, 0, cl.c, mask, mine, o, d, w, mind, b);
+      continue;
+    }
+    const int groups = sub_groups(cl);
+    const float* boxes = cl.sub + (size_t)mi * groups * kAabbRows;
+    for (int g = 0; g < groups; ++g) {
+      bool in = false;
+      if (mine) {
+        tl.sub_slabs += 1;
+        in = slab(boxes + (size_t)g * kAabbRows, o, inv, &entry) &&
+             entry <= fminf(bound, b.t);
+      }
+      if (!__any_sync(mask, in)) continue;
+      if (in) tl.groups += 1;
+      visit_nearest_warp(cl, mi, g * kSubSlots,
+                         min(cl.c, (g + 1) * kSubSlots), mask, in, o, d, w,
+                         mind, b);
+    }
   }
 }
 
-// K1's occlusion query: any triangle with mind < t < ldist, boxes entered
-// at or beyond ldist skipped; a lane stops visiting once it has a hit.
+// K1's occlusion query: any triangle with mind < t < ldist, cluster and
+// group boxes entered at or beyond ldist skipped; a lane stops visiting
+// once it has a hit.
 __device__ __forceinline__ bool any_triangle_flat(const Clusters& cl, V3 o,
                                                   V3 d, float mind,
                                                   float ldist, Tally& tl) {
@@ -672,7 +706,21 @@ __device__ __forceinline__ bool any_triangle_flat(const Clusters& cl, V3 o,
       continue;
     }
     if (mine) tl.visits += 1;
-    found |= visit_any_warp(cl, mi, mask, mine, o, d, w, mind, ldist);
+    const int groups = sub_groups(cl);
+    const float* boxes = cl.sub + (size_t)mi * groups * kAabbRows;
+    for (int g = 0; g < groups; ++g) {
+      bool in = false;
+      if (mine && !found) {
+        tl.sub_slabs += 1;
+        in = slab(boxes + (size_t)g * kAabbRows, o, inv, &entry) &&
+             entry < ldist;
+      }
+      if (!__any_sync(mask, in)) continue;
+      if (in) tl.groups += 1;
+      found |= visit_any_warp(cl, mi, g * kSubSlots,
+                              min(cl.c, (g + 1) * kSubSlots), mask, in, o, d,
+                              w, mind, ldist);
+    }
   }
   return found;
 }
@@ -724,9 +772,11 @@ __device__ __forceinline__ bool walk_tree(const Clusters& cl, V3 o, V3 d,
           visit_nearest_sub(cl, mi, mask, mine, o, d, w, inv, mind, limit, b,
                             tl);
         else if (kAny)
-          found |= visit_any_warp(cl, mi, mask, mine, o, d, w, mind, limit);
+          found |= visit_any_warp(cl, mi, 0, cl.c, mask, mine, o, d, w, mind,
+                                  limit);
         else
-          visit_nearest_warp<kInTurn>(cl, mi, mask, mine, o, d, w, mind, b);
+          visit_nearest_warp<kInTurn>(cl, mi, 0, cl.c, mask, mine, o, d, w,
+                                      mind, b);
       }
     } else {
       const int c0 = kTreeArity * node;

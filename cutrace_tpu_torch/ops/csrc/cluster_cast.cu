@@ -81,7 +81,7 @@ cluster_cast_kernel(const float* __restrict__ rays, Clusters cl,
   if (kTree)
     walk_tree<false, true>(cl, o, d, mind, bound, b, tl);
   else
-    nearest_triangle_flat<true>(cl, o, d, mind, bound, b, tl);
+    nearest_triangle_flat<false>(cl, o, d, mind, bound, b, tl);
   if (!active) return;
   t_out[i] = b.t;
   ord_out[i] = b.slot >= 0 ? (int)b.key : (1 << 30);

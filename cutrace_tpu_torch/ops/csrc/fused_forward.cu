@@ -10,22 +10,26 @@
 //     two instances over the flat cluster loop of csrc/cast.cuh:
 //       - the shared-memory instance runs persistent blocks (as many as
 //         fit on the card at once). Each block copies the partition's
-//         slot rows and cluster boxes, the plane, sphere, material and
-//         light rows into dynamic shared memory once, with cp.async.
+//         slot rows, cluster and group boxes, the plane, sphere, material
+//         and light rows into dynamic shared memory once, with cp.async.
 //         Then each warp takes 32 rays at a time from a counter until
 //         none are left: ray costs vary by orders of magnitude (a miss
 //         against a 6-node mirror chain), so a fixed share per warp would
 //         leave the card waiting on the slowest. Bunny's tables (16 x 64
-//         slots) take 99 KB: two blocks an SM;
+//         slots, 16 x 2 group boxes) take 100 KB: two blocks an SM;
 //       - the global-memory instance, for partitions whose rows do not fit
-//         in a block's shared memory (C = 128 with M up to 32 is up to
-//         393 KB), reads the tables through L1/L2.
+//         in a block's shared memory (C = 128 with M up to 32 is about
+//         398 KB), reads the tables through L1/L2.
 //     In both, the lanes of a warp walk the clusters in the same index
-//     order, each culling against its own best t, so its winner is the
-//     flat loop's. A cluster that many lanes admit is scanned by them
+//     order, each culling against its own best t, and below an admitted
+//     cluster its groups of 32 slots (C / 32 = 2 or 4 a cluster, the
+//     slots ordered so that each group is compact) against their boxes,
+//     widened as K3's, so a winner is still the flat loop's (t, key)
+//     minimum; a lane reads only the slot rows of the groups it enters
+//     before its best t. A group that many lanes admit is scanned by them
 //     side by side, one that few admit by the whole warp, one admitting
 //     lane's ray at a time with its slots spread over the lanes
-//     (csrc/cast.cuh visit_nearest_warp).
+//     (csrc/cast.cuh nearest_triangle_flat, visit_nearest_warp).
 //   * K3, which replaces cutrace_tpu/ops/fused.py:_make_kernel (the
 //     big-scene kernel, more than 32 clusters of C = 256 or 512 slots),
 //     runs the warp-coherent ordered walk over the widened cluster tree of
@@ -84,8 +88,8 @@
 // light), whatever order visits them. An optional tally counts casts,
 // admitted visits, slab tests and those needed visits (a post-pass per
 // cast over the unwidened cluster boxes, run only with a tally), from
-// which chip_smoke.py computes that bound, and in K3 the sub-box tests and
-// the groups whose slots were tested.
+// which chip_smoke.py computes that bound, and the sub-box tests and the
+// groups whose slots were tested.
 
 #include "cast.cuh"
 
@@ -174,7 +178,7 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
   if (kTree)
     walk_tree<false, false, true>(s.cl, o, d, mind, bound, b, tl);
   else
-    nearest_triangle_flat(s.cl, o, d, mind, bound, b, tl);
+    nearest_triangle_flat<true>(s.cl, o, d, mind, bound, b, tl);
 
   Hit h{b.t, b.slot >= 0 ? kTri : kMiss, b.slot};
   float best_obj =
@@ -487,7 +491,9 @@ __device__ __forceinline__ float* stage(float* dst, const float* src,
 // k1_shared_bytes counts the same).
 __host__ __device__ __forceinline__ size_t shared_floats(
     int m, int c, int n_planes, int n_spheres, int n_mats, int n_lights) {
+  const int groups = (c + kSubSlots - 1) / kSubSlots;
   return (size_t)m * c * kTriRows + (size_t)m * kAabbRows +
+         (size_t)m * groups * kAabbRows +
          (size_t)(n_planes + n_spheres) * kPsRows + (size_t)n_mats * kMatRows +
          (size_t)n_lights * kLightRows;
 }
@@ -511,6 +517,8 @@ fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
   p = stage(p, s.cl.tri, s.cl.m * s.cl.c * kTriRows);
   ss.cl.aabb = p;
   p = stage(p, s.cl.aabb, s.cl.m * kAabbRows);
+  ss.cl.sub = p;
+  p = stage(p, s.cl.sub, s.cl.m * sub_groups(s.cl) * kAabbRows);
   ss.planes = p;
   p = stage(p, s.planes, s.n_planes * kPsRows);
   ss.spheres = p;
@@ -564,10 +572,11 @@ extern "C" int cutrace_shared_limit(int* bytes) {
 // and plane leaf lengths; `tally` (kTallyCounts x u64, zeroed by the
 // caller) receives the casts, admitted cluster visits, slab tests, needed
 // visits, sub-box tests and groups scanned. Either may be null. `tree`
-// holds K3's (2 * leaves, 8) tree boxes and `sub` its (m, ceil(c / 32), 8)
-// sub-boxes (K3 without them, or with more than 32 groups a cluster, is
-// refused); `next_chunk` (one int, zeroed by the caller) is the
-// shared-memory instance's work counter.
+// holds K3's (2 * leaves, 8) tree boxes and `sub` the (m, ceil(c / 32), 8)
+// group boxes every instance tests (a launch without them, or K3 without
+// a tree or with more than 32 groups a cluster, is refused); `next_chunk`
+// (one int, zeroed by the caller) is the shared-memory instance's work
+// counter.
 extern "C" int cutrace_fused_forward(
     const float* rays, const float* tri, const float* aabb,
     const float* planes, const float* spheres, const float* mats,
@@ -579,8 +588,9 @@ extern "C" int cutrace_fused_forward(
     const float* sub, void* stream) {
   if (any_refl && any_transp && bounces >= kMaxParked)
     return (int)cudaErrorInvalidValue;
-  if ((instance == kInstanceK3 &&
-       (!tree || leaves < m || !sub || c > kMaxGroups * kSubSlots)) ||
+  if (!sub ||
+      (instance == kInstanceK3 &&
+       (!tree || leaves < m || c > kMaxGroups * kSubSlots)) ||
       (instance == kInstanceK1Shared && !next_chunk))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;

@@ -120,7 +120,7 @@ def check_scope(soa, accel, bounces):
 @dataclasses.dataclass(frozen=True)
 class KernelTables(pc.ClusterTables):
     """The kernels' scene operands: the partition's ClusterTables (slot
-    rows, cluster, tree and K3's group boxes) and the rows below,
+    rows, cluster, tree and group boxes) and the rows below,
     contiguous float32 tensors on the scene's device, positions
     recentered by the scene center."""
 
@@ -147,12 +147,13 @@ def kernel_tables(soa, accel) -> KernelTables:
     """The kernels' tables for a scene and its cluster partition (the
     counterpart of cutrace_tpu.ops.fused._tables and _light_table, holding
     only the rows the kernels read; the tree boxes take the place of its
-    supercluster rows `aabb2`). The tree, and K3's group boxes, are
-    built here from the live leaves on every call, as the rest."""
+    supercluster rows `aabb2`). The tree and the group boxes, which K1
+    and K3 test, are built here from the live leaves on every call, as
+    the rest."""
     o0 = soa.scene_center
     dev = o0.device
     f32 = torch.float32
-    cl = pc.cluster_tables(soa, accel)
+    cl = pc.cluster_tables(soa, accel, sub=True)
 
     def prim_rows(obj, normal, center, k, valid, mat):
         out = torch.zeros((obj.shape[0], _PS_ROWS), dtype=f32, device=dev)
@@ -329,9 +330,10 @@ def _ptr(t):
 
 def k1_shared_bytes(soa, tables: KernelTables) -> int:
     """Bytes K1's shared-memory instance stages per block: the slot rows,
-    cluster boxes and the rows of the scene's planes, spheres, materials
-    and lights (csrc/fused_forward.cu shared_floats)."""
+    cluster and group boxes and the rows of the scene's planes, spheres,
+    materials and lights (csrc/fused_forward.cu shared_floats)."""
     return 4 * (tables.tri.numel() + tables.aabb.numel()
+                + tables.sub.numel()
                 + (soa.n_planes + soa.n_spheres) * _PS_ROWS
                 + tables.mat.shape[0] * _MAT_ROWS
                 + soa.n_lights * _LIGHT_ROWS)
@@ -406,14 +408,14 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
                         emit_topo=False, tally=None):
     """Launch the kernel's instance `k1_instance` picks: K1 (shared or
     global memory) for at most LANES_MAX_M clusters, K3 (with the tables'
-    tree and sub-boxes) past that. With `emit_topo` it also returns the
-    codes as an (R, K) view of its (K, R_pad) buffer; `tally`, a zeroed
-    (pc.TALLY_COUNTS,) int64 CUDA tensor, receives the casts, admitted
-    cluster visits, slab tests, the cluster visits the casts need
-    whatever the traversal (csrc/cast.cuh needed_visits), and K3's sub-box
-    tests and groups scanned. Marks (utils.tracing) just before and after the
-    launch end the phases `pack` (the rays packed, the codes filled) and
-    `forward` (the kernel)."""
+    tree) past that, each with the tables' group boxes. With `emit_topo`
+    it also returns the codes as an (R, K) view of its (K, R_pad) buffer;
+    `tally`, a zeroed (pc.TALLY_COUNTS,) int64 CUDA tensor, receives the
+    casts, admitted cluster visits, slab tests, the cluster visits the
+    casts need whatever the traversal (csrc/cast.cuh needed_visits), and
+    the sub-box tests and groups scanned. Marks (utils.tracing) just
+    before and after the launch end the phases `pack` (the rays packed,
+    the codes filled) and `forward` (the kernel)."""
     from cutrace_tpu_torch.ops import _build
 
     global LAUNCHES, TOPO_LAUNCHES, GLOBAL_LAUNCHES, GLOBAL_TOPO_LAUNCHES
@@ -423,8 +425,8 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
     r = o.shape[0]
     m, c = tables.tri.shape[:2]
     instance = k1_instance(soa, tables)
-    for f in ("tri", "aabb", "plane", "sphere", "mat", "lights", "tree",
-              *(("sub",) if instance == _K3 else ())):
+    for f in ("tri", "aabb", "sub", "plane", "sphere", "mat", "lights",
+              "tree"):
         if getattr(tables, f).data_ptr() % 16:
             raise ValueError(f"tables.{f}: the kernel reads 16-byte rows; "
                              f"the tensor must start on a 16-byte boundary")
@@ -464,7 +466,7 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
         _ptr(tables.tree) if instance == _K3 else None,
         tables.tree.shape[0] // 2, instance,
         _ptr(next_chunk) if instance == _K1_SHARED else None,
-        _ptr(tables.sub) if instance == _K3 else None,
+        _ptr(tables.sub),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:

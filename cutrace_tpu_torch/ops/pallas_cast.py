@@ -19,15 +19,16 @@ Both read the per-slot rows `cluster_tables` builds from the scene and its
 partition (the (M, C, 24) triangle table of the fused kernels, whose first
 18 rows are the cast constants of `_cluster_constants`, the cluster boxes
 and the widened tree boxes of ops.bvh.tree_boxes, which K3 and K4 walk,
-and past FLAT_MAX_M clusters the widened boxes of each cluster's groups of
-32 slots, ops.bvh.sub_boxes, which K3 tests), all positions recentered by
-the scene center.
+and for the fused kernels the widened boxes of each cluster's groups of
+32 slots, ops.bvh.sub_boxes, which K1 and K3 test), all positions
+recentered by the scene center.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -46,7 +47,7 @@ _K4_FLAT, _K4_TREE = 0, 1
 # Counts of a kernel tally (csrc/cast.cuh Tally, kTallyCounts): casts,
 # admitted cluster visits, slab tests (cluster and tree boxes), needed
 # visits, sub-box slab tests and groups whose slots were tested (the last
-# two K3's alone).
+# two K1's and K3's alone).
 TALLY_COUNTS = 6
 
 _BIG = 2**30
@@ -96,24 +97,24 @@ class ClusterTables:
     tri: torch.Tensor  # (M, C, _TRI_ROWS) per-slot rows
     aabb: torch.Tensor  # (M, _AABB_ROWS) cluster boxes
     tree: torch.Tensor  # (2 * bvh.tree_leaves(M), _AABB_ROWS) widened tree
-    # (M, ceil(C / bvh.SUB_GROUP), _AABB_ROWS) widened group boxes past
-    # FLAT_MAX_M clusters, else None
+    # (M, ceil(C / bvh.SUB_GROUP), _AABB_ROWS) widened group boxes of the
+    # fused kernels' tables, else None
     sub: torch.Tensor | None = dataclasses.field(default=None, kw_only=True)
 
 
 @torch.no_grad()
-def cluster_tables(soa, accel) -> ClusterTables:
+def cluster_tables(soa, accel, sub: bool = False) -> ClusterTables:
     """The partition's slot rows and boxes, gathered from the live scene
-    tensors. Past FLAT_MAX_M clusters the slots of each cluster follow
-    `accel.slots` (compact groups; every row keeps its original index)
-    and each group of bvh.SUB_GROUP slots gets a box, widened as the tree
-    is."""
+    tensors. The slots of each cluster follow `accel.slots` when it has
+    them (compact groups; every row keeps its original index). With `sub`
+    (the fused kernels' tables) each group of bvh.SUB_GROUP slots gets a
+    box, widened as the tree is."""
     o0 = soa.scene_center
     f32 = torch.float32
     if accel.slots is not None:
-        accel = dataclasses.replace(
-            accel, order=accel.order.gather(-1, accel.slots),
-            valid=accel.valid.gather(-1, accel.slots), slots=None)
+        order, valid = accel.table_rows
+        accel = dataclasses.replace(accel, order=order, valid=valid,
+                                    slots=None)
     clusters = bvh.clusters_from_accel(soa, accel)
     rows = _cluster_constants(clusters, o0)
     sn = -torch.linalg.cross(clusters.p2 - clusters.p3,
@@ -131,15 +132,15 @@ def cluster_tables(soa, accel) -> ClusterTables:
     aabb[:, 3:6] = bmax
     live = clusters.valid.any(dim=1)
     tree = bvh.tree_boxes(bmin, bmax, live)
-    sub = None
-    if m > FLAT_MAX_M:
-        lo = torch.minimum(torch.minimum(clusters.p1, clusters.p2),
-                           clusters.p3) - o0
-        hi = torch.maximum(torch.maximum(clusters.p1, clusters.p2),
-                           clusters.p3) - o0
-        sub = bvh.sub_boxes(lo, hi, clusters.valid, bvh.widening(tree))
+    boxes = None
+    if sub:
+        v3 = clusters.valid[..., None]
+        corners = torch.stack([clusters.p1, clusters.p2, clusters.p3])
+        boxes = bvh.sub_boxes(torch.where(v3, corners.amin(dim=0), math.inf),
+                              torch.where(v3, corners.amax(dim=0), -math.inf),
+                              o0, bvh.widening(tree))
     return ClusterTables(tri=tri, aabb=aabb, tree=bvh.widen_tree(tree),
-                         sub=sub)
+                         sub=boxes)
 
 
 @torch.no_grad()

@@ -238,7 +238,7 @@ def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
 
 def _rank_work(sharded: sh.ShardedScene, bounces: int):
     """This rank's forward-kernel tally (utils.roofline.tally_of: casts,
-    admitted cluster visits, slab tests, needed visits, K3's sub-box tests
+    admitted cluster visits, slab tests, needed visits, sub-box tests
     and groups scanned) over its run of
     one eager frame, the same launch render_sharded makes; None off the
     card or off the fused tiles route."""

@@ -28,7 +28,7 @@ in Mcasts/s = W * H * casts_per_pixel / the median sample, with
   efficiency_vs_linear  Mcasts_n / (n * Mcasts_1)
   work                  each rank's forward-kernel tally of its run
                         (multihost `work`: casts, admitted cluster
-                        visits, slab tests, needed visits, K3's sub-box
+                        visits, slab tests, needed visits, sub-box
                         tests and groups scanned)
   work_invariance       the admitted visits of one rank at n = 1 / their
                         sum over the n ranks (1.0: splitting the image

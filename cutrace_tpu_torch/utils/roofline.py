@@ -45,29 +45,25 @@ def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
     plane and sphere tests and C slot tests for each cluster it needs
     (the tally's needed visits: clusters entered by the final winner's t,
     or before the light). "bound_admitted": the kernel's own work, its
-    slab tests and the slots it tested (C a visit; in K3's sub-box walk,
-    whose tables carry group boxes, SUB_GROUP a group scanned, and the
-    sub-box tests among the slab tests), and the tree and group boxes of
-    a tree walk among the bytes, which a better cull lowers."""
+    slab tests, its sub-box tests and the slots it tested (SUB_GROUP a
+    group scanned), and the group boxes and a tree walk's tree boxes
+    among the bytes, which a better cull lowers."""
     m, c = accel.order.shape
     names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
     table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
-    casts, visits, slabs, needed, sub_slabs, groups = (
+    casts, _, slabs, needed, sub_slabs, groups = (
         int(x) for x in tally.tolist())
     per_cast = (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
                 + OPS_CAST)
-    walk_bytes = 0
-    slot_tests = visits * c
-    if m > 32:
-        walk_bytes = tables.tree.numel() * 4 + tables.sub.numel() * 4
-        slot_tests = groups * SUB_GROUP
+    walk_bytes = (tables.sub.numel()
+                  + (tables.tree.numel() if m > 32 else 0)) * 4
     return {"bound": bound(nbytes, needed * c * OPS_TRI_SLOT
                            + casts * per_cast),
             "bound_admitted": bound(
                 nbytes + walk_bytes,
-                slot_tests * OPS_TRI_SLOT + (slabs + sub_slabs) * OPS_SLAB
-                + casts * per_cast)}
+                groups * SUB_GROUP * OPS_TRI_SLOT
+                + (slabs + sub_slabs) * OPS_SLAB + casts * per_cast)}
 
 
 def cast_bound(tables, n_rays, tally):

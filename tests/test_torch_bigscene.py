@@ -2,10 +2,12 @@
 cutrace_tpu_torch's partition policy, its fused plain version and its
 plain topology emitter against the JAX package's big-scene kernel
 (`cutrace_tpu/ops/fused.py:_make_kernel`), run in interpret mode as
-tests/test_fused.py runs it.
+tests/test_fused.py runs it. The cluster tree and the group boxes below
+each cluster (K1's too) are held here with float32 numpy emulations of
+the kernels' loops.
 
-The CUDA kernel K3 runs only on the card; chip_smoke.py holds it against
-the plain version there. Gates: tests/test_fused.py's _compare (np.isclose
+The CUDA kernels K1 and K3 run only on the card; chip_smoke.py holds
+them against the plain version there. Gates: tests/test_fused.py's _compare (np.isclose
 atol 2e-4, no mismatch off discontinuities, at most 10 % of edge pixels
 for the subdivided mesh as its own test allows), codes equal on the
 entries the replay reads (test_torch_replay.canonical_codes)."""
@@ -26,8 +28,12 @@ from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
 from cutrace_tpu_torch import bigscene
 from cutrace_tpu_torch.ops import bvh as tbvh
 from cutrace_tpu_torch.ops import fused as tfused
+from cutrace_tpu_torch.ops import intersect as TI
 from cutrace_tpu_torch.ops import pallas_cast as tpc
+from cutrace_tpu_torch.parallel import sharding as tsh
+from cutrace_tpu_torch.parallel import train as ttrain
 from cutrace_tpu_torch.render import renderer as TR
+from cutrace_tpu_torch.render import shading as TS
 from cutrace_tpu_torch.scene.soa import scene_to_soa
 from test_fused import _compare
 from test_torch_host import port_scene
@@ -238,20 +244,18 @@ def _table_rows(accel):
             accel.valid.gather(1, accel.slots))
 
 
-@pytest.mark.parametrize("levels,size", [(2, 256), (3, 512)])
-def test_sub_boxes_hold_their_slots(scenes_dir, levels, size):
-    """Past 32 clusters (the 16k bunny at C=256, M=64; the 64k bunny at
-    C=512, M=128) the kernel tables carry a box per group of 32 slots:
-    each holds the corners of every valid slot of its group, widened by
-    the tree's margin, and no more. The rows follow accel.slots: each
-    cluster keeps its set of original indices (T_ORDER), its invalid
-    slots last."""
-    ts = scene_to_soa(port_scene(_bunny(scenes_dir, levels, 8, 8)),
-                      device="cpu")
-    accel = tbvh.build_accel(ts, size)
-    kt = tfused.kernel_tables(ts, accel)
+def _check_grouped_tables(ts, accel, kt):
+    """The kernel tables of a "fused" partition over the triangles of
+    `ts`: the rows follow accel.slots, which is group_slots' order of the
+    slot centroids; each cluster keeps its set of original indices
+    (T_ORDER), its invalid slots last; and there is a box per group of 32
+    slots, holding the corners of every valid slot of its group, widened
+    by the tree's margin, and no more."""
     m, c = accel.order.shape
-    assert m > tfused.LANES_MAX_M and accel.slots is not None
+    n_tris = ts.tri_p1.shape[0]
+    slot = accel.order.long().clamp(max=n_tris - 1)
+    cent = (ts.tri_p1 + ts.tri_p2 + ts.tri_p3) / 3.0
+    assert torch.equal(accel.slots, tbvh.group_slots(cent[slot], accel.valid))
     assert kt.sub.shape == (m, c // tbvh.SUB_GROUP, 8)
     assert not kt.sub[..., 6:].any()
     order, valid = _table_rows(accel)
@@ -263,7 +267,7 @@ def test_sub_boxes_hold_their_slots(scenes_dir, levels, size):
         torch.where(valid, order, big).sort(dim=1).values,
         torch.where(accel.valid, accel.order, big).sort(dim=1).values)
     assert (valid.int().diff(dim=1) <= 0).all()
-    idx = order.long().clamp(max=ts.tri_p1.shape[0] - 1)
+    idx = order.long().clamp(max=n_tris - 1)
     corners = torch.stack([ts.tri_p1[idx], ts.tri_p2[idx],
                            ts.tri_p3[idx]]) - ts.scene_center
     lo, hi = corners.amin(dim=0).numpy(), corners.amax(dim=0).numpy()
@@ -284,6 +288,21 @@ def test_sub_boxes_hold_their_slots(scenes_dir, levels, size):
                                    rtol=1e-6, atol=1e-6 * float(delta))
         np.testing.assert_allclose(sub[full, g, 3:6], ghi[full] + delta,
                                    rtol=1e-6, atol=1e-6 * float(delta))
+
+
+@pytest.mark.parametrize("levels,size", [(2, 256), (3, 512)])
+def test_sub_boxes_hold_their_slots(scenes_dir, levels, size):
+    """Past 32 clusters (the 16k bunny at C=256, M=64; the 64k bunny at
+    C=512, M=128) the kernel tables carry a box per group of 32 slots:
+    each holds the corners of every valid slot of its group, widened by
+    the tree's margin, and no more. The rows follow accel.slots: each
+    cluster keeps its set of original indices (T_ORDER), its invalid
+    slots last."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, levels, 8, 8)),
+                      device="cpu")
+    accel = tbvh.build_accel(ts, size)
+    assert accel.order.shape[0] > tfused.LANES_MAX_M
+    _check_grouped_tables(ts, accel, tfused.kernel_tables(ts, accel))
 
 
 def test_empty_groups_are_entered_by_no_ray(scenes_dir):
@@ -315,25 +334,91 @@ def test_empty_groups_are_entered_by_no_ray(scenes_dir):
 
 
 @pytest.mark.parametrize("levels,size", [(0, 64), (1, 128)])
-def test_k1_tables_carry_no_sub_boxes(scenes_dir, levels, size):
+def test_k1_tables_carry_sub_boxes(scenes_dir, levels, size):
     """A partition of at most 32 clusters (K1's: bunny C=64 M=16, the 4k
-    bunny C=128 M=32) gets no slot order and no group boxes, and its
-    kernel tables hold the accel's slots row for row: every table equals,
-    bit for bit, those of an Accel of its order and valid alone."""
+    bunny C=128 M=32) has its slots ordered into compact groups of 32 and
+    its kernel tables carry a box per group (_check_grouped_tables): every
+    table equals, bit for bit, those of an Accel whose order and valid
+    are gathered by the slots; K1's shared-memory instance stages the
+    group boxes' bytes besides the rest."""
     ts = scene_to_soa(port_scene(_bunny(scenes_dir, levels, 8, 8)),
                       device="cpu")
     accel = tbvh.build_accel(ts, size)
-    assert accel.order.shape[0] <= tfused.LANES_MAX_M
-    assert accel.slots is None
+    m, c = accel.order.shape
+    assert m <= tfused.LANES_MAX_M and accel.slots is not None
     kt = tfused.kernel_tables(ts, accel)
-    assert kt.sub is None
-    assert torch.equal(kt.tri[..., _ORDER][accel.valid],
-                       accel.order[accel.valid].float())
-    plain = tfused.kernel_tables(ts, tbvh.accel_from_numpy(
-        accel.order.numpy(), accel.valid.numpy(), device="cpu"))
-    for f in ("tri", "aabb", "tree", "plane", "sphere", "mat", "lights",
-              "ambient"):
+    _check_grouped_tables(ts, accel, kt)
+    order, valid = _table_rows(accel)
+    plain = tfused.kernel_tables(ts, tbvh.Accel(order=order, valid=valid))
+    for f in ("tri", "aabb", "tree", "sub", "plane", "sphere", "mat",
+              "lights", "ambient"):
         assert torch.equal(getattr(kt, f), getattr(plain, f)), f
+    rest = 4 * (kt.tri.numel() + kt.aabb.numel()
+                + (ts.n_planes + ts.n_spheres) * 12 + kt.mat.shape[0] * 8
+                + ts.n_lights * 8)
+    assert tfused.k1_shared_bytes(ts, kt) == rest + 4 * m * (c // 32) * 8
+
+
+@pytest.mark.parametrize("kind", tbvh.KINDS)
+def test_only_fused_partitions_order_their_slots(scenes_dir, kind):
+    """Only a "fused" partition orders its slots into groups (the fused
+    kernels read its tables); the culling cast's tables (K4's, which
+    visits whole clusters) carry no group boxes whatever the kind, and
+    the fused kernels' tables always do, over the partition's slots in
+    whatever order it has them."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 0, 8, 8)), device="cpu")
+    accel = tbvh.build_accel(ts, 64, kind=kind)
+    assert (accel.slots is not None) == (kind == "fused")
+    assert tpc.cluster_tables(ts, accel).sub is None
+    kt = tfused.kernel_tables(ts, accel)
+    assert kt.sub.shape == (16, 2, 8)
+    order, valid = _table_rows(accel)
+    assert torch.equal(kt.tri[..., _ORDER][valid], order[valid].float())
+
+
+@pytest.mark.parametrize("way", ["prepare", "tiles", "prims", "fit"])
+def test_k1_tables_carry_sub_boxes_on_every_path(scenes_dir, monkeypatch,
+                                                 way):
+    """Every way to K1's tables gives them the group layout
+    (_check_grouped_tables): render.prepare's partition; a tiles mesh's
+    build_sharded_accel (bvh.build_accel over the whole scene, the
+    four-card cell's path); a prims mesh's, which stacks each triangle
+    shard's slots (each shard's tables over its own triangles); and the
+    partition and live scene a fit step hands to the forward, from which
+    each step builds its kernel_tables."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 0, 8, 4)), device="cpu")
+    cpu = torch.device("cpu")
+    if way == "prepare":
+        cases = [(ts, TR.prepare(ts, accel="fused").accel)]
+    elif way == "tiles":
+        cases = [(ts, tsh.build_sharded_accel(
+            ts, tsh.Mesh(4, 1, 0, 0, cpu), kind="fused"))]
+    elif way == "prims":
+        stack = tsh.build_sharded_accel(ts, tsh.Mesh(1, 2, 0, 0, cpu),
+                                        kind="fused")
+        assert stack.order.dim() == 3 and stack.slots.shape == (
+            stack.order.shape)
+        cases = [(tsh.shard_scene(ts, tsh.Mesh(1, 2, 0, k, cpu)),
+                  tbvh.Accel(order=stack.order[k], valid=stack.valid[k],
+                             slots=stack.slots[k]))
+                 for k in range(2)]
+    else:
+        cases = []
+        real = tfused._forward_topo
+
+        def spy(soa, accel, *args):
+            cases.append((soa, accel))
+            return real(soa, accel, *args)
+
+        monkeypatch.setattr(tfused, "_forward_topo", spy)
+        target = torch.zeros((ts.width * ts.height, 3))
+        ttrain.fit(ts, target, steps=1, lr=1e-3, bounces=1,
+                   param_filter=("mat_color",), accel="fused", device="cpu")
+        assert len(cases) == 1
+    for soa, accel in cases:
+        assert accel.kind == "fused"
+        assert accel.order.shape[0] <= tfused.LANES_MAX_M
+        _check_grouped_tables(soa, accel, tfused.kernel_tables(soa, accel))
 
 
 def _slab_np(box, o, inv):
@@ -381,27 +466,73 @@ def _merge(best_t, best_k, rows, t, k):
     best_k[rows] = np.where(better, k, best_k[rows])
 
 
-def _flat_loop_np(kt, o, d, mind):
-    """K1's flat loop (index order, cull against each ray's best t)."""
+def _flat_loop_np(kt, o, d, mind, groups=False):
+    """K1's flat loop (csrc/cast.cuh nearest_triangle_flat), ray by ray:
+    the clusters in index order, each admitted when the ray enters its
+    box at or before its best t; an admitted cluster's slots tested whole
+    (the loop before the group level), or with `groups` those of the
+    groups whose boxes the ray enters at or before its best t so far, in
+    index order (_visit_groups_np, whose cut at the visit's start adds
+    nothing here). Returns (t, key, slots tested a ray)."""
     tri, aabb = kt.tri.numpy(), kt.aabb.numpy()
     r = o.shape[0]
     with np.errstate(divide="ignore"):
         inv = np.float32(1) / d
     best_t = np.full(r, np.inf, np.float32)
     best_k = np.full(r, 2**30, np.float32)
+    tested = np.zeros(r, np.int64)
     for mi in range(aabb.shape[0]):
         hit, entry = _slab_np(np.broadcast_to(aabb[mi], (r, 8)), o, inv)
         rows = np.nonzero(hit & (entry <= best_t))[0]
-        if rows.size:
-            _merge(best_t, best_k, rows,
-                   *_visit_np(tri, mi, o[rows], d[rows], mind))
-    return best_t, best_k
+        if not rows.size:
+            continue
+        if groups:
+            _visit_groups_np(tri, kt.sub.numpy(), mi, rows, o, d, inv, mind,
+                             best_t, best_k, tested)
+            continue
+        tested[rows] += tri.shape[1]
+        _merge(best_t, best_k, rows,
+               *_visit_np(tri, mi, o[rows], d[rows], mind))
+    return best_t, best_k, tested
+
+
+def _flat_any_np(kt, o, d, mind, ldist, groups=False):
+    """K1's occlusion query (csrc/cast.cuh any_triangle_flat), ray by
+    ray: the clusters in index order, each admitted when the ray enters
+    its box before its ldist and has no hit yet; an admitted cluster's
+    slots tested whole, or with `groups` the groups whose boxes the ray
+    enters before ldist, in index order until one holds a hit. Returns (a triangle with mind < t < ldist?, slots tested a
+    ray)."""
+    tri, aabb = kt.tri.numpy(), kt.aabb.numpy()
+    c = tri.shape[1]
+    r = o.shape[0]
+    with np.errstate(divide="ignore"):
+        inv = np.float32(1) / d
+    found = np.zeros(r, bool)
+    tested = np.zeros(r, np.int64)
+    spans = ([(g * 32, min(c, (g + 1) * 32)) for g in range(-(-c // 32))]
+             if groups else [(0, c)])
+    for mi in range(aabb.shape[0]):
+        hit, entry = _slab_np(np.broadcast_to(aabb[mi], (r, 8)), o, inv)
+        adm = hit & (entry < ldist) & ~found
+        for g, (lo, hi) in enumerate(spans):
+            rows = adm & ~found
+            if groups:
+                ghit, gentry = _slab_np(
+                    np.broadcast_to(kt.sub.numpy()[mi, g], (r, 8)), o, inv)
+                rows &= ghit & (gentry < ldist)
+            rows = np.nonzero(rows)[0]
+            if rows.size:
+                tested[rows] += hi - lo
+                t, _ = _visit_np(tri[:, lo:hi], mi, o[rows], d[rows], mind)
+                found[rows] = t < ldist[rows]
+    return found, tested
 
 
 def _visit_groups_np(tri, sub, mi, sel, o, d, inv, mind, best_t, best_k,
                      tested):
-    """csrc/cast.cuh visit_nearest_sub for the rays `sel` that admitted
-    cluster mi: its groups in index order, a group's slots tested when the
+    """csrc/cast.cuh visit_nearest_sub (K3) for the rays `sel` that
+    admitted cluster mi: its groups in index order, a group's slots tested when the
     ray entered the group's box at or before its best t at the visit's
     start, and still does at or before its best t so far. Counts the slots
     tested into `tested`."""
@@ -539,7 +670,7 @@ def test_ordered_walk_finds_the_flat_winners(scenes_dir, sub):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     d[:256, 1] = 0.0  # axis-parallel rays: 0 * inf slab bounds
     mind = np.float32(1e-3)
-    flat_t, flat_k = _flat_loop_np(kt, o, d, mind)
+    flat_t, flat_k, _ = _flat_loop_np(kt, o, d, mind)
     walk_t, walk_k, slabs, tested = _tree_walk_np(kt, o, d, mind, sub=sub)
     assert np.isfinite(flat_t).sum() > n // 4
     assert np.array_equal(walk_k, flat_k)
@@ -548,6 +679,60 @@ def test_ordered_walk_finds_the_flat_winners(scenes_dir, sub):
     if sub:
         *_, whole = _tree_walk_np(kt, o, d, mind)
         assert tested.mean() < whole.mean() / 2
+
+
+def _sampled_warps(ts, n_warps, seed):
+    """The camera rays (o, d) of `n_warps` seeded warps (32 consecutive
+    rays) of the image's block order, as K1's warps take them."""
+    o, d, _ = TR.block_rays(ts)
+    rng = np.random.default_rng(seed)
+    warps = rng.choice(o.shape[0] // 32, n_warps, replace=False)
+    idx = torch.from_numpy((warps[:, None] * 32 + np.arange(32)).reshape(-1))
+    return o[idx], d[idx]
+
+
+@pytest.mark.parametrize("cast", ["nearest", "any"])
+def test_k1_groups_find_the_flat_winners(scenes_dir, cast):
+    """A float32 numpy emulation of K1's flat loop with the group level,
+    on the 1080p bunny's K1 tables (C=64 M=16, two groups a cluster):
+    over 512 seeded warps of the block order's camera rays (nearest
+    casts), or their shadow rays to the four lights from the primary hits
+    (occlusion queries), it gives the whole-cluster loop's (t, key)
+    winners, or occlusion flags, bit for bit, and tests fewer than 0.8x
+    its slots a cast."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 0, 1920, 1080)),
+                      device="cpu")
+    accel = TR.prepare(ts, accel="fused").accel
+    kt = tfused.kernel_tables(ts, accel)
+    assert kt.sub.shape == (16, 2, 8)
+    o, d = _sampled_warps(ts, 512, 23)
+    o0 = ts.scene_center
+    mind = np.float32(1e-3)
+    if cast == "nearest":
+        ro, rd = (o - o0).numpy(), d.numpy()
+        flat_t, flat_k, whole = _flat_loop_np(kt, ro, rd, mind)
+        got_t, got_k, tested = _flat_loop_np(kt, ro, rd, mind, groups=True)
+        assert np.isfinite(flat_t).sum() > 1000
+        assert np.array_equal(got_k, flat_k)
+        assert np.array_equal(got_t, flat_t)
+    else:
+        hit = TI.ray_cast(ts, o, d, 1e-3, tbvh.dense_candidates_fn(accel),
+                          need_uv=False)
+        p = hit.point[hit.hit]
+        ro, rd, ld = [], [], []
+        for li in range(ts.n_lights):
+            direction, distance = TS.light_direction_to(ts, li, p)
+            ro.append(p - o0)
+            rd.append(TS._normalize(direction))
+            ld.append(distance * TS._norm(direction))
+        ro, rd, ld = (torch.cat(x).numpy() for x in (ro, rd, ld))
+        assert ro.shape[0] > 4 * 10000
+        flat, whole = _flat_any_np(kt, ro, rd, mind, ld)
+        got, tested = _flat_any_np(kt, ro, rd, mind, ld, groups=True)
+        assert flat.sum() > 1000
+        assert np.array_equal(got, flat)
+    assert whole.sum() > 100000
+    assert tested.mean() < 0.8 * whole.mean()
 
 
 def test_big_plain_matches_jax_fused(scenes_dir):

@@ -44,7 +44,8 @@ def _scene(scenes_dir, name, w, h):
 @pytest.mark.parametrize("scene", ["bunny.json", "sphere_plane.json"])
 def test_tables_match_jax(scenes_dir, scene):
     """Every row the kernel reads equals its row in the JAX package's
-    _tables and _light_table."""
+    _tables and _light_table, the slots of each cluster in the order the
+    port's partition gives them (Accel.slots: compact groups of 32)."""
     sc = _scene(scenes_dir, scene, 16, 9)
     js = jax_soa(sc)
     ja = jbvh.build_accel(js, 64, kind="fused", interpret=True)
@@ -53,14 +54,19 @@ def test_tables_match_jax(scenes_dir, scene):
     jlights = jfused._light_table(js, js.scene_center)
 
     ts = torch_soa(sc)
-    kt = tfused.kernel_tables(ts, tbvh.build_accel(ts, 64))
-    for k in ("tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"):
+    accel = tbvh.build_accel(ts, 64)
+    kt = tfused.kernel_tables(ts, accel)
+    for k in ("tri", "aabb", "sub", "plane", "sphere", "mat", "lights",
+              "ambient"):
         t = getattr(kt, k)
         assert t.dtype == torch.float32 and t.is_contiguous(), k
 
     names = tpc._TRI_NAMES
     for i, name in enumerate(names):
-        got, want = kt.tri[..., i].numpy(), np.asarray(jt[name], np.float32)
+        want = np.asarray(jt[name], np.float32)
+        if accel.slots is not None:
+            want = np.take_along_axis(want, accel.slots.numpy(), axis=1)
+        got = kt.tri[..., i].numpy()
         if name in ("snx", "sny", "snz"):
             # unit normals: XLA fuses the normalization differently, so
             # they may sit one float32 ulp apart
@@ -314,7 +320,8 @@ def _fake_library(monkeypatch, limit=232448):
 def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     """The CUDA wrapper's host side, with a stand-in library: the launch
     gets the partition's sizes and the instance the size rule picks (K1's
-    shared-memory instance for bunny, no tree), each instance's counter
+    shared-memory instance for bunny, no tree, its group boxes), each
+    instance's counter
     counts its successful launches only, K3 gets the tree boxes, a CUDA
     error code raises, and rays of the wrong type raise before any
     launch."""
@@ -342,7 +349,10 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
     assert calls[0][24] is None and calls[0][25] is None
     # the shared-memory instance gets its work counter
     assert calls[0][26:28] == (16, tfused._K1_SHARED)
-    assert calls[0][28] is not None and calls[0][29] is None
+    assert calls[0][28] is not None
+    # and the group boxes: two of 32 slots a cluster
+    assert tables.sub.shape == (16, 2, 8)
+    assert calls[0][29].value == tables.sub.data_ptr()
     topo_before = tfused.TOPO_LAUNCHES
     *_, codes = tfused._fused_forward_cuda(soa, tables, o, d, 1e-3, 5,
                                            emit_topo=True)
@@ -378,8 +388,9 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
 def test_k1_size_rule(scenes_dir, monkeypatch, case):
     """K1's instance is picked before the launch from the partition's
     staged bytes and the card's shared-memory limit: bunny (M=16, C=64,
-    99 KB) fits an H100 block and runs the shared-memory instance
-    (LAUNCHES); the 4k bunny (C=128, M=32, 393 KB), or bunny on a card
+    100 KB with its group boxes) fits an H100 block and runs the
+    shared-memory instance (LAUNCHES); the 4k bunny (C=128, M=32, 398
+    KB), or bunny on a card
     whose limit is below its bytes, runs the global-memory instance
     (GLOBAL_LAUNCHES). A failed launch raises and counts nothing."""
     limit = 99000 if case == "bunny, small card" else 232448
@@ -395,8 +406,8 @@ def test_k1_size_rule(scenes_dir, monkeypatch, case):
     tables = tfused.kernel_tables(soa, accel)
     m, c = accel.order.shape
     staged = tfused.k1_shared_bytes(soa, tables)
-    assert staged == 4 * (m * c * 24 + m * 8 + (5 + 0) * 12
-                          + tables.mat.shape[0] * 8 + 4 * 8)
+    assert staged == 4 * (m * c * 24 + m * 8 + m * (c // 32) * 8
+                          + (5 + 0) * 12 + tables.mat.shape[0] * 8 + 4 * 8)
     want = (tfused._K1_SHARED if case == "bunny" else tfused._K1_GLOBAL)
     assert (staged <= limit) == (want == tfused._K1_SHARED)
     assert tfused.k1_instance(soa, tables) == want

@@ -66,19 +66,18 @@ def test_chip_smoke_takes_the_package_helpers(module, names):
 @pytest.mark.parametrize("levels, code_rows", [(0, 0), (0, 7), (2, 0)])
 def test_forward_bound_is_its_formula(levels, code_rows):
     """One forward launch's two bounds on CPU tables (the bunny, C=64
-    M=16; the 16k bunny, C=256 M=64, whose tree and group boxes count
-    among the admitted bytes) and a hand-made tally: bytes of rays,
-    outputs, codes and the seven tables; operations of the needed
-    cluster visits' slot tests, or of the slots tested (C an admitted
-    visit in K1, 32 a group scanned in K3's sub-box walk), the slab tests
-    (and K3's sub-box tests) and each cast's planes, spheres and
-    set-up."""
+    M=16, whose group boxes count among the admitted bytes; the 16k
+    bunny, C=256 M=64, whose tree and group boxes do) and a hand-made
+    tally: bytes of rays, outputs, codes and the seven tables; operations
+    of the needed cluster visits' slot tests, or of the slots tested (32
+    a group scanned in K1's and K3's sub-box visits), the slab tests and
+    sub-box tests and each cast's planes, spheres and set-up."""
     p = _prepared("bunny.json", 16, 9, levels)
     soa, accel = p.soa, p.accel
     tables = tfused.kernel_tables(soa, accel)
     m, c = accel.order.shape
     casts, visits, slabs, needed = 1200, 5300, 9100, 2100
-    sub_slabs, groups = (42400, 9000) if levels else (0, 0)
+    sub_slabs, groups = (42400, 9000) if levels else (10600, 6100)
     tally = torch.tensor([casts, visits, slabs, needed, sub_slabs, groups])
     n_rays = 144
     got = roofline.forward_bound(soa, accel, tables, n_rays, tally,
@@ -87,9 +86,10 @@ def test_forward_bound_is_its_formula(levels, code_rows):
         "tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"))
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
     per_cast = soa.n_planes * 12 + soa.n_spheres * 30 + 20
-    assert (m > 32) == bool(levels) == (tables.sub is not None)
-    walk = (tables.tree.numel() + tables.sub.numel()) * 4 if levels else 0
-    slots = groups * 32 if levels else visits * c
+    assert (m > 32) == bool(levels)
+    assert tables.sub.shape == (m, c // 32, 8)
+    walk = (tables.tree.numel() * 4 if levels else 0) + tables.sub.numel() * 4
+    slots = groups * 32
     assert got["bound"] == _ms(nbytes, needed * c * 38 + casts * per_cast)
     assert got["bound_admitted"] == _ms(
         nbytes + walk,
