@@ -62,8 +62,9 @@ line) if any phase fails:
              with codes (bits, replay, emitter gates), K2 at 256k (the
              triangle rows' exact sums in global memory)
  12. big-frame  a cutrace_tpu_torch.bigscene row at 16k, 64k, 256k and
-             1M, 960x540 b5, with K3's time, both bounds, launches, and
-             slab tests, admitted and needed visits, sub-box tests and
+             1M, 960x540 b5 (its frame finite and bit-equal to the eager
+             loop's, render_eager), with K3's time, both bounds, launches,
+             and slab tests, admitted and needed visits, sub-box tests and
              groups scanned a cast (and groups an admitted visit). The 256k
              and 1M frames (K3) against the 1k bunny's through K1 (the
              surface is the same): zero mismatches off the discontinuities
@@ -98,11 +99,13 @@ line) if any phase fails:
  17. program the frame programs (render on the card: CUDA graphs over
              K1/K3 and K4) against the eager loop (render_eager) on the
              same card: bunny 1920x1080 b5 fused (K1) and pallas (K4
-             flat), the 16k subdivided bunny 480x270 b5 pallas (K4 tree)
-             and fused (K3), the transparent bunny 160x90 b6 (the
-             127-node composable fallback): every bit of color, depth and
-             normal equal, equal launch counts a frame (the pallas frame's
-             K4 launches: chunks x levels x (1 + march steps)), a second
+             flat), mirror and sphere_plane 1920x1080 b5 fused (K1, one
+             launch a frame, the frame finite), the 16k subdivided bunny
+             480x270 b5 pallas (K4 tree) and fused (K3), the transparent
+             bunny 160x90 b6 (the 127-node composable fallback): every
+             bit of color, depth and normal equal, equal launch counts a
+             frame (the pallas frame's K4 launches: chunks x levels x
+             (1 + march steps)), a second
              render captures nothing and synchronizes with nothing
              (torch's sync debug mode "error"), a kept frame unchanged by
              an in-place change of a value the program reads, after which
@@ -132,7 +135,10 @@ line) if any phase fails:
              op. The inverse-rendering example's settings (sphere_plane
              64x36: 150 mat_color steps b2, 50 look-at camera steps b1):
              wall seconds op by op, program, op by op, every loss of the
-             three bit-equal, and every step from the same state as above
+             three bit-equal, and every step from the same state as
+             above; then the example itself (inverse_rendering.run: 150
+             color steps, 250 eye steps), each fit's last loss below its
+             first
  19. determinism  same inputs, same bits, every count of differing
              elements printed before the gate: K2's sums alone
              (replay_vjp.exact_sum, 2**20 seeded terms into 17,102
@@ -198,19 +204,9 @@ line) if any phase fails:
              bit-equal, and the same parameters and losses under both
              algorithms (the gradient sum's order is the code's, not
              NCCL's)
- 22. bench   `python -m cutrace_tpu_torch.bench --reps 10` in a
-             subprocess at its full sizes, within BENCH_DEADLINE_S, its
-             output passed on to the log as it is: exit code 0, every
-             line a JSON object with backend "cuda" and correct true
-             (frames equal to the eager loop's and gated at 480x270,
-             step gradients equal to the op-by-op step's with the route's
-             kernels launched, the example's losses falling, the kernels'
-             outputs and launches), every line of the bench present, the
-             headline bunny_1080p_ray_casts last
- 23. result  a JSON line of per-kernel numbers (each with its launches
-             in one replayed step of each step-program case) and the
-             bench's headline and step lines, then the contract line
-             {"ok": true, "device": {...}}
+ 22. result  a JSON line of per-kernel numbers (each with its launches
+             in one replayed step of each step-program case), then the
+             contract line {"ok": true, "device": {...}}
 
 Each main path (the CLI render, the 4k bunny render, the gradient step,
 fit, the 256k bigscene run, the 256k step, the --accel pallas CLI, the
@@ -268,7 +264,7 @@ MAIN_SCENE = "bunny.json"  # authored at 1920x1080; the CLI renders b5
 PHASES = ("parity", "timing", "main", "topo", "vjp", "grad", "train",
           "big-parity", "big-topo", "big-vjp", "big-frame", "big-grad",
           "cast", "pallas", "fallback", "program", "step-program",
-          "determinism", "multi", "scaling", "bench")
+          "determinism", "multi", "scaling")
 # K3's parity cases: (subdivision levels, width, height), bounce depth 5
 BIG_PARITY = ((2, 480, 270), (4, 160, 90))
 # bigscene rows at 960x540 b5: 16k, 64k, 256k and 1M triangles
@@ -291,20 +287,10 @@ CAST_RANDOM_RAYS = 65536
 CAST_KNIFE_BUDGET = 1e-3  # share of rays allowed a knife-edge winner
 FALLBACK_PLAIN_CHUNK = 512  # rays per chunk of the brute-force gradient
 MULTI_DEADLINE_S = 240  # the two spawned ranks of the multi phase, together
-BENCH_DEADLINE_S = 420  # the bench phase's subprocess
 SCALING_DEADLINE_S = 300  # the scaling phase's sweep
 # NCCL_ALGO of the scaling phase's fits: the all-reduce's algorithm alone
 # (the all-gathers, which have no tree, keep theirs)
 NCCL_ALGOS = {"Ring": "allreduce:ring", "Tree": "allreduce:tree"}
-# the bench's lines, in order (cutrace_tpu_torch.bench), the headline last
-BENCH_LINES = (
-    "probe", "frame/mirror_1080p_b5", "frame/sphere_plane_1080p_b5",
-    "frame/bunny_1080p_b5_pallas", "bigscene/16k_960x540_b5",
-    "bigscene/64k_960x540_b5", "bigscene/256k_960x540_b5",
-    "bigscene/1M_960x540_b5", "bunny_1080p_grad_step",
-    "sphere_plane_1080p_grad_step", "step/bunny_256k_960x540_b5",
-    "fit/inverse_rendering_example", "kernel/K1", "kernel/K1_topo",
-    "kernel/K2", "kernel/K3", "kernel/K4", "bunny_1080p_ray_casts")
 FIT_RTOL = 1e-6  # fit(mesh=...) losses against the one-device fit
 PLAIN_CHUNK = 262144  # rays per plain-replay chunk on the card
 def phase(name, msg):
@@ -1054,6 +1040,12 @@ def phase_big_frame(m, smi, rec, launches):
         soa, accel = prepared.soa, prepared.accel
         label = (f"bunny/{row['triangles'] // 1000}k 960x540 b5 "
                  f"M={row['clusters']} C={row['cluster_size']}")
+        check_finite(label, frame)
+        bad = frames_differ(frame, m.render_eager(prepared, bounces=5))
+        if bad:
+            raise AssertionError(f"{label}: the program's frame differs "
+                                 f"from the eager loop's in "
+                                 + ", ".join(bad))
         if levels == 4:
             launches["big_frame"] = counts
         if levels in BIG_FRAME_GATED:
@@ -1477,6 +1469,15 @@ def frames_differ(a, b):
             if (n := bits_differ(x, y))]
 
 
+def check_finite(label, frame):
+    """A frame's color finite, its depth and normal free of NaN (a miss's
+    depth is inf)."""
+    color, depth, normal = frame
+    if not (bool(torch.isfinite(color).all()) and not depth.isnan().any()
+            and not normal.isnan().any()):
+        raise AssertionError(f"{label}: the frame is not finite")
+
+
 def first_program_call(m, prepared, bounces):
     """The first render of a scene on the card (a warm-up frame or chunk,
     the capture, then the replays): host ms, and the peak and the held
@@ -1566,7 +1567,7 @@ def program_turns(m, prepared, bounces, eager_reps, program_reps):
 
 def phase_program(m, smi, rec):
     """The frame programs (render on the card) against the eager loop
-    (render_eager) on the same card: five frames bit for bit with equal
+    (render_eager) on the same card: seven frames bit for bit with equal
     launch counts, no host synchronization in the replays, a kept frame
     unchanged by an in-place scene change, and the 1080p frames' times,
     first-call time and memory."""
@@ -1614,6 +1615,18 @@ def phase_program(m, smi, rec):
                       eager_ms_again=more["eager_ms_again"])
     out["pallas_1080p"] = pallas_rec
     del p
+    # mirror and sphere_plane 1920x1080 b5 fused (K1)
+    for name in ("mirror", "sphere_plane"):
+        label = f"{name} 1080p fused"
+        p = m.prepare(m.load_scene(m.scenes / f"{name}.json"),
+                      accel="fused", device="cuda", bounces=5)
+        eager, launched = program_case(m, label, p, 5)
+        if launched != {"fused_forward": 1}:
+            raise AssertionError(f"{label}: {launched}")
+        check_finite(label, eager)
+        aliasing_case(m, label, p, 5, p.tables.ambient)
+        out[f"{name}_1080p_launches"] = launched
+        del p, eager
     # the 16k subdivided bunny 480x270 b5 pallas (K4 tree, M > 32) and
     # fused (K3)
     sc16, _ = m.bigscene.subdivided_bunny(2, 480, 270)
@@ -1893,7 +1906,8 @@ def example_run(m, fits, program):
 def step_example_case(m, rec):
     """The example's fits (example_fits): wall seconds of the two fits in
     turns op by op, program, op by op (two captures); every loss of the
-    three bit-equal; every step from the same state (forced_fit)."""
+    three bit-equal; every step from the same state (forced_fit). Then
+    the example itself (inverse_rendering.run): both fits' losses fall."""
     fits = example_fits(m)
     captures = m.renderer.CAPTURES
     eager_s, eager, _ = example_run(m, fits, False)
@@ -1910,10 +1924,24 @@ def step_example_case(m, rec):
     for name, soa, target, kw in fits:
         forced_fit(m, f"example {name}", soa, target, accel=m.prepare(
             soa, accel="fused", bounces=kw["bounces"]).accel, **kw)
+    # the example itself (inverse_rendering.run at its own settings: 150
+    # color steps, then 250 eye steps): both fits' losses fall
+    t0 = time.perf_counter()
+    run = m.ir.run(device="cuda")
+    run_s = time.perf_counter() - t0
+    for name in ("losses", "camera_losses"):
+        part = run[name]
+        if not part[-1] < part[0]:
+            raise AssertionError(f"example run {name}: {part[0]} to "
+                                 f"{part[-1]}")
     rec["example"] = {"eager_s": [eager_s, eager_again_s],
                       "program_s": program_s,
                       "losses": [program[0], program[149], program[150],
-                                 program[-1]]}
+                                 program[-1]],
+                      "run_s": run_s,
+                      "run_losses": [run["losses"][0], run["losses"][-1],
+                                     run["camera_losses"][0],
+                                     run["camera_losses"][-1]]}
     phase("step-program", "example (sphere_plane 64x36, 150 mat_color "
           "steps b2, then 50 look-at camera steps b1): " + json.dumps(
               rec["example"]))
@@ -2698,45 +2726,6 @@ def phase_scaling(root, smi, rec):
     phase("scaling", f"done in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_bench(root, rec):
-    """The port's bench at its full sizes, --reps 10, in a subprocess
-    under BENCH_DEADLINE_S; its output goes to the log as it is. Every
-    line must parse, run on the card and pass its own check, the lines
-    must be BENCH_LINES in order, and the bench must exit 0."""
-    torch.cuda.empty_cache()  # the card's memory for the subprocess
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "cutrace_tpu_torch.bench", "--reps", "10"]
-    try:
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                              timeout=BENCH_DEADLINE_S)
-    except subprocess.TimeoutExpired as e:
-        for out in (e.stdout, e.stderr):
-            if out:
-                print(out if isinstance(out, str) else out.decode(),
-                      flush=True)
-        raise AssertionError(f"the bench ran past {BENCH_DEADLINE_S} s")
-    print(proc.stdout, end="", flush=True)
-    print(proc.stderr, end="", file=sys.stderr, flush=True)
-    if proc.returncode != 0:
-        raise AssertionError(f"the bench exited {proc.returncode}")
-    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
-    names = tuple(r["metric"] for r in rows)
-    if names != BENCH_LINES:
-        raise AssertionError(f"the bench printed {names}, not {BENCH_LINES}")
-    bad = [r["metric"] for r in rows
-           if r["backend"] != "cuda" or r["correct"] is not True]
-    if bad:
-        raise AssertionError(f"bench lines off the card or failing their "
-                             f"checks: {bad}")
-    rec["bench"] = {
-        "seconds": time.perf_counter() - t0, "headline": rows[-1],
-        "steps": [r for r in rows if r["unit"] == "s/step"]}
-    phase("bench", f"{len(rows)} lines, every check passed, in "
-          f"{rec['bench']['seconds']:.1f} s; headline "
-          f"{rows[-1]['value']:.1f} Mcasts/s (median frame "
-          f"{rows[-1]['median']:.3f} ms of {rows[-1]['n']})")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--skip", nargs="*", default=[], choices=PHASES)
@@ -2748,6 +2737,7 @@ def main(argv=None) -> int:
     root = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from cutrace_tpu_torch import bigscene, cli, load_scene, perf_probe
+    from cutrace_tpu_torch import inverse_rendering
     from cutrace_tpu_torch.diff import camera as tcamera
     from cutrace_tpu_torch.diff import checkpoint as ckpt
     from cutrace_tpu_torch.diff import grad as tgrad
@@ -2779,7 +2769,7 @@ def main(argv=None) -> int:
         render=render, render_eager=render_eager, renderer=renderer,
         render_rays=render_rays, scenes=scenes, fit=fit, ckpt=ckpt,
         probe=perf_probe, camera=tcamera, scene_to_soa=scene_to_soa,
-        train=train,
+        train=train, ir=inverse_rendering,
         reset=lambda: reset_launches(fused, rv, pc),
         read=lambda: read_launches(fused, rv, pc))
     t_start = time.perf_counter()
@@ -3050,8 +3040,6 @@ def main(argv=None) -> int:
         phase_multi(m, main_prepared, root, smi, rec, launches)
     if "scaling" not in skip:
         phase_scaling(root, smi, rec)
-    if "bench" not in skip:
-        phase_bench(root, rec)
     phase("result", f"phases done in {time.perf_counter() - t_start:.1f} s")
 
     if skip:
@@ -3180,7 +3168,6 @@ def main(argv=None) -> int:
                   "launches": {k: launches[k]
                                for k in ("multi", "multi_fit")}},
         "scaling": rec["scaling"],
-        "bench": rec["bench"],
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

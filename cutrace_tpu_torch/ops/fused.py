@@ -513,10 +513,13 @@ def _forward_topo(soa, accel, o, d, fudge, bounces, tables):
     the plain version and the plain emitter on CPU tensors; either ends
     the phases `tables` (built here when None), `pack` and `forward`."""
     if not replay_supported(soa, accel, bounces, n_rays=o.shape[0]):
+        rows = rp.replay_rows(soa, bounces)
         raise NotImplementedError(
             f"topology codes for {o.shape[0]} rays at bounce depth "
-            f"{bounces}: {rp.replay_rows(soa, bounces)} rows exceed the "
-            f"replay's row or code-buffer budget; ROADMAP item A.8")
+            f"{bounces}: {rows} rows and {rows * o.shape[0] * 4} code bytes "
+            f"against the replay's limits of {rp.REPLAY_MAX_ROWS} rows and "
+            f"{rp.REPLAY_MAX_CODE_BYTES} bytes; a fit past them takes the "
+            f"composable backward (fused_render_rays under autograd)")
     if o.is_cuda:
         if tables is None:
             tables = kernel_tables(soa, accel)

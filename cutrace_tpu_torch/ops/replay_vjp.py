@@ -94,14 +94,17 @@ def vjp_instance(soa, bounces: int) -> VjpInstance:
     ("shared"), else the planes' and spheres', the rows most rays hit,
     else none ("global"). Raises NotImplementedError past the kernel's
     scope; nothing falls back to the plain version."""
+    rows, nodes = rp.topo_layout(bounces, soa.any_reflective,
+                                 soa.any_transparent, soa.n_lights,
+                                 soa.shadow_steps)
     if not replay_vjp_supported(soa, bounces):
         raise NotImplementedError(
-            f"replay backward of {soa.n_lights} lights at bounce depth "
-            f"{bounces}: the kernel covers at most {MAX_LIGHTS} lights and "
-            f"{MAX_NODES} tree nodes; ROADMAP item A.8")
-    _, nodes = rp.topo_layout(bounces, soa.any_reflective,
-                              soa.any_transparent, soa.n_lights,
-                              soa.shadow_steps)
+            f"replay backward of {soa.n_lights} lights, {len(nodes)} tree "
+            f"nodes and {rows} topo rows at bounce depth {bounces}: the "
+            f"kernel covers at most {MAX_LIGHTS} lights, {MAX_NODES} tree "
+            f"nodes and {rp.REPLAY_MAX_ROWS} topo rows; a fit past them "
+            f"takes the composable backward (fused_render_rays under "
+            f"autograd)")
     t = soa.tri_p1.shape[0]
     n_tab = t + soa.pl_point.shape[0] + soa.sp_center.shape[0]
     columns = 4 * (6 * soa.n_lights + 1) * _BLOCK

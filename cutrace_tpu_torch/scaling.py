@@ -21,10 +21,10 @@ launches over those frames. A subprocess that runs past DEADLINE_S
 seconds is stopped with its ranks, and it or a non-zero exit fails the
 sweep.
 
-One JSON line a mesh size, in the bench's format (bench.Bench.line:
-metric, value, unit, median, percentile, n, sample_unit, correct,
-backend, card, seconds), metric `scaling/<scene>_<W>x<H>_b<B>/devices<n>`
-in Mcasts/s = W * H * casts_per_pixel / the median sample, with
+One JSON line a mesh size (`line`: metric, value, unit, median,
+percentile, n, sample_unit, correct, backend, card, seconds), metric
+`scaling/<scene>_<W>x<H>_b<B>/devices<n>` in Mcasts/s = W * H *
+casts_per_pixel / the median sample, with
   efficiency_vs_linear  Mcasts_n / (n * Mcasts_1)
   work                  each rank's forward-kernel tally of its run
                         (multihost `work`: casts, admitted cluster
@@ -64,7 +64,6 @@ import os
 import pathlib
 import sys
 import time
-import types
 
 import numpy as np
 
@@ -147,6 +146,24 @@ def mesh_fields(row: dict, n: int, cpp: int, first=None) -> dict:
         "one_rank_ms": row["one_rank_ms"], "backend_group": row["backend"]}
 
 
+def line(failed, backend, card, metric, value, unit, correct, t0,
+         samples=None, **extra):
+    """Print one JSON line: `metric`, `value`, `unit`, the spread of
+    `samples` (utils.profiling.spread; "not measured" without them), their
+    unit (ms), `correct`, `backend`, `card`, the extras and the seconds
+    since `t0`. A failed line's metric is appended to `failed`."""
+    from cutrace_tpu_torch.utils.profiling import spread
+
+    stats = (spread(samples) if samples is not None
+             else {"median": NOT_MEASURED, "percentile": None, "n": 0})
+    print(json.dumps({"metric": metric, "value": value, "unit": unit,
+                      **stats, "sample_unit": "ms", "correct": bool(correct),
+                      "backend": backend, "card": card, **extra,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    if not correct:
+        failed.append(metric)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m cutrace_tpu_torch.scaling")
     ap.add_argument("--scene", default=str(ROOT / "scenes" / "bunny.json"))
@@ -165,19 +182,20 @@ def main(argv=None) -> int:
     stop_on_sigterm()  # a deadline above the sweep stops its torchrun too
     import torch
 
-    from cutrace_tpu_torch.bench import Bench
+    from cutrace_tpu_torch.bigscene import card_name
     from cutrace_tpu_torch.scene.loader import load_scene
-    from cutrace_tpu_torch.scene.soa import scene_to_soa
+    from cutrace_tpu_torch.scene.soa import resolve_device, scene_to_soa
     from cutrace_tpu_torch.utils.profiling import casts_per_pixel
 
-    b = Bench(types.SimpleNamespace(
-        device=args.device, reps=args.reps, bounces=args.bounces,
-        size=(args.width, args.height), levels=0), None)
-    cards = torch.cuda.device_count() if b.cuda else 0
-    n_max = args.devices or (cards if b.cuda else 2)
-    if b.cuda and n_max > cards:
+    backend = resolve_device(args.device).type
+    cuda = backend == "cuda"
+    card = card_name() if cuda else None
+    failed = []
+    cards = torch.cuda.device_count() if cuda else 0
+    n_max = args.devices or (cards if cuda else 2)
+    if cuda and n_max > cards:
         raise ValueError(f"--devices {n_max}: {cards} cards present")
-    if b.cuda:  # once here, so that no rank runs nvcc
+    if cuda:  # once here, so that no rank runs nvcc
         from cutrace_tpu_torch.ops import _build
 
         _build.build_all()
@@ -194,25 +212,25 @@ def main(argv=None) -> int:
         first = first or dict(fields)
         samples = fields.pop("samples")
         fields.pop("visits")
-        b.line(f"{tag}/devices{n}", fields["mcasts_per_s"], "Mcasts/s",
-               fields["pixels_differ"] == 0, t0, samples, **fields)
+        line(failed, backend, card, f"{tag}/devices{n}",
+             fields["mcasts_per_s"], "Mcasts/s", fields["pixels_differ"] == 0,
+             t0, samples, **fields)
         rows.append(dict(fields, metric=f"{tag}/devices{n}",
                          samples_ms=samples))
     last = rows[-1]
-    b.line(f"{tag}/efficiency", last["efficiency_vs_linear"],
-           "fraction of linear", not b.failed, t_sweep,
-           devices=last["devices"],
-           speedup=last["mcasts_per_s"] / rows[0]["mcasts_per_s"],
-           work_invariance=last["work_invariance"],
-           balance=last["balance"])
+    line(failed, backend, card, f"{tag}/efficiency",
+         last["efficiency_vs_linear"], "fraction of linear", not failed,
+         t_sweep, devices=last["devices"],
+         speedup=last["mcasts_per_s"] / rows[0]["mcasts_per_s"],
+         work_invariance=last["work_invariance"], balance=last["balance"])
     if args.artifact:
         pathlib.Path(args.artifact).write_text(json.dumps({
             "config": {"scene": pathlib.Path(args.scene).name,
                        "width": args.width, "height": args.height,
                        "bounces": args.bounces, "reps": args.reps},
-            "card": b.card, "backend": b.dev.type, "rows": rows},
+            "card": card, "backend": backend, "rows": rows},
             indent=1) + "\n")
-    return 1 if b.failed else 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -6,8 +6,7 @@ both sides agree). A mismatch is allowed only on the reference image's
 discontinuities (`discontinuity_mask`, the mask of
 tests/test_device_renderer.py), and on at most EDGE_BUDGET of those
 pixels (EDGE_BUDGET_SUBDIVIDED for subdivided meshes): float rounding may
-flip a knife-edge winner there. Used by chip_smoke.py and
-cutrace_tpu_torch.bench.
+flip a knife-edge winner there. Used by chip_smoke.py.
 """
 
 from __future__ import annotations

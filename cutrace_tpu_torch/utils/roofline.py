@@ -5,8 +5,8 @@ A bound is max(bytes / PEAK_BYTES, operations / PEAK_F32) for the work of
 one launch: every input read once and every output written once, and the
 operations these inputs need (counted from the CUDA sources, per unit of
 work the kernel's tally or the topology codes count). A kernel's share of
-its bound is bound / measured time. Used by chip_smoke.py and
-cutrace_tpu_torch.bench.
+its bound is bound / measured time. Used by chip_smoke.py, and by
+cutrace_tpu_torch.parallel.multihost for `tally_of`.
 """
 
 from __future__ import annotations

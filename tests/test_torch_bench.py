@@ -1,10 +1,10 @@
-"""The port's bench (cutrace_tpu_torch.bench) and inverse-rendering
-example (cutrace_tpu_torch.inverse_rendering) on the CPU at tiny sizes:
-the bench's lines, their order, fields and checks, and the example's two
-fits against the JAX package's fit with the example's arguments."""
+"""The port's command-line tools on the CPU: the inverse-rendering
+example (cutrace_tpu_torch.inverse_rendering) at a tiny size, its two fits
+against the JAX package's fit with the example's arguments; the example
+and the big-scene timer refusing to run without a card; and the spread
+(utils.profiling.spread) that the scaling sweep's lines carry."""
 
 import dataclasses
-import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,89 +17,16 @@ from cutrace_tpu.parallel import make_mesh
 from cutrace_tpu.parallel.train import fit as jax_fit
 from cutrace_tpu.scene.loader import load_scene
 from cutrace_tpu.scene.soa import scene_to_soa as jax_soa
-from cutrace_tpu_torch import bench
+from cutrace_tpu_torch import bigscene
 from cutrace_tpu_torch import inverse_rendering as ir
-from cutrace_tpu_torch.utils.profiling import casts_per_pixel, spread
+from cutrace_tpu_torch.utils.profiling import spread
 
 torch.set_num_threads(2)
 
-TINY = ["--device", "cpu", "--size", "16x9", "--bounces", "1", "--reps",
-        "2", "--levels", "1"]
-# the lines of a --levels 1 run, in order; the names of the full run but
-# for the one bigscene level (4k)
-LINES = ("probe", "frame/mirror_1080p_b5", "frame/sphere_plane_1080p_b5",
-         "frame/bunny_1080p_b5_pallas", "bigscene/4k_960x540_b5",
-         "bunny_1080p_grad_step", "sphere_plane_1080p_grad_step",
-         "step/bunny_256k_960x540_b5", "fit/inverse_rendering_example",
-         "kernel/K1", "kernel/K1_topo", "kernel/K2", "kernel/K3",
-         "kernel/K4", "bunny_1080p_ray_casts")
-FIELDS = ("metric", "value", "unit", "median", "percentile", "n",
-          "correct", "backend", "card", "seconds")
 
-
-def _lines(capsys):
-    out = capsys.readouterr().out
-    return [json.loads(ln) for ln in out.splitlines() if ln.strip()]
-
-
-def test_bench_lines_on_the_cpu(capsys):
-    """Every line of the bench, in order and parseable, each with its
-    fields, on the CPU and passing its check; kernel times "not
-    measured"; Mcasts/s the pixels' casts over the median frame; the
-    headline last."""
-    assert bench.main(TINY, fit_steps=(2, 2)) == 0
-    rows = _lines(capsys)
-    assert tuple(r["metric"] for r in rows) == LINES
-    for r in rows:
-        assert set(FIELDS) <= set(r), r["metric"]
-        assert r["backend"] == "cpu" and r["card"] is None, r["metric"]
-        assert r["correct"] is True, r
-        assert r["seconds"] > 0
-    by = {r["metric"]: r for r in rows}
-    for name in LINES:
-        if name.startswith("kernel/"):
-            r = by[name]
-            assert r["value"] == r["median"] == r["share"] == "not measured"
-            assert r["n"] == 0
-    # K2's bound needs no card: it is read off the codes
-    assert by["kernel/K2"]["bound_ms"] > 0
-    assert by["probe"]["value"] == "not measured"
-    for name in ("frame/mirror_1080p_b5", "frame/sphere_plane_1080p_b5",
-                 "frame/bunny_1080p_b5_pallas", "bigscene/4k_960x540_b5",
-                 "bunny_1080p_ray_casts"):
-        r = by[name]
-        assert r["n"] == 2 and r["percentile"] is None
-        assert r["size"] == "16x9" and r["bounces"] == 1
-        assert r["mcasts_per_s"] == pytest.approx(
-            16 * 9 * r["casts_per_pixel"] / r["median"] / 1e3)
-        assert r["equals_render_eager"] and r["finite"]
-    head = rows[-1]
-    assert head["unit"] == "Mcasts/s" and head["sample_unit"] == "ms"
-    assert head["value"] == head["mcasts_per_s"]
-    assert head["gate"]["passes"]
-    for name in ("bunny_1080p_grad_step", "sphere_plane_1080p_grad_step",
-                 "step/bunny_256k_960x540_b5"):
-        r = by[name]
-        assert r["unit"] == "s/step" and r["backward"] == "k2"
-        assert r["groups"] == 19 and r["grads_bit_equal"] and r["finite"]
-        assert len(r["first_calls_ms"]) == 3
-    fit = by["fit/inverse_rendering_example"]
-    assert fit["steps"] == [2, 2] and fit["n"] == 2
-    assert fit["color_loss"][1] < fit["color_loss"][0]
-    assert fit["camera_loss"][1] < fit["camera_loss"][0]
-
-
-def test_bench_exits_1_after_a_failed_check(capsys, monkeypatch):
-    """A line whose check fails is printed with correct false, and the
-    run goes on to exit 1."""
-    monkeypatch.setattr(bench, "_frames_equal", lambda a, b: False)
-    assert bench.main(TINY + ["--only", "probe", "frames"]) == 1
-    rows = _lines(capsys)
-    assert [r["correct"] for r in rows] == [True, False, False]
-
-
-@pytest.mark.parametrize("entry", [bench.main, ir.main])
-def test_bench_and_example_need_the_card(entry, monkeypatch):
+@pytest.mark.parametrize("entry", [ir.main, bigscene.main],
+                         ids=["inverse_rendering", "bigscene"])
+def test_tools_need_the_card(entry, monkeypatch):
     """Without a card and without --device cpu they stop; they never run
     on the CPU by themselves."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -142,16 +142,12 @@ def test_port_never_loads_jax():
     assert "LOADED []" in proc.stdout
 
 
-def test_bench_and_example_never_load_jax():
-    """The port's bench (every group, tiny) and the inverse-rendering
-    example run on the CPU in one process without loading jax or the JAX
-    package (cutrace_tpu)."""
+def test_example_never_loads_jax():
+    """The inverse-rendering example runs on the CPU in a process that
+    loads neither jax nor the JAX package (cutrace_tpu)."""
     code = (
         "import sys\n"
-        "from cutrace_tpu_torch import bench, inverse_rendering\n"
-        "assert bench.main(['--device', 'cpu', '--size', '8x6', "
-        "'--bounces', '1', '--reps', '2', '--levels', '1'], "
-        "fit_steps=(2, 2)) == 0\n"
+        "from cutrace_tpu_torch import inverse_rendering\n"
         "assert inverse_rendering.main(['--device', 'cpu', '--width', '8', "
         "'--height', '6', '--steps', '2'], camera_steps=2) == 0\n"
         "loaded = sorted(m for m in sys.modules\n"
@@ -163,7 +159,6 @@ def test_bench_and_example_never_load_jax():
                           text=True, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
-    assert '"metric": "bunny_1080p_ray_casts"' in proc.stdout
     assert "eye error" in proc.stdout
 
 

@@ -131,7 +131,7 @@ def test_no_cutrace_tpu_import_in_the_port():
     assert len(files) >= 20
     for name in ("sharding.py", "multihost.py", "train.py"):
         assert REPO / "cutrace_tpu_torch" / "parallel" / name in files
-    for name in ("bench.py", "inverse_rendering.py", "utils/roofline.py",
+    for name in ("inverse_rendering.py", "utils/roofline.py",
                  "utils/gates.py", "scaling.py", "compare_fits.py",
                  "utils/subprocs.py"):
         assert REPO / "cutrace_tpu_torch" / name in files

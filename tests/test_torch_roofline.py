@@ -1,7 +1,7 @@
 """The roofline bounds and the forward gate (cutrace_tpu_torch.utils.
-roofline, utils.gates), shared by chip_smoke.py and the port's bench:
-chip_smoke.py takes them from the package, and each bound is the formula
-written out here on CPU tables and a hand-made tally."""
+roofline, utils.gates): chip_smoke.py takes them from the package, and
+each bound is the formula written out here on CPU tables and a hand-made
+tally."""
 
 import importlib.util
 import pathlib

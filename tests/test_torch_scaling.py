@@ -1,7 +1,7 @@
 """The port's scaling sweep (cutrace_tpu_torch.scaling, the counterpart of
 benchmarks/scaling.py) on the CPU: two gloo meshes of bunny 16x9 b1 in
-torchrun subprocesses, one line a mesh size in the bench's format, and
-the rules that turn multihost's lines into them."""
+torchrun subprocesses, one line a mesh size in scaling.line's format,
+and the rules that turn multihost's lines into them."""
 
 import json
 import pathlib
@@ -17,9 +17,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 ARGS = ("--device", "cpu", "--devices", "2", "--width", "16", "--height",
         "9", "--bounces", "1", "--reps", "2")
 TAG = "scaling/bunny_16x9_b1"
-# the bench's fields (cutrace_tpu_torch.bench.Bench.line)
-BENCH_FIELDS = ("metric", "value", "unit", "median", "percentile", "n",
-                "sample_unit", "correct", "backend", "card", "seconds")
+# the fields of a line (cutrace_tpu_torch.scaling.line)
+LINE_FIELDS = ("metric", "value", "unit", "median", "percentile", "n",
+               "sample_unit", "correct", "backend", "card", "seconds")
 SWEEP_TIMEOUT = 300
 
 
@@ -34,13 +34,13 @@ def lines():
 
 
 def test_scaling_cpu_lines(lines):
-    """Two mesh lines and the efficiency line, every field of the bench's
-    format present, on the CPU, correct, no pixel off one rank's render,
-    the kernels' work not measured."""
+    """Two mesh lines and the efficiency line, every field of a line
+    present, on the CPU, correct, no pixel off one rank's render, the
+    kernels' work not measured."""
     assert [r["metric"] for r in lines] == [
         f"{TAG}/devices1", f"{TAG}/devices2", f"{TAG}/efficiency"]
     for r in lines:
-        assert all(k in r for k in BENCH_FIELDS), r
+        assert all(k in r for k in LINE_FIELDS), r
         assert r["backend"] == "cpu" and r["card"] is None
         assert r["correct"] is True
     for n, r in enumerate(lines[:2], 1):
