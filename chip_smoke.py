@@ -24,7 +24,9 @@ line) if any phase fails:
              the first call of each is held to the parity gate at that
              size too; K1's global-memory instance on the same rays (the
              size rule overridden for that timing alone) between two
-             timings of the shared-memory one
+             timings of the shared-memory one; K1's tally, its root skips
+             split by the tally of the frame without lights (the same
+             nearest casts, no occlusion query)
   5. main    `python -m cutrace_tpu_torch scenes/bunny.json` (cli.main) at
              1920x1080 b5: three non-empty JPEGs, the forward kernel's
              launch count grew, and a library render is finite
@@ -344,16 +346,30 @@ def bound_text(b):
 
 
 def tally_text(tally):
-    casts, visits, slabs, needed, sub_slabs, groups = (
+    casts, visits, slabs, needed, sub_slabs, groups, root_skips = (
         int(x) for x in tally.tolist())
     n = max(casts, 1)
     text = (f"casts {casts}, a cast: slab tests {slabs / n:.2f}, admitted "
             f"visits {visits / n:.3f}, needed visits {needed / n:.3f}")
+    if root_skips:
+        text += f", root skips {root_skips / n:.3f}"
     if sub_slabs:
         text += (f", sub-box tests {sub_slabs / n:.2f}, groups scanned "
                  f"{groups / n:.3f} ({groups / max(visits, 1):.3f} an "
                  f"admitted visit), slot tests {groups * 32 / n:.2f}")
     return text
+
+
+def root_split_text(tally, near):
+    """K1's root skips a cast, split between nearest casts and occlusion
+    queries: `near` is the tally of the same frame without its lights,
+    which casts the same nearest rays and asks no occlusion query."""
+    casts, skips = int(tally[0]), int(tally[6])
+    n_casts, n_skips = int(near[0]), int(near[6])
+    q_casts, q_skips = casts - n_casts, skips - n_skips
+    return (f"root skips a nearest cast {n_skips / max(n_casts, 1):.3f} "
+            f"({n_casts} casts), an occlusion query "
+            f"{q_skips / max(q_casts, 1):.3f} ({q_casts} queries)")
 
 
 def resources_text(res):
@@ -2842,6 +2858,9 @@ def main(argv=None) -> int:
         rec["plain_ms"] = min(plain_ms)
         tally = tally_of(lambda t: fused._fused_forward_cuda(
             soa, main_prepared.tables, o, d, 1e-3, 5, tally=t))
+        near = tally_of(lambda t: fused._fused_forward_cuda(
+            dataclasses.replace(soa, n_lights=0), main_prepared.tables, o,
+            d, 1e-3, 5, tally=t))
         rec["bound"] = forward_bound(soa, accel, main_prepared.tables,
                                      o.shape[0], tally, 0)
         shared = fused.k1_instance(soa, main_prepared.tables)
@@ -2870,6 +2889,7 @@ def main(argv=None) -> int:
               f"global-memory instance {rec['kernel_global_ms']:.3f} ms "
               f"(max |difference| {diff:.2e}), plain {plain_ms[0]:.3f} / "
               f"{plain_ms[1]:.3f} ms; {tally_text(tally)}; "
+              f"{root_split_text(tally, near)}; "
               + bound_text(rec["bound"]) + "; "
               + resources_text(rec["k1_resources"]) + f" ({smi})")
 

@@ -48,6 +48,33 @@
 // only admits more than an exact cull of the groups would, so K1's
 // winners stay the flat loop's (t, key) minimum. K4 visits whole
 // clusters.
+//
+// K1's flat loop first tests the root box: per axis the least and the
+// greatest bound of the M cluster boxes (both corners of each, so a box
+// whose low exceeds its high counts too), NaN on an axis where any box
+// has a NaN, in float32 and not widened (root_box, once a block). The
+// slab test of the root box admits whatever the slab test of any cluster
+// box admits, at an entry no later:
+//   * on an axis the root gives no NaN, each cluster bound x lies in
+//     [lo, hi] of the root's, and (x - o) * inv, each step rounded, is
+//     monotone in x, so the root's interval on that axis holds the
+//     cluster's. A cluster bound that makes a NaN there (the cluster
+//     then unbounded on that axis) does so by 0 * inf: x = o on an axis
+//     the ray parallels, and then lo < o < hi (a root bound equal to o
+//     would make its own NaN), so the root's interval is [-inf, inf],
+//     no narrower after the clamp at 0; or x - o = +-inf with inv = 0,
+//     and then the root's bound on that side gives the same infinity,
+//     so a NaN;
+//   * on an axis the root gives a NaN, the root is unbounded there.
+// So the root's entry is <= and its exit >= each cluster's. A lane whose
+// ray misses the root box, or enters it past its cull, is admitted by no
+// cluster: it tests no cluster box and takes part in the warp's votes
+// with nothing admitted, and a warp with no lane in the root box leaves
+// the loop at once. Winners, outputs and topology codes are the loop's
+// without the root test, bit for bit, with no widening margin. K3 starts
+// its walk at the tree's (widened) root instead; K4 tests no root box
+// (Clusters.root null). An empty cluster's box, the far point of ops/bvh.py
+// _FAR, stretches the root out to that point: still exact, less culled.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,19 +120,35 @@ __device__ __forceinline__ float norm3(V3 a) { return sqrtf(dot3(a, a)); }
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
 
 // Work counts of one thread: casts (nearest or any-hit queries), the
-// (ray, cluster) visits their culls admitted, the slab tests done (cluster
-// or tree boxes), when `count_needed` the visits the casts need whatever
-// the traversal (needed_visits), and in the group culls (K1, K3) the
-// group box tests of the admitted visits and the groups whose slots were
-// tested (0 in K4).
+// (ray, cluster) visits their culls admitted, the slab tests done (root,
+// cluster or tree boxes), when `count_needed` the visits the casts need
+// whatever the traversal (needed_visits), in the group culls (K1, K3)
+// the group box tests of the admitted visits and the groups whose slots
+// were tested (0 in K4), and in K1 the casts whose ray failed the root
+// box test and so tested no cluster box (0 in K3 and K4).
 struct Tally {
   unsigned long long casts = 0, visits = 0, slabs = 0, needed = 0;
-  unsigned long long sub_slabs = 0, groups = 0;
+  unsigned long long sub_slabs = 0, groups = 0, root_skips = 0;
   bool count_needed = false;
 };
 
 // The tally's counts (ops/pallas_cast.py TALLY_COUNTS).
-constexpr int kTallyCounts = 6;
+constexpr int kTallyCounts = 7;
+
+// The counts of a launch without a tally (K1's kernels): each += compiles
+// to nothing, so the kernel holds no counters.
+struct NoCount {
+  __device__ __forceinline__ NoCount& operator+=(unsigned long long) {
+    return *this;
+  }
+};
+struct NoTally {
+  NoCount casts, visits, slabs, needed, sub_slabs, groups, root_skips;
+  static constexpr bool count_needed = false;
+};
+
+__device__ __forceinline__ void flush_tally(unsigned long long*,
+                                            const NoTally&) {}
 
 __device__ __forceinline__ void flush_tally(unsigned long long* out,
                                             const Tally& tl) {
@@ -116,6 +159,7 @@ __device__ __forceinline__ void flush_tally(unsigned long long* out,
   atomicAdd(out + 3, tl.needed);
   atomicAdd(out + 4, tl.sub_slabs);
   atomicAdd(out + 5, tl.groups);
+  atomicAdd(out + 6, tl.root_skips);
 }
 
 // Slab entry of a ray against one box (rows bmin xyz, bmax xyz, read as
@@ -214,15 +258,60 @@ __device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 nd,
 // power of two >= M, node n at row n (row 1 the root, rows L..L+M-1 the
 // clusters), null for the flat loop; (M, G, kAabbRows) widened sub-boxes,
 // G = ceil(C / kSubSlots), box g over slots kSubSlots g onwards, for the
-// group culls (K1, K3), null otherwise (K4). Slot offsets are size_t: a
-// 1M-triangle table holds 25M floats.
+// group culls (K1, K3), null otherwise (K4); one kAabbRows root box over
+// the cluster boxes (root_box, in shared memory) for K1's flat loop, null
+// otherwise (K3, K4). Slot offsets are size_t: a 1M-triangle table holds
+// 25M floats.
 struct Clusters {
   const float* tri;
   const float* aabb;
   const float* tree;
   int m, c, leaves;
   const float* sub;
+  const float* root;
 };
+
+// The lesser / greater of two floats, NaN if either is (fminf and fmaxf
+// drop a NaN).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+// The root box of the m <= 32 cluster boxes at `aabb` (K1's partitions;
+// see the note at the top) into root[0..kAabbRows), by the 32 lanes of
+// one warp: lane mi takes box mi, then shuffles fold the lanes.
+__device__ __forceinline__ void root_box(const float* aabb, int m,
+                                         float* root) {
+  const int lane = threadIdx.x & 31;
+  float lo[3] = {INFINITY, INFINITY, INFINITY};
+  float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  if (lane < m) {
+    const float* box = aabb + (size_t)lane * kAabbRows;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = nan_min(box[a], box[3 + a]);
+      hi[a] = nan_max(box[a], box[3 + a]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    for (int off = 16; off > 0; off >>= 1) {
+      lo[a] = nan_min(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+      hi[a] = nan_max(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      root[a] = lo[a];
+      root[3 + a] = hi[a];
+    }
+    root[6] = root[7] = 0.0f;
+  }
+}
 
 // Groups of a cluster's slots, each under one sub-box.
 __device__ __forceinline__ int sub_groups(const Clusters& cl) {
@@ -641,24 +730,33 @@ __device__ __forceinline__ bool visit_any_sub(const Clusters& cl, int mi,
 
 // The flat loop: the nearest triangle with t > mind over every cluster
 // in index order, each lane culling against min(bound, its best t). With
-// kSub (K1) an admitted cluster's groups are culled the same way, one
-// after another, and each admitted group's slots visited, in turn or
-// together by the count; else (K4) the cluster's C slots are, in turn.
-template <bool kSub>
+// kSub (K1) the root box goes first (see the note at the top), and an
+// admitted cluster's groups are culled the same way, one after another,
+// and each admitted group's slots visited, in turn or together by the
+// count; else (K4) the cluster's C slots are, in turn. T: Tally or NoTally.
+template <bool kSub, class T>
 __device__ __forceinline__ void nearest_triangle_flat(const Clusters& cl,
                                                       V3 o, V3 d, float mind,
                                                       float bound,
-                                                      TriWinner& b,
-                                                      Tally& tl) {
+                                                      TriWinner& b, T& tl) {
   const unsigned mask = __activemask();
-  const V3 w = cross_do(d, o);
   const V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
   float entry;
-  for (int mi = 0; mi < cl.m; ++mi) {
+  bool out = false;  // outside the root box: no cluster admits the ray
+  if (kSub) {
     tl.slabs += 1;
-    const bool mine = slab(cl.aabb + (size_t)mi * kAabbRows, o, inv,
-                           &entry) &&
-                      entry <= fminf(bound, b.t);
+    out = !(slab(cl.root, o, inv, &entry) && entry <= fminf(bound, b.t));
+    if (out) tl.root_skips += 1;
+    if (__all_sync(mask, out)) return;
+  }
+  const V3 w = cross_do(d, o);
+  for (int mi = 0; mi < cl.m; ++mi) {
+    bool mine = false;
+    if (!out) {
+      tl.slabs += 1;
+      mine = slab(cl.aabb + (size_t)mi * kAabbRows, o, inv, &entry) &&
+             entry <= fminf(bound, b.t);
+    }
     if (!__any_sync(mask, mine)) continue;
     if (mine) tl.visits += 1;
     if (!kSub) {
@@ -683,26 +781,32 @@ __device__ __forceinline__ void nearest_triangle_flat(const Clusters& cl,
   }
 }
 
-// K1's occlusion query: any triangle with mind < t < ldist, cluster and
-// group boxes entered at or beyond ldist skipped; a lane stops visiting
-// once it has a hit.
+// K1's occlusion query: any triangle with mind < t < ldist, the root,
+// cluster and group boxes entered at or beyond ldist skipped; a lane
+// stops visiting once it has a hit.
+template <class T>
 __device__ __forceinline__ bool any_triangle_flat(const Clusters& cl, V3 o,
                                                   V3 d, float mind,
-                                                  float ldist, Tally& tl) {
+                                                  float ldist, T& tl) {
   const unsigned mask = __activemask();
-  const V3 w = cross_do(d, o);
   const V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
   float entry;
+  tl.slabs += 1;
+  // outside the root box: no cluster admits the ray
+  const bool out = !(slab(cl.root, o, inv, &entry) && entry < ldist);
+  if (out) tl.root_skips += 1;
+  if (__all_sync(mask, out)) return false;
+  const V3 w = cross_do(d, o);
   bool found = false;
   for (int mi = 0; mi < cl.m; ++mi) {
     bool mine = false;
-    if (!found) {
+    if (!found && !out) {
       tl.slabs += 1;
       mine = slab(cl.aabb + (size_t)mi * kAabbRows, o, inv, &entry) &&
              entry < ldist;
     }
     if (!__any_sync(mask, mine)) {
-      if (__all_sync(mask, found)) break;
+      if (__all_sync(mask, found || out)) break;
       continue;
     }
     if (mine) tl.visits += 1;

@@ -102,7 +102,7 @@ cluster_cast_kernel(const float* __restrict__ rays, Clusters cl,
 // refused (cudaErrorInvalidValue). t_out receives +inf and ord_out 2^30
 // where no triangle is hit. `tally` (kTallyCounts x u64, zeroed by the
 // caller, may be null) receives the casts, admitted cluster visits, slab
-// tests and needed visits; the sub-box counts stay 0.
+// tests and needed visits; the sub-box counts and root skips stay 0.
 extern "C" int cutrace_cluster_cast(const float* rays, const float* tri,
                                     const float* aabb, const float* tree,
                                     float* t_out, int* ord_out, int n_rays,

@@ -20,7 +20,11 @@
 //       - the global-memory instance, for partitions whose rows do not fit
 //         in a block's shared memory (C = 128 with M up to 32 is about
 //         398 KB), reads the tables through L1/L2.
-//     In both, the lanes of a warp walk the clusters in the same index
+//     In both, a block first folds the cluster boxes into one root box
+//     in shared memory (csrc/cast.cuh root_box), and a cast tests it
+//     before the loop: a warp none of whose rays enters it skips the
+//     loop, and no ray outside it tests a cluster box. Then the lanes of
+//     a warp walk the clusters in the same index
 //     order, each culling against its own best t, and below an admitted
 //     cluster its groups of 32 slots (C / 32 = 2 or 4 a cluster, the
 //     slots ordered so that each group is compact) against their boxes,
@@ -88,8 +92,13 @@
 // light), whatever order visits them. An optional tally counts casts,
 // admitted visits, slab tests and those needed visits (a post-pass per
 // cast over the unwidened cluster boxes, run only with a tally), from
-// which chip_smoke.py computes that bound, and the sub-box tests and the
-// groups whose slots were tested.
+// which chip_smoke.py computes that bound, the sub-box tests, the
+// groups whose slots were tested and K1's casts that failed the root
+// box test. K1 runs a launch with a tally through a second kernel of its
+// instance that counts (fused_forward_*_tally_kernel), the same cull; its
+// kernels for launches without one hold no counters (NoTally).
+
+#include <type_traits>
 
 #include "cast.cuh"
 
@@ -137,9 +146,8 @@ struct Topo {
 
 // Nearest hit over all kinds. Planes and spheres go first: their best t
 // bounds which clusters are worth visiting.
-template <bool kTree>
-__device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
-                            Tally& tl) {
+template <bool kTree, class T>
+__device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind, T& tl) {
   V3 nd;
   {
     float dl = norm3(d);
@@ -175,7 +183,7 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
 
   TriWinner b;
   tl.casts += 1;
-  if (kTree)
+  if constexpr (kTree)
     walk_tree<false, false, true>(s.cl, o, d, mind, bound, b, tl);
   else
     nearest_triangle_flat<true>(s.cl, o, d, mind, bound, b, tl);
@@ -195,9 +203,9 @@ __device__ Hit cast_nearest(const Scene& s, V3 o, V3 d, float mind,
 }
 
 // Any hit closer than ldist (opaque shadow query).
-template <bool kTree>
+template <bool kTree, class T>
 __device__ bool occluded_any(const Scene& s, V3 o, V3 d, float mind,
-                             float ldist, Tally& tl) {
+                             float ldist, T& tl) {
   for (int i = 0; i < s.n_planes; ++i)
     if (plane_t(s.planes + i * kPsRows, o, d, mind) < ldist) return true;
   if (s.n_spheres > 0) {
@@ -206,15 +214,17 @@ __device__ bool occluded_any(const Scene& s, V3 o, V3 d, float mind,
     for (int i = 0; i < s.n_spheres; ++i)
       if (sphere_t(s.spheres + i * kPsRows, o, nd, mind) < ldist) return true;
   }
-  TriWinner unused;
-  return kTree ? walk_tree<true, false, true>(s.cl, o, d, mind, ldist, unused,
-                                             tl)
-               : any_triangle_flat(s.cl, o, d, mind, ldist, tl);
+  if constexpr (kTree) {
+    TriWinner unused;
+    return walk_tree<true, false, true>(s.cl, o, d, mind, ldist, unused, tl);
+  } else {
+    return any_triangle_flat(s.cl, o, d, mind, ldist, tl);
+  }
 }
 
-template <bool kTree>
+template <bool kTree, class T>
 __device__ bool occluded(const Scene& s, V3 o, V3 d, float mind,
-                         float ldist, Tally& tl) {
+                         float ldist, T& tl) {
   tl.casts += 1;
   const bool hit = occluded_any<kTree>(s, o, d, mind, ldist, tl);
   if (tl.count_needed)
@@ -251,10 +261,10 @@ struct Shaded {
 };
 
 // `row` is the node's cast row in the code buffer (ignored without one).
-template <bool kTree>
+template <bool kTree, class T>
 __device__ Shaded shade_node(const Scene& s, V3 o, V3 d, float mind,
                              float ambient, int shadow_steps, bool opaque,
-                             const Topo& tp, int row, Tally& tl) {
+                             const Topo& tp, int row, T& tl) {
   Hit h = cast_nearest<kTree>(s, o, d, mind, tl);
   const int per_light = opaque ? 1 : shadow_steps;
   if (tp.codes) tp.codes[(size_t)row * tp.stride] = hit_code(s, tp, h);
@@ -371,11 +381,11 @@ __device__ __forceinline__ int subtree_nodes(int level, int bounces,
 
 // One ray through the bounce tree: color into out[i, 0:3], the primary
 // cast's depth and normal into out[i, 3:7].
-template <bool kTree>
+template <bool kTree, class T>
 __device__ __forceinline__ void trace_ray(
     int i, const float* __restrict__ rays, const Scene& s, float ambient,
     float* __restrict__ out, int bounces, int shadow_steps, bool any_refl,
-    bool any_transp, float fudge, Topo tp, Tally& tl) {
+    bool any_transp, float fudge, Topo tp, T& tl) {
   const float* ray = rays + (size_t)i * 8;
   const bool opaque = !any_transp;
   const bool branches = any_refl || any_transp;
@@ -454,8 +464,42 @@ __device__ __forceinline__ void trace_ray(
   q[2] = color.z;
 }
 
-// K1's global-memory instance (kTree false) and K3 (kTree true): one ray a
-// thread, tables read from global memory.
+// A launch with a tally counts into a Tally; K1's launches without one
+// run kernels that count into a NoTally, so they hold no counters.
+__device__ __forceinline__ void begin_tally(Tally& tl,
+                                            const unsigned long long* tally) {
+  tl.count_needed = tally != nullptr;
+}
+__device__ __forceinline__ void begin_tally(NoTally&,
+                                            const unsigned long long*) {}
+
+// One ray a thread, tables read from global memory: K1's global-memory
+// instance (kTree false) and K3 (kTree true), counting into T. K1's root
+// box sits in shared memory, folded by the first warp of each block.
+template <bool kTree, class T>
+__device__ __forceinline__ void forward_global(
+    const float* __restrict__ rays, Scene s,
+    const float* __restrict__ ambient_p, float* __restrict__ out, int n_rays,
+    int bounces, int shadow_steps, bool any_refl, bool any_transp,
+    float fudge, Topo tp, unsigned long long* __restrict__ tally) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (!kTree) {
+    __shared__ float4 root[kAabbRows / 4];
+    if (threadIdx.x < 32)
+      root_box(s.cl.aabb, s.cl.m, reinterpret_cast<float*>(root));
+    __syncthreads();
+    s.cl.root = reinterpret_cast<const float*>(root);
+  }
+  if (i >= n_rays) return;
+  T tl;
+  begin_tally(tl, tally);
+  trace_ray<kTree>(i, rays, s, *ambient_p, out, bounces, shadow_steps,
+                   any_refl, any_transp, fudge, tp, tl);
+  flush_tally(tally, tl);
+}
+
+// K1's global-memory instance without a tally (kTree false) and K3, with
+// or without one (kTree true).
 template <bool kTree>
 __global__ void __launch_bounds__(kBlock)
 fused_forward_kernel(const float* __restrict__ rays, Scene s,
@@ -464,13 +508,24 @@ fused_forward_kernel(const float* __restrict__ rays, Scene s,
                      int shadow_steps, bool any_refl, bool any_transp,
                      float fudge, Topo tp,
                      unsigned long long* __restrict__ tally) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  Tally tl;
-  tl.count_needed = tally != nullptr;
-  trace_ray<kTree>(i, rays, s, *ambient_p, out, bounces, shadow_steps,
-                   any_refl, any_transp, fudge, tp, tl);
-  flush_tally(tally, tl);
+  using T = typename std::conditional<kTree, Tally, NoTally>::type;
+  forward_global<kTree, T>(rays, s, ambient_p, out, n_rays, bounces,
+                           shadow_steps, any_refl, any_transp, fudge, tp,
+                           tally);
+}
+
+// K1's global-memory instance with a tally.
+__global__ void __launch_bounds__(kBlock)
+fused_forward_global_tally_kernel(const float* __restrict__ rays, Scene s,
+                                  const float* __restrict__ ambient_p,
+                                  float* __restrict__ out, int n_rays,
+                                  int bounces, int shadow_steps,
+                                  bool any_refl, bool any_transp, float fudge,
+                                  Topo tp,
+                                  unsigned long long* __restrict__ tally) {
+  forward_global<false, Tally>(rays, s, ambient_p, out, n_rays, bounces,
+                               shadow_steps, any_refl, any_transp, fudge, tp,
+                               tally);
 }
 
 // Copy n_floats (a multiple of 4) from global to shared memory in 16-byte
@@ -487,29 +542,29 @@ __device__ __forceinline__ float* stage(float* dst, const float* src,
   return dst + n_floats;
 }
 
-// The floats K1's shared-memory instance stages (ops/fused.py
-// k1_shared_bytes counts the same).
+// The floats K1's shared-memory instance holds: what it stages and the
+// root box (ops/fused.py k1_shared_bytes counts the same).
 __host__ __device__ __forceinline__ size_t shared_floats(
     int m, int c, int n_planes, int n_spheres, int n_mats, int n_lights) {
   const int groups = (c + kSubSlots - 1) / kSubSlots;
   return (size_t)m * c * kTriRows + (size_t)m * kAabbRows +
-         (size_t)m * groups * kAabbRows +
+         (size_t)m * groups * kAabbRows + kAabbRows +
          (size_t)(n_planes + n_spheres) * kPsRows + (size_t)n_mats * kMatRows +
          (size_t)n_lights * kLightRows;
 }
 
 // K1's shared-memory instance: persistent blocks, the scene staged once
-// per block; then each warp takes the next 32 rays from a counter
-// (`next_chunk`, zeroed by the caller) until none are left, so warps that
-// draw cheap rays (misses) take more of them.
-__global__ void __launch_bounds__(kSmemBlock, 2)
-fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
-                            const float* __restrict__ ambient_p,
-                            float* __restrict__ out, int n_rays, int bounces,
-                            int shadow_steps, bool any_refl, bool any_transp,
-                            float fudge, Topo tp,
-                            unsigned long long* __restrict__ tally,
-                            int* __restrict__ next_chunk) {
+// per block and the root box folded from the staged cluster boxes; then
+// each warp takes the next 32 rays from a counter (`next_chunk`, zeroed
+// by the caller) until none are left, so warps that draw cheap rays
+// (misses) take more of them. Counts into T.
+template <class T>
+__device__ __forceinline__ void forward_shared(
+    const float* __restrict__ rays, const Scene& s,
+    const float* __restrict__ ambient_p, float* __restrict__ out, int n_rays,
+    int bounces, int shadow_steps, bool any_refl, bool any_transp,
+    float fudge, Topo tp, unsigned long long* __restrict__ tally,
+    int* __restrict__ next_chunk) {
   extern __shared__ float4 smem4[];
   float* p = reinterpret_cast<float*>(smem4);
   Scene ss = s;
@@ -519,6 +574,9 @@ fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
   p = stage(p, s.cl.aabb, s.cl.m * kAabbRows);
   ss.cl.sub = p;
   p = stage(p, s.cl.sub, s.cl.m * sub_groups(s.cl) * kAabbRows);
+  float* root = p;  // folded below, once the boxes are staged
+  ss.cl.root = root;
+  p += kAabbRows;
   ss.planes = p;
   p = stage(p, s.planes, s.n_planes * kPsRows);
   ss.spheres = p;
@@ -530,10 +588,12 @@ fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+  if (threadIdx.x < 32) root_box(ss.cl.aabb, ss.cl.m, root);
+  __syncthreads();
 
   const float ambient = *ambient_p;
-  Tally tl;
-  tl.count_needed = tally != nullptr;
+  T tl;
+  begin_tally(tl, tally);
   const int lane = threadIdx.x & 31;
   const int n_chunks = (n_rays + 31) / 32;
   while (true) {
@@ -547,6 +607,34 @@ fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
                        any_refl, any_transp, fudge, tp, tl);
   }
   flush_tally(tally, tl);
+}
+
+// K1's shared-memory instance without a tally, and with one.
+__global__ void __launch_bounds__(kSmemBlock, 2)
+fused_forward_shared_kernel(const float* __restrict__ rays, Scene s,
+                            const float* __restrict__ ambient_p,
+                            float* __restrict__ out, int n_rays, int bounces,
+                            int shadow_steps, bool any_refl, bool any_transp,
+                            float fudge, Topo tp,
+                            unsigned long long* __restrict__ tally,
+                            int* __restrict__ next_chunk) {
+  forward_shared<NoTally>(rays, s, ambient_p, out, n_rays, bounces,
+                          shadow_steps, any_refl, any_transp, fudge, tp,
+                          tally, next_chunk);
+}
+
+__global__ void __launch_bounds__(kSmemBlock, 2)
+fused_forward_shared_tally_kernel(const float* __restrict__ rays, Scene s,
+                                  const float* __restrict__ ambient_p,
+                                  float* __restrict__ out, int n_rays,
+                                  int bounces, int shadow_steps,
+                                  bool any_refl, bool any_transp, float fudge,
+                                  Topo tp,
+                                  unsigned long long* __restrict__ tally,
+                                  int* __restrict__ next_chunk) {
+  forward_shared<Tally>(rays, s, ambient_p, out, n_rays, bounces,
+                        shadow_steps, any_refl, any_transp, fudge, tp, tally,
+                        next_chunk);
 }
 
 }  // namespace
@@ -571,12 +659,12 @@ extern "C" int cutrace_shared_limit(int* bytes) {
 // receives the topology codes, with t_cnt and p_cnt the padded triangle
 // and plane leaf lengths; `tally` (kTallyCounts x u64, zeroed by the
 // caller) receives the casts, admitted cluster visits, slab tests, needed
-// visits, sub-box tests and groups scanned. Either may be null. `tree`
-// holds K3's (2 * leaves, 8) tree boxes and `sub` the (m, ceil(c / 32), 8)
-// group boxes every instance tests (a launch without them, or K3 without
-// a tree or with more than 32 groups a cluster, is refused); `next_chunk`
-// (one int, zeroed by the caller) is the shared-memory instance's work
-// counter.
+// visits, sub-box tests, groups scanned and root skips. Either may be
+// null. `tree` holds K3's (2 * leaves, 8) tree boxes and `sub` the
+// (m, ceil(c / 32), 8) group boxes every instance tests (a launch without
+// them, or K3 without a tree or with more than 32 groups a cluster, is
+// refused); `next_chunk` (one int, zeroed by the caller) is the
+// shared-memory instance's work counter.
 extern "C" int cutrace_fused_forward(
     const float* rays, const float* tri, const float* aabb,
     const float* planes, const float* spheres, const float* mats,
@@ -601,13 +689,15 @@ extern "C" int cutrace_fused_forward(
   cudaStream_t st = (cudaStream_t)stream;
   const bool refl = any_refl != 0, transp = any_transp != 0;
   if (instance == kInstanceK1Shared) {
+    const auto kernel = tally ? fused_forward_shared_tally_kernel
+                              : fused_forward_shared_kernel;
     const size_t bytes =
         4 * shared_floats(m, c, n_planes, n_spheres, n_mats, n_lights);
     int limit = 0, dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = (cudaError_t)cutrace_shared_limit(&limit);
     if (err != cudaSuccess) return (int)err;
     if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(fused_forward_shared_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -615,11 +705,11 @@ extern "C" int cutrace_fused_forward(
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fused_forward_shared_kernel, kSmemBlock, bytes);
+          &per_sm, kernel, kSmemBlock, bytes);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (n_rays + kSmemBlock - 1) / kSmemBlock;
     const int grid = min(tiles, max(per_sm, 1) * sms);
-    fused_forward_shared_kernel<<<grid, kSmemBlock, bytes, st>>>(
+    kernel<<<grid, kSmemBlock, bytes, st>>>(
         rays, s, ambient, out, n_rays, bounces, shadow_steps, refl, transp,
         fudge, tp, tally, next_chunk);
     return (int)cudaGetLastError();
@@ -627,6 +717,10 @@ extern "C" int cutrace_fused_forward(
   const int grid = (n_rays + kBlock - 1) / kBlock;
   if (instance == kInstanceK3)
     fused_forward_kernel<true><<<grid, kBlock, 0, st>>>(
+        rays, s, ambient, out, n_rays, bounces, shadow_steps, refl, transp,
+        fudge, tp, tally);
+  else if (instance == kInstanceK1Global && tally)
+    fused_forward_global_tally_kernel<<<grid, kBlock, 0, st>>>(
         rays, s, ambient, out, n_rays, bounces, shadow_steps, refl, transp,
         fudge, tp, tally);
   else if (instance == kInstanceK1Global)
@@ -639,8 +733,8 @@ extern "C" int cutrace_fused_forward(
 }
 
 // The resources of an instance's kernel as compiled (registers, local
-// bytes, static shared bytes, max threads a block) into out[4]; returns the
-// CUDA error code.
+// bytes, static shared bytes, max threads a block; K1's: the kernel a
+// launch without a tally runs) into out[4]; returns the CUDA error code.
 extern "C" int cutrace_fused_forward_attributes(int instance, int* out) {
   if (instance == kInstanceK1Global)
     return kernel_attributes(fused_forward_kernel<false>, out);

@@ -329,11 +329,12 @@ def _ptr(t):
 
 
 def k1_shared_bytes(soa, tables: KernelTables) -> int:
-    """Bytes K1's shared-memory instance stages per block: the slot rows,
-    cluster and group boxes and the rows of the scene's planes, spheres,
-    materials and lights (csrc/fused_forward.cu shared_floats)."""
+    """Bytes of shared memory K1's shared-memory instance takes per block:
+    the staged slot rows, cluster and group boxes and rows of the scene's
+    planes, spheres, materials and lights, and the root box it folds from
+    the cluster boxes (csrc/fused_forward.cu shared_floats)."""
     return 4 * (tables.tri.numel() + tables.aabb.numel()
-                + tables.sub.numel()
+                + tables.sub.numel() + pc._AABB_ROWS
                 + (soa.n_planes + soa.n_spheres) * _PS_ROWS
                 + tables.mat.shape[0] * _MAT_ROWS
                 + soa.n_lights * _LIGHT_ROWS)
@@ -412,8 +413,9 @@ def _fused_forward_cuda(soa, tables: KernelTables, o, d, fudge, bounces,
     it also returns the codes as an (R, K) view of its (K, R_pad) buffer;
     `tally`, a zeroed (pc.TALLY_COUNTS,) int64 CUDA tensor, receives the
     casts, admitted cluster visits, slab tests, the cluster visits the
-    casts need whatever the traversal (csrc/cast.cuh needed_visits), and
-    the sub-box tests and groups scanned. Marks (utils.tracing) just
+    casts need whatever the traversal (csrc/cast.cuh needed_visits), the
+    sub-box tests, the groups scanned and K1's root skips (K1 counts in a
+    second kernel of its instance, the same cull). Marks (utils.tracing) just
     before and after the launch end the phases `pack` (the rays packed,
     the codes filled) and `forward` (the kernel)."""
     from cutrace_tpu_torch.ops import _build

@@ -45,10 +45,11 @@ FLAT_MAX_M = 32
 # The kernel's instances (csrc/cluster_cast.cu kInstance*).
 _K4_FLAT, _K4_TREE = 0, 1
 # Counts of a kernel tally (csrc/cast.cuh Tally, kTallyCounts): casts,
-# admitted cluster visits, slab tests (cluster and tree boxes), needed
-# visits, sub-box slab tests and groups whose slots were tested (the last
-# two K1's and K3's alone).
-TALLY_COUNTS = 6
+# admitted cluster visits, slab tests (root, cluster and tree boxes),
+# needed visits, sub-box slab tests and groups whose slots were tested
+# (these two K1's and K3's alone), and casts that failed the root box test
+# (K1's alone).
+TALLY_COUNTS = 7
 
 _BIG = 2**30
 # per-slot rows of the (M, C, _TRI_ROWS) triangle table; row 23 is zero.

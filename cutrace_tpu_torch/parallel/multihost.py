@@ -14,10 +14,10 @@ the same run (`frame_ms`, `eager_ms`: means of --reps), every rank's
 program frames one at a time (`frame_samples_ms`: --reps samples a rank,
 one CUDA-event pair a frame), every rank's kernel launches over those
 frames (`sample_launches`), every rank's forward-kernel tally of its
-run (`work`: casts, admitted cluster visits, slab tests, needed visits;
-"not measured" on the CPU or off the fused tiles route), the programs
-captured, the time it took to prepare its shard, one rank's render of
-the same frame, and the pixels in which they differ:
+run (`work`: the counts of TALLY_KEYS; "not measured" on the CPU or
+off the fused tiles route), the programs captured, the time it took to
+prepare its shard, one rank's render of the same frame, and the pixels
+in which they differ:
 
     torchrun --nproc_per_node 4 -m cutrace_tpu_torch.parallel.multihost \
         scenes/bunny.json [--prims 2] [--accel pallas] [--device cpu] \
@@ -63,7 +63,8 @@ from cutrace_tpu_torch.utils.profiling import sample_ms
 
 NOT_MEASURED = "not measured"
 # a forward-kernel tally's counts (utils.roofline.tally_of)
-TALLY_KEYS = ("casts", "visits", "slabs", "needed", "sub_slabs", "groups")
+TALLY_KEYS = ("casts", "visits", "slabs", "needed", "sub_slabs", "groups",
+              "root_skips")
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -238,10 +239,10 @@ def _fit_rows(prepared, image, mesh: sh.Mesh, args) -> dict:
 
 def _rank_work(sharded: sh.ShardedScene, bounces: int):
     """This rank's forward-kernel tally (utils.roofline.tally_of: casts,
-    admitted cluster visits, slab tests, needed visits, sub-box tests
-    and groups scanned) over its run of
-    one eager frame, the same launch render_sharded makes; None off the
-    card or off the fused tiles route."""
+    admitted cluster visits, slab tests, needed visits, sub-box tests,
+    groups scanned and root skips) over its run of one eager frame, the
+    same launch render_sharded makes; None off the card or off the fused
+    tiles route."""
     from cutrace_tpu_torch.ops import fused
     from cutrace_tpu_torch.render import renderer
     from cutrace_tpu_torch.utils.roofline import tally_of

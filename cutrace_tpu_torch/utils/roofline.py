@@ -52,7 +52,7 @@ def forward_bound(soa, accel, tables, n_rays, tally, code_rows):
     names = ["tri", "aabb", "plane", "sphere", "mat", "lights", "ambient"]
     table_bytes = sum(getattr(tables, f).numel() * 4 for f in names)
     nbytes = n_rays * (8 + 7 + code_rows) * 4 + table_bytes
-    casts, _, slabs, needed, sub_slabs, groups = (
+    casts, _, slabs, needed, sub_slabs, groups, _ = (
         int(x) for x in tally.tolist())
     per_cast = (soa.n_planes * OPS_PLANE + soa.n_spheres * OPS_SPHERE
                 + OPS_CAST)
@@ -113,8 +113,8 @@ def vjp_bound(soa, codes, bounces):
 def tally_of(fn, device="cuda"):
     """Run fn(tally) on a zeroed (TALLY_COUNTS,) int64 tally on `device`
     (a kernel wrapper's `tally=`: casts, admitted visits, slab tests,
-    needed visits, sub-box tests, groups scanned); return it once the card
-    is done."""
+    needed visits, sub-box tests, groups scanned, root skips); return it
+    once the card is done."""
     tally = torch.zeros(TALLY_COUNTS, dtype=torch.int64, device=device)
     fn(tally)
     if tally.is_cuda:

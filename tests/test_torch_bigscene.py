@@ -340,7 +340,8 @@ def test_k1_tables_carry_sub_boxes(scenes_dir, levels, size):
     its kernel tables carry a box per group (_check_grouped_tables): every
     table equals, bit for bit, those of an Accel whose order and valid
     are gathered by the slots; K1's shared-memory instance stages the
-    group boxes' bytes besides the rest."""
+    group boxes' bytes besides the rest, and holds the 32-byte root box
+    it folds from the cluster boxes."""
     ts = scene_to_soa(port_scene(_bunny(scenes_dir, levels, 8, 8)),
                       device="cpu")
     accel = tbvh.build_accel(ts, size)
@@ -356,7 +357,8 @@ def test_k1_tables_carry_sub_boxes(scenes_dir, levels, size):
     rest = 4 * (kt.tri.numel() + kt.aabb.numel()
                 + (ts.n_planes + ts.n_spheres) * 12 + kt.mat.shape[0] * 8
                 + ts.n_lights * 8)
-    assert tfused.k1_shared_bytes(ts, kt) == rest + 4 * m * (c // 32) * 8
+    assert tfused.k1_shared_bytes(ts, kt) == (rest + 4 * m * (c // 32) * 8
+                                              + 32)
 
 
 @pytest.mark.parametrize("kind", tbvh.KINDS)
@@ -421,16 +423,32 @@ def test_k1_tables_carry_sub_boxes_on_every_path(scenes_dir, monkeypatch,
         _check_grouped_tables(soa, accel, tfused.kernel_tables(soa, accel))
 
 
-def _slab_np(box, o, inv):
-    """csrc/cast.cuh slab in float32 numpy: (R, 8) boxes, (R, 3) rays."""
-    with np.errstate(invalid="ignore"):
+def _slab_span_np(box, o, inv):
+    """csrc/cast.cuh slab's entry and exit in float32 numpy: (R, 8)
+    boxes, (R, 3) rays; an axis with a NaN bound is unbounded."""
+    with np.errstate(invalid="ignore", over="ignore"):
         t1 = (box[:, 0:3] - o) * inv
         t2 = (box[:, 3:6] - o) * inv
     nan = np.isnan(t1) | np.isnan(t2)
     lo = np.where(nan, np.float32(0), np.minimum(t1, t2))
     hi = np.where(nan, np.float32(np.inf), np.maximum(t1, t2))
-    entry = np.maximum(lo.max(axis=1), np.float32(0))
-    return entry <= hi.min(axis=1), entry
+    return np.maximum(lo.max(axis=1), np.float32(0)), hi.min(axis=1)
+
+
+def _slab_np(box, o, inv):
+    """csrc/cast.cuh slab in float32 numpy: (R, 8) boxes, (R, 3) rays."""
+    entry, exit_ = _slab_span_np(box, o, inv)
+    return entry <= exit_, entry
+
+
+def _root_np(aabb):
+    """csrc/cast.cuh root_box in float32 numpy: the (8,) root box of (M,
+    8) boxes, per axis the least and the greatest of both corners' bounds,
+    NaN on an axis where any box has a NaN."""
+    root = np.zeros(8, np.float32)
+    root[0:3] = np.minimum(aabb[:, 0:3], aabb[:, 3:6]).min(axis=0)
+    root[3:6] = np.maximum(aabb[:, 0:3], aabb[:, 3:6]).max(axis=0)
+    return root
 
 
 def _visit_np(tri, mi, o, d, mind):
@@ -466,14 +484,16 @@ def _merge(best_t, best_k, rows, t, k):
     best_k[rows] = np.where(better, k, best_k[rows])
 
 
-def _flat_loop_np(kt, o, d, mind, groups=False):
+def _flat_loop_np(kt, o, d, mind, groups=False, root=False):
     """K1's flat loop (csrc/cast.cuh nearest_triangle_flat), ray by ray:
-    the clusters in index order, each admitted when the ray enters its
-    box at or before its best t; an admitted cluster's slots tested whole
-    (the loop before the group level), or with `groups` those of the
-    groups whose boxes the ray enters at or before its best t so far, in
-    index order (_visit_groups_np, whose cut at the visit's start adds
-    nothing here). Returns (t, key, slots tested a ray)."""
+    with `root` the root box first, a ray outside it testing no cluster
+    box; then the clusters in index order, each admitted when the ray
+    enters its box at or before its best t; an admitted cluster's slots
+    tested whole (the loop before the group level), or with `groups`
+    those of the groups whose boxes the ray enters at or before its best
+    t so far, in index order (_visit_groups_np, whose cut at the visit's
+    start adds nothing here). Returns (t, key, slots tested a ray, root
+    and cluster slab tests a ray)."""
     tri, aabb = kt.tri.numpy(), kt.aabb.numpy()
     r = o.shape[0]
     with np.errstate(divide="ignore"):
@@ -481,9 +501,17 @@ def _flat_loop_np(kt, o, d, mind, groups=False):
     best_t = np.full(r, np.inf, np.float32)
     best_k = np.full(r, 2**30, np.float32)
     tested = np.zeros(r, np.int64)
+    slabs = np.zeros(r, np.int64)
+    inside = np.ones(r, bool)
+    if root:
+        hit, entry = _slab_np(np.broadcast_to(_root_np(aabb), (r, 8)), o,
+                              inv)
+        inside = hit & (entry <= best_t)
+        slabs += 1
     for mi in range(aabb.shape[0]):
+        slabs[inside] += 1
         hit, entry = _slab_np(np.broadcast_to(aabb[mi], (r, 8)), o, inv)
-        rows = np.nonzero(hit & (entry <= best_t))[0]
+        rows = np.nonzero(inside & hit & (entry <= best_t))[0]
         if not rows.size:
             continue
         if groups:
@@ -493,16 +521,18 @@ def _flat_loop_np(kt, o, d, mind, groups=False):
         tested[rows] += tri.shape[1]
         _merge(best_t, best_k, rows,
                *_visit_np(tri, mi, o[rows], d[rows], mind))
-    return best_t, best_k, tested
+    return best_t, best_k, tested, slabs
 
 
-def _flat_any_np(kt, o, d, mind, ldist, groups=False):
+def _flat_any_np(kt, o, d, mind, ldist, groups=False, root=False):
     """K1's occlusion query (csrc/cast.cuh any_triangle_flat), ray by
-    ray: the clusters in index order, each admitted when the ray enters
-    its box before its ldist and has no hit yet; an admitted cluster's
-    slots tested whole, or with `groups` the groups whose boxes the ray
-    enters before ldist, in index order until one holds a hit. Returns (a triangle with mind < t < ldist?, slots tested a
-    ray)."""
+    ray: with `root` the root box first, entered before ldist or the ray
+    tests no cluster box; then the clusters in index order, each admitted
+    when the ray enters its box before its ldist and has no hit yet; an
+    admitted cluster's slots tested whole, or with `groups` the groups
+    whose boxes the ray enters before ldist, in index order until one
+    holds a hit. Returns (a triangle with mind < t < ldist?, slots tested
+    a ray, root and cluster slab tests a ray)."""
     tri, aabb = kt.tri.numpy(), kt.aabb.numpy()
     c = tri.shape[1]
     r = o.shape[0]
@@ -510,11 +540,19 @@ def _flat_any_np(kt, o, d, mind, ldist, groups=False):
         inv = np.float32(1) / d
     found = np.zeros(r, bool)
     tested = np.zeros(r, np.int64)
+    slabs = np.zeros(r, np.int64)
+    inside = np.ones(r, bool)
+    if root:
+        hit, entry = _slab_np(np.broadcast_to(_root_np(aabb), (r, 8)), o,
+                              inv)
+        inside = hit & (entry < ldist)
+        slabs += 1
     spans = ([(g * 32, min(c, (g + 1) * 32)) for g in range(-(-c // 32))]
              if groups else [(0, c)])
     for mi in range(aabb.shape[0]):
+        slabs[inside & ~found] += 1
         hit, entry = _slab_np(np.broadcast_to(aabb[mi], (r, 8)), o, inv)
-        adm = hit & (entry < ldist) & ~found
+        adm = inside & hit & (entry < ldist) & ~found
         for g, (lo, hi) in enumerate(spans):
             rows = adm & ~found
             if groups:
@@ -526,7 +564,7 @@ def _flat_any_np(kt, o, d, mind, ldist, groups=False):
                 tested[rows] += hi - lo
                 t, _ = _visit_np(tri[:, lo:hi], mi, o[rows], d[rows], mind)
                 found[rows] = t < ldist[rows]
-    return found, tested
+    return found, tested, slabs
 
 
 def _visit_groups_np(tri, sub, mi, sel, o, d, inv, mind, best_t, best_k,
@@ -670,7 +708,7 @@ def test_ordered_walk_finds_the_flat_winners(scenes_dir, sub):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     d[:256, 1] = 0.0  # axis-parallel rays: 0 * inf slab bounds
     mind = np.float32(1e-3)
-    flat_t, flat_k, _ = _flat_loop_np(kt, o, d, mind)
+    flat_t, flat_k, *_ = _flat_loop_np(kt, o, d, mind)
     walk_t, walk_k, slabs, tested = _tree_walk_np(kt, o, d, mind, sub=sub)
     assert np.isfinite(flat_t).sum() > n // 4
     assert np.array_equal(walk_k, flat_k)
@@ -691,15 +729,15 @@ def _sampled_warps(ts, n_warps, seed):
     return o[idx], d[idx]
 
 
-@pytest.mark.parametrize("cast", ["nearest", "any"])
-def test_k1_groups_find_the_flat_winners(scenes_dir, cast):
-    """A float32 numpy emulation of K1's flat loop with the group level,
-    on the 1080p bunny's K1 tables (C=64 M=16, two groups a cluster):
-    over 512 seeded warps of the block order's camera rays (nearest
-    casts), or their shadow rays to the four lights from the primary hits
-    (occlusion queries), it gives the whole-cluster loop's (t, key)
-    winners, or occlusion flags, bit for bit, and tests fewer than 0.8x
-    its slots a cast."""
+def _k1_casts(scenes_dir, cast):
+    """The 1080p bunny's K1 tables (C=64 M=16, two groups a cluster) and
+    the casts of 512 seeded warps of the block order's camera rays:
+    (tables, o, d, mind, None, warp) for the nearest casts, the camera
+    rays themselves; for the occlusion queries their shadow rays to the
+    four lights from the primary hits, with each light's distance as
+    ldist. `warp` numbers the casts a warp makes together: 32 camera rays,
+    or one light's shadow rays from one warp's hits. Origins are
+    recentred by the scene center, as the kernel's are."""
     ts = scene_to_soa(port_scene(_bunny(scenes_dir, 0, 1920, 1080)),
                       device="cpu")
     accel = TR.prepare(ts, accel="fused").accel
@@ -709,30 +747,135 @@ def test_k1_groups_find_the_flat_winners(scenes_dir, cast):
     o0 = ts.scene_center
     mind = np.float32(1e-3)
     if cast == "nearest":
-        ro, rd = (o - o0).numpy(), d.numpy()
-        flat_t, flat_k, whole = _flat_loop_np(kt, ro, rd, mind)
-        got_t, got_k, tested = _flat_loop_np(kt, ro, rd, mind, groups=True)
+        warp = np.arange(o.shape[0]) // 32
+        return kt, (o - o0).numpy(), d.numpy(), mind, None, warp
+    hit = TI.ray_cast(ts, o, d, 1e-3, tbvh.dense_candidates_fn(accel),
+                      need_uv=False)
+    p = hit.point[hit.hit]
+    hit_warp = np.nonzero(hit.hit.numpy())[0] // 32
+    ro, rd, ld, warp = [], [], [], []
+    for li in range(ts.n_lights):
+        direction, distance = TS.light_direction_to(ts, li, p)
+        ro.append(p - o0)
+        rd.append(TS._normalize(direction))
+        ld.append(distance * TS._norm(direction))
+        warp.append(hit_warp + li * 512)
+    ro, rd, ld = (torch.cat(x).numpy() for x in (ro, rd, ld))
+    assert ro.shape[0] > 4 * 10000
+    return kt, ro, rd, mind, ld, np.concatenate(warp)
+
+
+@pytest.mark.parametrize("cast", ["nearest", "any"])
+def test_k1_groups_find_the_flat_winners(scenes_dir, cast):
+    """A float32 numpy emulation of K1's flat loop with the group level,
+    on the 1080p bunny's K1 tables (C=64 M=16, two groups a cluster):
+    over 512 seeded warps of the block order's camera rays (nearest
+    casts), or their shadow rays to the four lights from the primary hits
+    (occlusion queries), it gives the whole-cluster loop's (t, key)
+    winners, or occlusion flags, bit for bit, and tests fewer than 0.8x
+    its slots a cast."""
+    kt, ro, rd, mind, ld, _ = _k1_casts(scenes_dir, cast)
+    if cast == "nearest":
+        flat_t, flat_k, whole, _ = _flat_loop_np(kt, ro, rd, mind)
+        got_t, got_k, tested, _ = _flat_loop_np(kt, ro, rd, mind,
+                                                groups=True)
         assert np.isfinite(flat_t).sum() > 1000
         assert np.array_equal(got_k, flat_k)
         assert np.array_equal(got_t, flat_t)
     else:
-        hit = TI.ray_cast(ts, o, d, 1e-3, tbvh.dense_candidates_fn(accel),
-                          need_uv=False)
-        p = hit.point[hit.hit]
-        ro, rd, ld = [], [], []
-        for li in range(ts.n_lights):
-            direction, distance = TS.light_direction_to(ts, li, p)
-            ro.append(p - o0)
-            rd.append(TS._normalize(direction))
-            ld.append(distance * TS._norm(direction))
-        ro, rd, ld = (torch.cat(x).numpy() for x in (ro, rd, ld))
-        assert ro.shape[0] > 4 * 10000
-        flat, whole = _flat_any_np(kt, ro, rd, mind, ld)
-        got, tested = _flat_any_np(kt, ro, rd, mind, ld, groups=True)
+        flat, whole, _ = _flat_any_np(kt, ro, rd, mind, ld)
+        got, tested, _ = _flat_any_np(kt, ro, rd, mind, ld, groups=True)
         assert flat.sum() > 1000
         assert np.array_equal(got, flat)
     assert whole.sum() > 100000
     assert tested.mean() < 0.8 * whole.mean()
+
+
+@pytest.mark.parametrize("cast", ["nearest", "any"])
+def test_k1_root_box_keeps_the_flat_winners(scenes_dir, cast):
+    """The root box test before K1's flat loop (csrc/cast.cuh root_box,
+    nearest_triangle_flat, any_triangle_flat), emulated in float32 numpy
+    with the group level over the casts of
+    test_k1_groups_find_the_flat_winners: the (t, key) winners, or the
+    occlusion flags, and the slots tested are the loop's without it, bit
+    for bit; a ray outside the root box makes one slab test, the slab
+    tests a cast fall; and a warp with no lane in the root box (one that
+    leaves the loop at once) is as common as measured here: 52.1 % of the
+    camera warps, 56.8 % of one light's shadow rays from a warp's hits."""
+    kt, ro, rd, mind, ld, warp = _k1_casts(scenes_dir, cast)
+    root = np.broadcast_to(_root_np(kt.aabb.numpy()), (ro.shape[0], 8))
+    with np.errstate(divide="ignore"):
+        hit, entry = _slab_np(root, ro, np.float32(1) / rd)
+    if cast == "nearest":
+        flat_t, flat_k, flat_tested, flat_slabs = _flat_loop_np(
+            kt, ro, rd, mind, groups=True)
+        got_t, got_k, tested, slabs = _flat_loop_np(kt, ro, rd, mind,
+                                                    groups=True, root=True)
+        assert np.isfinite(flat_t).sum() > 1000
+        assert np.array_equal(got_k, flat_k)
+        assert np.array_equal(got_t, flat_t)
+        inside, share = hit, 0.52
+    else:
+        flat, flat_tested, flat_slabs = _flat_any_np(kt, ro, rd, mind, ld,
+                                                     groups=True)
+        got, tested, slabs = _flat_any_np(kt, ro, rd, mind, ld, groups=True,
+                                          root=True)
+        assert flat.sum() > 1000
+        assert np.array_equal(got, flat)
+        inside, share = hit & (entry < ld), 0.56
+    assert np.array_equal(tested, flat_tested)
+    assert slabs.mean() < flat_slabs.mean()
+    assert (slabs[~inside] == 1).all()
+    lanes_in = np.bincount(warp, weights=inside)[np.unique(warp)]
+    assert (lanes_in == 0).mean() >= share
+
+
+def test_root_box_contains_every_cluster(scenes_dir):
+    """The root box's slab entry is <= and its exit >= each cluster
+    box's, in the float32 emulation of csrc/cast.cuh slab: over the 1080p
+    bunny's K1 cluster boxes and seeded boxes beside them (one with its
+    low and high swapped, one with a NaN coordinate, one reaching to
+    infinity), for seeded rays and axis-parallel rays (+0 and -0
+    components, origins on a box's bound: 0 * inf)."""
+    ts = scene_to_soa(port_scene(_bunny(scenes_dir, 0, 1920, 1080)),
+                      device="cpu")
+    bunny = tfused.kernel_tables(ts, TR.prepare(ts, accel="fused").accel
+                                 ).aabb.numpy()
+    rng = np.random.default_rng(29)
+    lo = rng.normal(0.0, 1.0, (12, 3)).astype(np.float32)
+    extra = np.zeros((12, 8), np.float32)
+    extra[:, 0:3] = lo
+    extra[:, 3:6] = lo + rng.uniform(0.01, 1.0, (12, 3)).astype(np.float32)
+    extra[0, [0, 3]] = extra[0, [3, 0]]  # low above high
+    extra[1, 4] = np.inf
+    boxes = np.concatenate([bunny, extra])
+    sets = {"bunny": bunny, "seeded": boxes}
+    nan_boxes = boxes.copy()
+    nan_boxes[2, 1] = np.nan
+    sets["nan"] = nan_boxes
+    n = 4096
+    o = rng.normal(0.0, 1.5, (n, 3)).astype(np.float32)
+    d = rng.normal(0.0, 1.0, (n, 3)).astype(np.float32)
+    # axis-parallel rays: every third of the first 1536 starts on a bound
+    d[:512, 0], d[512:1024, 1], d[1024:1536, 2] = 0.0, -0.0, 0.0
+    for k in range(0, 1536, 3):
+        axis = k // 512
+        o[k, axis] = boxes[k % boxes.shape[0], axis + 3 * (k % 2)]
+    with np.errstate(divide="ignore"):
+        inv = np.float32(1) / d
+    assert np.isinf(inv).sum() == 1536
+    for name, b in sets.items():
+        root = _root_np(b)
+        assert np.isnan(root).any() == (name == "nan")
+        r_in, r_out = _slab_span_np(np.broadcast_to(root, (n, 8)), o, inv)
+        entered = 0
+        for mi in range(b.shape[0]):
+            c_in, c_out = _slab_span_np(np.broadcast_to(b[mi], (n, 8)), o,
+                                        inv)
+            assert (r_in <= c_in).all(), (name, mi)
+            assert (r_out >= c_out).all(), (name, mi)
+            entered += int((c_in <= c_out).sum())
+        assert entered > 100, name
 
 
 def test_big_plain_matches_jax_fused(scenes_dir):

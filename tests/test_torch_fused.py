@@ -23,6 +23,7 @@ from cutrace_tpu_torch.ops import _build
 from cutrace_tpu_torch.ops import bvh as tbvh
 from cutrace_tpu_torch.ops import fused as tfused
 from cutrace_tpu_torch.ops import pallas_cast as tpc
+from cutrace_tpu_torch.parallel import multihost as tmh
 from cutrace_tpu_torch.render import renderer as TR
 from cutrace_tpu_torch.scene.soa import scene_to_soa
 from test_fused import _compare
@@ -226,6 +227,7 @@ def test_kernel_row_layout_matches_source():
     # K3's group boxes and the tally the wrappers allocate
     assert f"kSubSlots = {tbvh.SUB_GROUP};" in src
     assert f"kTallyCounts = {tpc.TALLY_COUNTS};" in src
+    assert tpc.TALLY_COUNTS == 7 == len(tmh.TALLY_KEYS)
     assert "kGroup" not in src and not hasattr(tbvh, "GROUP")
     # the tree K3 walks is ops.bvh's
     assert f"kTreeArity = {tbvh.TREE_ARITY};" in src
@@ -387,12 +389,12 @@ def test_wrapper_launch_contract(scenes_dir, monkeypatch):
 @pytest.mark.parametrize("case", ["bunny", "bunny 4k", "bunny, small card"])
 def test_k1_size_rule(scenes_dir, monkeypatch, case):
     """K1's instance is picked before the launch from the partition's
-    staged bytes and the card's shared-memory limit: bunny (M=16, C=64,
-    100 KB with its group boxes) fits an H100 block and runs the
-    shared-memory instance (LAUNCHES); the 4k bunny (C=128, M=32, 398
-    KB), or bunny on a card
-    whose limit is below its bytes, runs the global-memory instance
-    (GLOBAL_LAUNCHES). A failed launch raises and counts nothing."""
+    staged bytes, with the 32-byte root box it folds, and the card's
+    shared-memory limit: bunny (M=16, C=64, 100 KB with its group boxes)
+    fits an H100 block and runs the shared-memory instance (LAUNCHES);
+    the 4k bunny (C=128, M=32, 398 KB), or bunny on a card whose limit is
+    below its bytes, runs the global-memory instance (GLOBAL_LAUNCHES). A
+    failed launch raises and counts nothing."""
     limit = 99000 if case == "bunny, small card" else 232448
     lib = _fake_library(monkeypatch, limit)
     if case == "bunny 4k":
@@ -406,7 +408,7 @@ def test_k1_size_rule(scenes_dir, monkeypatch, case):
     tables = tfused.kernel_tables(soa, accel)
     m, c = accel.order.shape
     staged = tfused.k1_shared_bytes(soa, tables)
-    assert staged == 4 * (m * c * 24 + m * 8 + m * (c // 32) * 8
+    assert staged == 4 * (m * c * 24 + m * 8 + m * (c // 32) * 8 + 8
                           + (5 + 0) * 12 + tables.mat.shape[0] * 8 + 4 * 8)
     want = (tfused._K1_SHARED if case == "bunny" else tfused._K1_GLOBAL)
     assert (staged <= limit) == (want == tfused._K1_SHARED)

@@ -70,15 +70,18 @@ def test_forward_bound_is_its_formula(levels, code_rows):
     bunny, C=256 M=64, whose tree and group boxes do) and a hand-made
     tally: bytes of rays, outputs, codes and the seven tables; operations
     of the needed cluster visits' slot tests, or of the slots tested (32
-    a group scanned in K1's and K3's sub-box visits), the slab tests and
-    sub-box tests and each cast's planes, spheres and set-up."""
+    a group scanned in K1's and K3's sub-box visits), the slab tests (K1's
+    root box tests among them) and sub-box tests and each cast's planes,
+    spheres and set-up; K1's root skips add nothing."""
     p = _prepared("bunny.json", 16, 9, levels)
     soa, accel = p.soa, p.accel
     tables = tfused.kernel_tables(soa, accel)
     m, c = accel.order.shape
     casts, visits, slabs, needed = 1200, 5300, 9100, 2100
     sub_slabs, groups = (42400, 9000) if levels else (10600, 6100)
-    tally = torch.tensor([casts, visits, slabs, needed, sub_slabs, groups])
+    root_skips = 0 if levels else 700
+    tally = torch.tensor([casts, visits, slabs, needed, sub_slabs, groups,
+                          root_skips])
     n_rays = 144
     got = roofline.forward_bound(soa, accel, tables, n_rays, tally,
                                  code_rows)
@@ -151,12 +154,12 @@ def test_tally_of_hands_over_a_zeroed_tally():
 
     def fill(t):
         seen.append(t.clone())
-        t += torch.tensor([6, 5, 4, 3, 2, 1])
+        t += torch.tensor([7, 6, 5, 4, 3, 2, 1])
 
     got = roofline.tally_of(fill, device="cpu")
     assert seen[0].dtype == torch.int64 and not seen[0].any()
-    assert tuple(seen[0].shape) == (tpc.TALLY_COUNTS,) == (6,)
-    assert got.tolist() == [6, 5, 4, 3, 2, 1]
+    assert tuple(seen[0].shape) == (tpc.TALLY_COUNTS,) == (7,)
+    assert got.tolist() == [7, 6, 5, 4, 3, 2, 1]
 
 
 def _images(step=True):
